@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of the CAPSim reproduction (``src/repro`` is the
+JAX reference).
+
+File paths mirror the reference package, so each module names the file
+it ports.  The package imports ``torch`` and numpy and never ``jax`` or
+``repro``: the framework-free host modules it needs (``isa``,
+``core.standardize``, ``core.context``, ``core.engine_config``, ``obs``)
+are its own copies.  The attention hot path runs on hand-written CUDA
+kernels for Hopper (``csrc/``), built with ``nvcc`` at first use.
+"""

@@ -1,0 +1,242 @@
+"""Static-instruction RT cache: the two-level inference split (port of
+``repro/core/rt_cache.py``).
+
+An instruction's RT vector (paper Eq 5-8) depends only on its static
+standardized tokens, so each program's ``n_static`` unique token rows go
+through the 4-layer instruction encoder once (``build``) and every clip
+batch becomes an ``rt_table[rt_idx]`` gather (``serve``).  The cache is
+content-addressed by row bytes, so rows dedupe across programs; row id 0
+is the all-<PAD> row that masked clip slots gather.
+
+The table is one preallocated device tensor that ``_flush`` writes in
+place (the reference rebuilds an immutable array on every ``.at[].set``).
+Identity therefore says nothing about content here: ``version`` counts
+the writes, and anything derived from the table (the fused step's serving
+plan) keys on it.  In-place writes only fill rows no batch has gathered
+yet, and run in stream order after every batch dispatched before them.
+
+The reference's persistent store (``store_dir``) needs the port of
+``checkpoint/ckpt.py`` and is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import predictor as pred_mod
+from repro_torch.core.standardize import dedupe_token_rows
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import SPAN_SECONDS_TOTAL, Observability
+
+PAD_ROW_ID = 0
+
+# Every encode pass runs at least this many rows (the reference's XLA-CPU
+# row-stability class).  The port keeps the bucket ladder so an encode
+# pass sees the same shapes as the reference's.
+ENCODE_STABLE_MIN = 32
+
+
+def encode_bucket(n: int) -> int:
+    """Pad target for an encode pass: next power of two >=
+    max(n, ENCODE_STABLE_MIN), bounding pass shapes to ~log2(n_static)."""
+    b = ENCODE_STABLE_MIN
+    while b < n:
+        b *= 2
+    return b
+
+
+class _RowsAvoidedMixin:
+    @property
+    def rows_avoided(self) -> int:
+        """Dynamic instruction-encoder rows the gather replaced."""
+        return max(self.n_rows_served - self.n_rows_encoded, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RTCacheStatsSnapshot(_RowsAvoidedMixin):
+    """Point-in-time copy of an :class:`RTCacheStats` view."""
+
+    n_rows_encoded: int = 0
+    n_encode_passes: int = 0
+    n_rows_served: int = 0
+    n_lookups: int = 0
+    build_seconds: float = 0.0
+
+
+class RTCacheStats(_RowsAvoidedMixin):
+    """Live view over the obs metrics registry for one cache instance;
+    with no arguments an all-zeros stand-in."""
+
+    def __init__(self, obs: Optional[Observability] = None,
+                 instance: str = ""):
+        self._obs = obs
+        self._instance = instance
+
+    def _val(self, name: str) -> float:
+        if self._obs is None:
+            return 0.0
+        return self._obs.metrics.value(name, instance=self._instance)
+
+    @property
+    def n_rows_encoded(self) -> int:
+        return int(self._val("capsim_rt_rows_encoded_total"))
+
+    @property
+    def n_encode_passes(self) -> int:
+        return int(self._val("capsim_rt_encode_passes_total"))
+
+    @property
+    def n_rows_served(self) -> int:
+        return int(self._val("capsim_rt_rows_served_total"))
+
+    @property
+    def n_lookups(self) -> int:
+        return int(self._val("capsim_rt_lookups_total"))
+
+    @property
+    def build_seconds(self) -> float:
+        if self._obs is None:
+            return 0.0
+        return self._obs.metrics.value(SPAN_SECONDS_TOTAL, span="rt.build",
+                                       instance=self._instance)
+
+    def freeze(self) -> RTCacheStatsSnapshot:
+        return RTCacheStatsSnapshot(
+            n_rows_encoded=self.n_rows_encoded,
+            n_encode_passes=self.n_encode_passes,
+            n_rows_served=self.n_rows_served,
+            n_lookups=self.n_lookups,
+            build_seconds=self.build_seconds)
+
+
+class RTCache:
+    """Content-addressed map from standardized token rows to rows of a
+    device-resident RT table.
+
+    ``ensure_rows`` returns global int32 row ids, encoding unseen rows in
+    one bucketed pass; ``table`` is the (capacity, E) tensor
+    ``forward_cached`` gathers from.  Capacity doubles when full (a new
+    tensor); ``version`` increments on every write.
+    """
+
+    def __init__(self, params, cfg, l_token: Optional[int] = None, *,
+                 capacity: int = 4096, device: DeviceLike = "cuda",
+                 obs: Optional[Observability] = None):
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.l_token = l_token
+        self.obs = obs if obs is not None else Observability()
+        m = self.obs.metrics
+        self.instance = m.next_instance("rt")
+        self._c_encoded = m.counter(
+            "capsim_rt_rows_encoded_total",
+            "Unique static rows run through the instruction encoder.",
+            ("instance",)).labels(instance=self.instance)
+        self._c_passes = m.counter(
+            "capsim_rt_encode_passes_total",
+            "Device encode passes (one per new-row flush).",
+            ("instance",)).labels(instance=self.instance)
+        self._c_served = m.counter(
+            "capsim_rt_rows_served_total",
+            "Dynamic (unmasked) rows answered by the RT gather.",
+            ("instance",)).labels(instance=self.instance)
+        self._c_lookups = m.counter(
+            "capsim_rt_lookups_total",
+            "Rows presented to ensure_rows.",
+            ("instance",)).labels(instance=self.instance)
+        self._index: Dict[bytes, int] = {}
+        self._table: Optional[torch.Tensor] = None
+        self._capacity = capacity
+        self._n = 0
+        self.version = 0
+        self.stats = RTCacheStats(self.obs, self.instance)
+
+    @property
+    def n_rows(self) -> int:
+        return self._n
+
+    @property
+    def table(self) -> torch.Tensor:
+        if self._table is None:
+            raise RuntimeError("RT cache is empty (no rows ensured)")
+        return self._table
+
+    def ensure_rows(self, rows: np.ndarray,
+                    keys: Optional[Sequence[bytes]] = None) -> np.ndarray:
+        """rows: (k, L_token) int32 standardized rows -> (k,) int32 global
+        RT row ids; unseen rows are encoded in one padded pass.  ``keys``
+        (the rows' ``tobytes()``) skips re-hashing."""
+        with self.obs.span("rt.build", instance=self.instance):
+            rows = np.ascontiguousarray(rows, dtype=np.int32)
+            if self.l_token is None:
+                self.l_token = rows.shape[1]
+            if rows.ndim != 2 or rows.shape[1] != self.l_token:
+                raise ValueError(f"rows must be (k, {self.l_token}), got "
+                                 f"{rows.shape}")
+            if keys is None:
+                keys = [r.tobytes() for r in rows]
+            self._c_lookups.inc(rows.shape[0])
+
+            new_rows: List[np.ndarray] = []
+            pending: Dict[bytes, int] = {}
+            if self._n == 0:                 # reserve the all-<PAD> row
+                pad = np.zeros(self.l_token, np.int32)
+                pending[pad.tobytes()] = PAD_ROW_ID
+                new_rows.append(pad)
+            ids = np.empty(rows.shape[0], np.int32)
+            index = self._index
+            for i, key in enumerate(keys):
+                gid = index.get(key)
+                if gid is None:
+                    gid = pending.get(key)
+                    if gid is None:
+                        gid = self._n + len(new_rows)
+                        pending[key] = gid
+                        new_rows.append(rows[i])
+                ids[i] = gid
+            if new_rows:
+                self._flush(np.stack(new_rows), pending)
+        return ids
+
+    def record_served(self, n: int) -> None:
+        """Count dynamic rows the gather answered."""
+        self._c_served.inc(n)
+
+    def index_clips(self, clip_tokens: np.ndarray) -> np.ndarray:
+        """Serving-path adapter: (n, L_clip, L_token) tokenized clips ->
+        (n, L_clip) int32 RT row ids.  All-<PAD> slots land on row 0."""
+        n, L, T = clip_tokens.shape
+        uniq, inv = dedupe_token_rows(clip_tokens.reshape(n * L, T))
+        ids = self.ensure_rows(uniq)
+        return ids[inv].reshape(n, L).astype(np.int32)
+
+    def _flush(self, rows: np.ndarray, pending: Dict[bytes, int]) -> None:
+        k = rows.shape[0]
+        bucket = encode_bucket(k)
+        if bucket != k:
+            rows = np.concatenate(
+                [rows, np.zeros((bucket - k, self.l_token), np.int32)])
+        rt = pred_mod.encode_instructions(
+            self.params, torch.as_tensor(rows, device=self.device),
+            self.cfg)[:k]
+        lo = self._n
+        while lo + k > self._capacity:
+            self._capacity *= 2
+        if self._table is None or self._table.shape[0] < self._capacity:
+            table = torch.zeros((self._capacity, rt.shape[1]),
+                                dtype=rt.dtype, device=self.device)
+            if self._table is not None and lo:
+                table[:lo] = self._table[:lo]
+            self._table = table
+        self._table[lo:lo + k] = rt
+        self.version += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # build time stays in stats
+        self._index.update(pending)
+        self._n += k
+        self._c_encoded.inc(k)
+        self._c_passes.inc()

@@ -1,0 +1,32 @@
+"""End-to-end CAPSim simulation (paper Fig 1, right-hand path), port of
+``repro/core/simulate.py::capsim_simulate``.
+
+Run the functional simulator, slice the trace into fixed-length clips,
+snapshot contexts at clip starts, tokenize, predict every clip's runtime
+in device batches, and sum.  ``capsim_simulate`` is the single-benchmark
+wrapper over ``repro_torch.core.engine.SimulationEngine``; use the engine
+directly when simulating more than one benchmark.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.core import standardize as std_mod
+from repro_torch.core.engine import SimResult, SimulationEngine
+from repro_torch.core.engine_config import EngineConfig
+from repro_torch.device import DeviceLike
+from repro_torch.isa import progen, timing
+
+__all__ = ["EngineConfig", "SimResult", "capsim_simulate"]
+
+
+def capsim_simulate(bench: progen.Benchmark, params, cfg,
+                    vocab: std_mod.Vocab,
+                    config: Optional[EngineConfig] = None, *,
+                    timing_params: Optional[timing.TimingParams] = None,
+                    device: DeviceLike = "cuda") -> SimResult:
+    """One benchmark through ``SimulationEngine.from_config``."""
+    engine = SimulationEngine.from_config(params, cfg, vocab, config,
+                                          timing_params=timing_params,
+                                          device=device)
+    return engine.simulate(bench)
