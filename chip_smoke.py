@@ -11,11 +11,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               source, all started together.
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main path's shapes and the reference kernel tests' sweeps,
-              in float32 (max abs err <= 2e-5) and bfloat16 (<= 2e-2).
+              in float32 and bfloat16.  Attention: max abs err <= 2e-5 /
+              2e-2.  SSD scan (``SSD_CASES``, the Mamba2 prefill shape, a
+              4-chunk state carry, a large-decay case, an all-padding
+              chunk): max abs err / max |plain| <= 1e-5 / 1e-2, for y and
+              the state.
   4. timing   each kernel at its path shapes (CUDA events after warm-up):
-              kernel, plain version, and one PyTorch library call computing
-              the same function (``scaled_dot_product_attention``, timed as
-              a yardstick only — the port never calls it), beside the least
+              kernel, plain version, and, where one PyTorch call computes
+              the same function, that call (``scaled_dot_product_attention``
+              for attention, timed as a yardstick only — the port never
+              calls it; none exists for the SSD scan), beside the least
               time the card could take (bytes at 3.35 TB/s, operations at
               67 TFLOP/s float32 or 989 TFLOP/s bfloat16, the larger).
   5. engine   ``SimulationEngine.run`` at the paper model's full width
@@ -26,6 +31,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               through the plain versions.  Checks: both kernels launched,
               predictions finite, fused vs unfused <= 1e-3 relative, card vs
               CPU <= 1e-4 relative, equal oracle cycles, bf16 within 1%.
+  6. mamba2   the LM zoo's Mamba2-780m at full width (48 layers, d_model
+              1536, 48 SSD heads x 64, d_state 128, vocab 50280 padded to
+              50288), seeded random parameters: ``generate`` over B=4
+              prompts of 4096 tokens + 16 greedy decode steps, in float32
+              (TF32 off) and with the parameters in bfloat16 (every launch
+              counter reset just before the two runs and read just after:
+              48 SSD launches per prefill).  Checks: finite logits, no
+              padded token id, card vs CPU on a 2-layer full-width model
+              (prompt 511 + 2 decode steps) <= 1e-4 relative, prefill(511)
+              + one decode step == prefill(512)'s last row <= 1e-4
+              relative; the bf16 vs f32 logits gap, the peak memory of each
+              run, and, under ``torch.profiler``, the device-busy time,
+              idle share and top kernels of one prefill and one decode step
+              in each dtype are reported.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, one JSON object ``{"kernels": [...]}``.  The last
@@ -46,6 +65,8 @@ BENCHMARKS = 3
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+SSD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+MAMBA2_BATCH, MAMBA2_PROMPT, MAMBA2_DECODE = 4, 4096, 16
 
 
 def require(ok: bool, what: str) -> None:
@@ -280,6 +301,136 @@ def time_kernels(torch, fa_ops, wa_ops):
 
 
 # --------------------------------------------------------------------- #
+# SSD scan
+# --------------------------------------------------------------------- #
+
+# (label, Bt, S, H, P, N, chunk, a_scale, pad_chunk): the reference kernel
+# tests' sweep (tests/test_kernels.py SSD_CASES: padding S=100, a single
+# chunk), the Mamba2-780m prefill shape, a 4-chunk state carry, dt·|A|
+# large enough that seg reaches -1e4 (the split exp form gives 0/0), and
+# an all-padding chunk (dt = x = B = C = 0 over the second chunk)
+SSD_PATH = ("mamba2_prefill", 4, 4096, 48, 64, 128, 256, 1.0, False)
+SSD_CHECKS = [
+    ("sweep", 2, 64, 4, 32, 64, 16, 1.0, False),
+    ("sweep", 1, 128, 2, 64, 128, 64, 1.0, False),
+    ("sweep_padding", 2, 100, 3, 16, 32, 32, 1.0, False),
+    ("sweep_one_chunk", 1, 256, 8, 64, 128, 256, 1.0, False),
+    SSD_PATH,
+    ("state_carry", 2, 1024, 8, 64, 128, 256, 1.0, False),
+    ("large_decay", 2, 300, 4, 64, 128, 256, 60.0, False),
+    ("padding_chunk", 1, 512, 4, 64, 128, 256, 1.0, True),
+]
+
+
+def ssd_inputs(torch, gen, Bt, S, H, P, N, dtype, a_scale=1.0,
+               pad_chunk=0):
+    """x, dt, B, C, A on the card, drawn as the reference tests draw
+    them; ``pad_chunk`` > 0 zeroes every step from that index on."""
+    x = torch.randn(Bt, S, H, P, generator=gen) * 0.5
+    dt = torch.randn(Bt, S, H, generator=gen).abs() * 0.4 + 0.01
+    B = torch.randn(Bt, S, N, generator=gen) * 0.3
+    C = torch.randn(Bt, S, N, generator=gen) * 0.3
+    A = (-torch.randn(H, generator=gen).abs() - 0.1) * a_scale
+    if pad_chunk:
+        for t in (x, dt, B, C):
+            t[:, pad_chunk:] = 0.0
+    return (x.to("cuda", dtype), dt.cuda(), B.to("cuda", dtype),
+            C.to("cuda", dtype), A.cuda())
+
+
+def rel_err(out, ref) -> float:
+    """max |out - ref| / max |ref|."""
+    return float((out.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def check_ssd(torch, ssd_ops):
+    """Every SSD case, both dtypes, kernel vs plain version on the card.
+    Returns {dtype: max abs err over the cases}."""
+    gen = torch.Generator().manual_seed(2)
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        worst = 0.0
+        for (label, Bt, S, H, P, N, q, a_scale, pad) in SSD_CHECKS:
+            args = ssd_inputs(torch, gen, Bt, S, H, P, N, tdt, a_scale,
+                              q if pad else 0)
+            y, st = ssd_ops.ssd_scan(*args, chunk=q)
+            yp, sp = ssd_ops.ssd_scan_plain(*args, chunk=q)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(y.float()).all()
+                         and torch.isfinite(st).all()),
+                    f"ssd {label} {dtype}: non-finite output")
+            ey, es = rel_err(y, yp), rel_err(st, sp)
+            abs_err = float(max((y.float() - yp.float()).abs().max(),
+                                (st - sp).abs().max()))
+            extra = ""
+            if label == "state_carry":     # one 1024-step chunk, same state
+                _, st1 = ssd_ops.ssd_scan(*args, chunk=S)
+                torch.cuda.synchronize()
+                extra = f" vs_one_chunk_state={rel_err(st1, st):.3e}"
+                require(rel_err(st1, st) <= SSD_TOL[dtype],
+                        f"ssd state carry {dtype}: chunked vs one chunk")
+            if label == "padding_chunk":   # the empty chunk leaves the state
+                _, st1 = ssd_ops.ssd_scan(*(a[:, :q] if a.dim() > 1 else a
+                                            for a in args), chunk=q)
+                torch.cuda.synchronize()
+                require(torch.equal(st1, st), f"ssd {dtype}: an all-padding "
+                        "chunk changed the state")
+            print(f"kernel ssd {label:16s} {dtype:8s} Bt={Bt} S={S} H={H} "
+                  f"P={P} N={N} chunk={q} A_scale={a_scale} rel_err_y="
+                  f"{ey:.3e} rel_err_state={es:.3e} max_abs_err="
+                  f"{abs_err:.3e}{extra}")
+            require(ey <= SSD_TOL[dtype] and es <= SSD_TOL[dtype],
+                    f"ssd {label} {dtype}: rel err y {ey} state {es}")
+            worst = max(worst, abs_err)
+        errs[dtype] = worst
+    return errs
+
+
+def ssd_bound(Bt, S, H, P, N, q, dtype: str):
+    """(ms, "bytes"|"operations") for the work the function needs: per
+    chunk of L real steps (the last one ragged), the causal half of the
+    scores, L(L+1)/2 pairs of N MACs for C·Bᵀ and of P for the decayed
+    product with x·dt, and L·N·P MACs each for the carried state's output
+    and the state update; x read and y written, B/C, dt and A read, the
+    f32 state written once."""
+    elem = 4 if dtype == "float32" else 2
+    lens = [min(q, S - t) for t in range(0, S, q)]
+    flops = float(Bt * H) * sum(L * (L + 1) * (N + P) + 4 * L * N * P
+                                for L in lens)
+    nbytes = (2 * Bt * S * H * P + 2 * Bt * S * N) * elem \
+        + 4 * (Bt * S * H + H + Bt * H * P * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_ssd(torch, ssd_ops):
+    """Kernel / plain times at the Mamba2 prefill shape, both dtypes."""
+    gen = torch.Generator().manual_seed(3)
+    label, Bt, S, H, P, N, q, _, _ = SSD_PATH
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        args = ssd_inputs(torch, gen, Bt, S, H, P, N, getattr(torch, dtype))
+        row = {"shape": label, "dtype": dtype,
+               "ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan(*args, chunk=q),
+                             iters=10, warmup=2),
+               "plain_ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan_plain(
+                   *args, chunk=q), iters=3, warmup=1),
+               "library_ms": None}
+        row["bound_ms"], row["bound_by"] = ssd_bound(Bt, S, H, P, N, q,
+                                                     dtype)
+        rows.append(row)
+        print(f"time ssd {label:16s} {dtype:8s} kernel_ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} library_ms=none "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+              f"bound_share={row['bound_ms'] / row['ms']:.4f}")
+    return rows
+
+
+# --------------------------------------------------------------------- #
 # engine
 # --------------------------------------------------------------------- #
 
@@ -373,6 +524,172 @@ def check_engine(torch, fa_ops, wa_ops):
             "weighted_attention": launches[False][1] + launches[True][1]}
 
 
+# --------------------------------------------------------------------- #
+# Mamba2 LM
+# --------------------------------------------------------------------- #
+
+def cast_params(params, specs, dtype):
+    """Cast every parameter whose spec has no dtype of its own (the
+    reference's fp32 norms, A_log, dt_bias and D stay float32)."""
+    if not isinstance(specs, dict):
+        return params if specs.dtype else params.to(dtype)
+    return {k: cast_params(params[k], specs[k], dtype) for k in params}
+
+
+def live_rel(a, b, vocab: int) -> float:
+    """max |a - b| / max |b| over the real vocab columns."""
+    return rel_err(a[..., :vocab], b[..., :vocab])
+
+
+def check_mamba2(torch, fa_ops, wa_ops, ssd_ops):
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.specs import random_batch
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("mamba2-780m")
+    f32 = cfg.replace(dtype="float32", param_dtype="float32")
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    params = tfm.init_params(f32, seed=0, device="cuda")
+    params16 = cast_params(params, tfm.model_specs(cfg), torch.bfloat16)
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    print(f"mamba2 config: layers={cfg.num_layers} d_model={cfg.d_model} "
+          f"ssd_heads={cfg.d_model * cfg.ssm_expand // cfg.ssm_head_dim} "
+          f"head_dim={cfg.ssm_head_dim} d_state={cfg.ssm_state} chunk="
+          f"{cfg.ssm_chunk} vocab={V} padded={tfm.padded_vocab(cfg)} "
+          f"params={n_params} (init {time.perf_counter() - t0:.1f} s); "
+          f"batch {MAMBA2_BATCH} x {MAMBA2_PROMPT} tokens + "
+          f"{MAMBA2_DECODE} decode steps")
+    shape = ShapeConfig("prefill_4k", MAMBA2_PROMPT, MAMBA2_BATCH,
+                        "prefill")
+    batch = random_batch(cfg, shape, "prefill", seed=0, device="cuda")
+    # warm-up (cuBLAS handles, lazy modules), not counted
+    generate(params, f32, {"tokens": batch["tokens"][:1, :256]}, 1)
+
+    fa_ops.flash_attention.launches = 0
+    wa_ops.weighted_attention.launches = 0
+    ssd_ops.ssd_scan.launches = 0
+    runs, peaks = {}, {}
+    for dtype, p, c in (("float32", params, f32),
+                        ("bfloat16", params16, cfg)):
+        torch.cuda.reset_peak_memory_stats()
+        runs[dtype] = generate(p, c, batch, MAMBA2_DECODE)
+        peaks[dtype] = torch.cuda.max_memory_allocated() / 2**30
+    launches = ssd_ops.ssd_scan.launches
+    print(f"mamba2 launches: ssd={launches} flash="
+          f"{fa_ops.flash_attention.launches} weighted="
+          f"{wa_ops.weighted_attention.launches}")
+    require(launches == 2 * cfg.num_layers,
+            f"mamba2: {launches} SSD launches, expected {cfg.num_layers} "
+            "per prefill")
+    for dtype, g in runs.items():
+        n_tok = MAMBA2_BATCH * MAMBA2_PROMPT
+        print(f"mamba2 {dtype}: prefill {g.prefill_seconds:.4f} s = "
+              f"{n_tok / g.prefill_seconds:.1f} tokens/s; decode "
+              f"{1e3 * g.decode_seconds / MAMBA2_DECODE:.3f} ms/step "
+              f"(batch {MAMBA2_BATCH}); peak memory {peaks[dtype]:.2f} GiB "
+              f"(f32 and bf16 parameters included); first tokens "
+              f"{g.tokens[0, :6].tolist()}")
+        require(bool(torch.isfinite(g.logits.float()).all()),
+                f"mamba2 {dtype}: non-finite logits")
+        require(int(g.tokens.max()) < V,
+                f"mamba2 {dtype}: decoded a padded vocab column")
+    gap = float((runs["bfloat16"].logits[:, 0, :V].float()
+                 - runs["float32"].logits[:, 0, :V]).norm()
+                / runs["float32"].logits[:, 0, :V].norm())
+    agree = float((runs["bfloat16"].tokens == runs["float32"].tokens)
+                  .float().mean())
+    print(f"mamba2 bf16 vs f32: prefill last-row logits relative norm "
+          f"{gap:.3e} (reported, not gated); greedy tokens agree "
+          f"{agree:.3f}")
+
+    # where the device time goes: one prefill and one decode step per
+    # dtype under the profiler (after the counted runs)
+    for dtype, p, c in (("float32", params, f32),
+                        ("bfloat16", params16, cfg)):
+        (_, cache), *prof = device_profile(
+            torch, lambda: tfm.prefill_step(p, batch, c))
+        print_profile(f"mamba2 {dtype} prefill", *prof)
+        _, *prof = device_profile(torch, lambda: tfm.decode_step(
+            p, {"tokens": runs[dtype].tokens[:, :1]}, c, cache,
+            MAMBA2_PROMPT))
+        print_profile(f"mamba2 {dtype} decode step", *prof)
+        del cache
+
+    # card vs the port's CPU plain path, and prefill vs decode, on a
+    # 2-layer model at full width in f32
+    two = f32.replace(num_layers=2)
+    p_cpu = tfm.init_params(two, seed=1, device="cpu")
+    p_card = _to(p_cpu, "cuda")
+    tok = torch.randint(0, V, (1, 512),
+                        generator=torch.Generator().manual_seed(1))
+    card = generate(p_card, two, {"tokens": tok[:, :511]}, 2, device="cuda")
+    cpu = generate(p_cpu, two, {"tokens": tok[:, :511]}, 2, device="cpu")
+    rel = live_rel(card.logits.cpu(), cpu.logits, V)
+    full_card, _ = tfm.prefill_step(p_card, {"tokens": tok[:, :511].cuda()},
+                                    two)
+    full_cpu, _ = tfm.prefill_step(p_cpu, {"tokens": tok[:, :511]}, two)
+    rel_full = live_rel(full_card.cpu(), full_cpu, V)
+    print(f"mamba2 card vs CPU (2 layers, prompt 511 + 2 decode steps): "
+          f"step logits rel {rel:.3e}, prefill logits rel {rel_full:.3e}, "
+          f"tokens equal {torch.equal(card.tokens.cpu(), cpu.tokens)}")
+    require(rel <= 1e-4 and rel_full <= 1e-4,
+            f"mamba2 card vs CPU rel {rel} / {rel_full}")
+    long, _ = tfm.prefill_step(p_card, {"tokens": tok.cuda()}, two)
+    _, cache = tfm.prefill_step(p_card, {"tokens": tok[:, :511].cuda()}, two)
+    step, _ = tfm.decode_step(p_card, {"tokens": tok[:, 511:].cuda()}, two,
+                              cache, 511)
+    rel_pd = live_rel(step[:, 0], long[:, -1], V)
+    print(f"mamba2 prefill(511) + decode vs prefill(512) last row: rel "
+          f"{rel_pd:.3e}")
+    require(rel_pd <= 1e-4, f"mamba2 prefill vs decode rel {rel_pd}")
+    return launches
+
+
+def device_profile(torch, fn, top: int = 5):
+    """Run ``fn`` once under ``torch.profiler``.  Returns (its result, wall
+    s, device busy s = the sum of the kernels' device times, the ``top``
+    kernels by device time as (name, ms, calls))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    require(busy > 0, "the profiler saw no device time")
+    return out, wall, busy, [(e.key, e.self_device_time_total / 1e3,
+                              e.count) for e in kernels[:top]]
+
+
+def print_profile(what: str, wall: float, busy: float, top) -> None:
+    print(f"{what} profiled: wall {1e3 * wall:.2f} ms, device busy "
+          f"{1e3 * busy:.2f} ms (idle share {1 - busy / wall:.3f}); top "
+          "kernels " + "; ".join(f"{name[:60]} {ms:.2f} ms x{n}"
+                                 for name, ms, n in top))
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -387,6 +704,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fused_serving import ops as wa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -411,25 +729,33 @@ def main() -> int:
               f"{min(regs)}-{max(regs)}, {len(spills)} with spills")
 
     errs = check_kernels(torch, fa_ops, wa_ops)
+    errs["ssd"] = check_ssd(torch, ssd_ops)
     rows = time_kernels(torch, fa_ops, wa_ops)
+    rows["ssd"] = time_ssd(torch, ssd_ops)
     launches = check_engine(torch, fa_ops, wa_ops)
+    launches["ssd"] = check_mamba2(torch, fa_ops, wa_ops, ssd_ops)
 
     sources = {"flash_attention": (
         "src/repro_torch/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/kernel.py:33", "block_self"),
+        "src/repro/kernels/flash_attention/kernel.py:33", "block_self",
+        "float32"),
         "weighted_attention": (
         "src/repro_torch/csrc/weighted_attention.cu",
-        "src/repro/kernels/fused_serving/kernel.py:33", "fused_self_u128")}
+        "src/repro/kernels/fused_serving/kernel.py:33", "fused_self_u128",
+        "float32"),
+        "ssd": (
+        "src/repro_torch/csrc/ssd.cu",
+        "src/repro/kernels/ssd/kernel.py:30", SSD_PATH[0], "bfloat16")}
     kernels = []
-    for name, (source, replaces, main_shape) in sources.items():
+    for name, (source, replaces, main_shape, dtype) in sources.items():
         row = next(r for r in rows[name]
-                   if r["shape"] == main_shape and r["dtype"] == "float32")
+                   if r["shape"] == main_shape and r["dtype"] == dtype)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name]["float32"],
             "max_abs_err_bf16": errs[name]["bfloat16"],
-            "shape": f"{main_shape} float32",
+            "shape": f"{main_shape} {dtype}",
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})

@@ -1,1 +1,138 @@
-"""Model configurations of the port (see ``configs/capsim.py``)."""
+"""Architecture / shape configs of the port (``repro/configs/__init__.py``).
+
+The LM zoo's ``ArchConfig`` keeps the reference's layer-schedule helpers
+and the fields that the ported path (the Mamba2 mixer, the stack, the
+embedding and norms) and that schedule read.  The attention, MoE-routing,
+FFN-activation, frontend and shape-list fields come with the slice that
+ports their code.  Also left out: the implementation selectors
+(``attn_impl``, ``ssm_impl``: the port always calls its kernels'
+wrappers, which launch the CUDA kernel on a CUDA tensor and run the plain
+PyTorch version on a CPU tensor), the XLA execution knobs (``remat``,
+``scan_layers``, ``attn_chunk``) and the CAPSim predictor extras, whose
+config is ``configs/capsim.py``.
+
+``get_config``/``get_smoke_config`` resolve ``--arch`` names.  ``capsim``
+and ``mamba2-780m`` are ported; the other zoo names raise
+``NotImplementedError`` naming their ROADMAP port-queue item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+LM_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    num_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+
+    # --- MoE (only the layer schedule reads these) ---
+    num_experts: int = 0
+    moe_every: int = 1               # MoE FFN on layers with (i % moe_every == moe_offset)
+    moe_offset: int = 0
+
+    # --- SSM / hybrid ---
+    ssm_state: int = 0               # Mamba2 d_state (0 -> no ssm layers)
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256             # SSD chunk size
+    attn_every: int = 0              # hybrid: attention on layers with (i % attn_every == attn_offset)
+    attn_offset: int = 0
+
+    # --- norm / embedding ---
+    nonparametric_norm: bool = False # olmo: LN without learnable params
+    tie_embeddings: bool = False
+
+    # --- numerics ---
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    pattern_len: int = 1             # layers per super-block (jamba: 8)
+
+    def __post_init__(self):
+        if self.num_layers % self.pattern_len != 0:
+            raise ValueError(
+                f"{self.name}: num_layers={self.num_layers} not divisible by "
+                f"pattern_len={self.pattern_len}")
+
+    def mixer_at(self, i: int) -> str:
+        """'attn' | 'ssm' for layer i."""
+        if self.ssm_state == 0:
+            return "attn"
+        if self.attn_every == 0:
+            return "ssm"
+        return "attn" if (i % self.attn_every) == self.attn_offset else "ssm"
+
+    def ffn_at(self, i: int) -> str:
+        """'dense' | 'moe' | 'none' for layer i."""
+        if self.d_ff == 0 and self.num_experts == 0:
+            return "none"
+        if self.num_experts and (i % self.moe_every) == self.moe_offset:
+            return "moe"
+        return "dense" if self.d_ff else "none"
+
+    def pattern(self) -> Tuple[Tuple[str, str], ...]:
+        """The (mixer, ffn) schedule of one super-block."""
+        return tuple((self.mixer_at(i), self.ffn_at(i))
+                     for i in range(self.pattern_len))
+
+    @property
+    def num_repeats(self) -> int:
+        return self.num_layers // self.pattern_len
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# --------------------------------------------------------------------------- #
+# Registry
+# --------------------------------------------------------------------------- #
+
+_PORTED = {"capsim": "capsim", "mamba2-780m": "mamba2_780m"}
+# zoo names whose path (attention mixer, dense/MoE FFN, frontends) waits
+# for ROADMAP port-queue item 1
+_NOT_PORTED = ("jamba-1.5-large-398b", "nemotron-4-15b", "qwen3-4b",
+               "internlm2-20b", "olmo-1b", "kimi-k2-1t-a32b",
+               "llama4-maverick-400b-a17b", "qwen2-vl-2b", "musicgen-large")
+ARCH_NAMES = tuple(_PORTED) + _NOT_PORTED
+
+
+def _module(name: str):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"--arch {name}: its attention mixer / FFN path is not ported "
+            "yet (ROADMAP port queue item 1, the rest of the LM zoo)")
+    if name not in _PORTED:
+        raise KeyError(f"unknown arch {name!r}; known: {list(ARCH_NAMES)}")
+    return importlib.import_module(f"repro_torch.configs.{_PORTED[name]}")
+
+
+def get_config(name: str):
+    """The full (paper-exact) config for ``--arch <name>``."""
+    return _module(name).config()
+
+
+def get_smoke_config(name: str):
+    """Reduced same-family config for CPU smoke tests."""
+    return _module(name).smoke_config()

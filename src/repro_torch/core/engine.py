@@ -46,11 +46,11 @@ from repro_torch.obs import SPAN_SECONDS_TOTAL, Observability
 # EngineConfig fields outside this port's slice -> the ROADMAP item that
 # ports them (the check is "field differs from its default")
 _UNPORTED = {
-    "rt_store_dir": "port queue item 1, RT store",
-    "multicore": "port queue item 2, run_multicore + isa/multicore.py",
-    "sampling": "port queue item 3, sampling",
-    "faults": "port queue item 4, serving + fault injection",
-    "mesh_shape": "port queue item 5, mesh / multi-GPU",
+    "rt_store_dir": "port queue item 2, RT store",
+    "multicore": "port queue item 3, run_multicore + isa/multicore.py",
+    "sampling": "port queue item 4, sampling",
+    "faults": "port queue item 5, serving + fault injection",
+    "mesh_shape": "port queue item 6, mesh / multi-GPU",
 }
 
 

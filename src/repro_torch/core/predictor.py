@@ -32,16 +32,15 @@ from __future__ import annotations
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.fused_serving.ops import weighted_attention
-from repro_torch.models.layers import (ParamSpec, dense_spec,
-                                       init_from_specs, rms_norm,
-                                       specs_with_leading_stack, torch_dtype)
+from repro_torch.models.layers import (  # noqa: F401 (the bridge)
+    ParamSpec, dense_spec, init_from_specs, params_from_numpy,
+    params_to_numpy, rms_norm, specs_with_leading_stack, torch_dtype)
 
 N_INST_LAYERS = 4
 N_BLOCK_LAYERS = 4
@@ -92,31 +91,6 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = "cuda") -> dict:
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return init_from_specs(model_specs(cfg), gen, cfg.param_dtype, dev)
-
-
-def params_from_numpy(tree, device: DeviceLike = "cuda") -> dict:
-    """The reference's parameter pytree, as numpy arrays (e.g.
-    ``jax.tree.map(np.asarray, params)``), -> the port's tensors; layouts
-    and dtypes unchanged (bfloat16 arrays arrive via float32)."""
-    dev = resolve_device(device)
-
-    def conv(a):
-        if isinstance(a, dict):
-            return {k: conv(v) for k, v in a.items()}
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.astype(np.float32)).to(
-                device=dev, dtype=torch.bfloat16)
-        return torch.from_numpy(np.array(a)).to(dev)
-    return conv(tree)
-
-
-def params_to_numpy(params) -> dict:
-    """The port's parameters -> the reference's tree of numpy arrays."""
-    if isinstance(params, dict):
-        return {k: params_to_numpy(v) for k, v in params.items()}
-    t = params.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 # --------------------------------------------------------------------------- #

@@ -37,6 +37,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace capsim_attn {
 
 constexpr float NEG_INF = -1e30f;
@@ -54,23 +56,8 @@ struct Args {
   float scale;
 };
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);              // round to nearest even
-}
+using capsim::from_f32;
+using capsim::to_f32;
 
 template <typename T, int D, int BQ, int BK, bool WEIGHTED>
 __global__ void __launch_bounds__(BQ) attn_fwd(Args a) {

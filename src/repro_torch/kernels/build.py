@@ -19,7 +19,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention", "weighted_attention")
+SOURCES = ("flash_attention", "weighted_attention", "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -99,7 +99,7 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a launch returned an error (``cudaGetLastError`` after the
     launch, or -1 for a configuration the library was not built for)."""
     if rc == -1:
-        raise ValueError(f"{what}: dtype/head_dim not supported by the "
+        raise ValueError(f"{what}: dtype/shape not supported by the "
                          "kernel")
     if rc != 0:
         msg = lib.capsim_cuda_error_string(rc).decode()

@@ -1,10 +1,12 @@
-"""Shared building blocks: param specs, seeded init, RMSNorm.
+"""Shared building blocks: param specs, seeded init, norms, the numpy
+parameter bridge.
 
-Ports ``repro/models/layers.py:20-95``.  A ``ParamSpec`` tree describes
+Ports ``repro/models/layers.py:20-117``.  A ``ParamSpec`` tree describes
 the parameters; ``init_from_specs`` materializes it as a nested dict of
-tensors with the reference's shapes and init std.  Dense weights keep
+tensors with the reference's shapes and init rule.  Dense weights keep
 the reference's ``(d_in, d_out)`` layout (not ``nn.Linear``'s
-``(out, in)``), so parameters move between the packages unchanged.
+``(out, in)``), so ``params_from_numpy``/``params_to_numpy`` move a
+parameter tree between the packages unchanged.
 """
 from __future__ import annotations
 
@@ -12,7 +14,10 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.device import DeviceLike, resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -28,7 +33,7 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    std: float = 0.0          # 0.0 -> zeros; >0 -> normal(std)
+    std: float = 0.0          # 0.0 -> zeros; <0 -> ones; >0 -> normal(std)
     dtype: Optional[str] = None  # override param dtype (e.g. fp32 norms)
 
 
@@ -37,14 +42,17 @@ def dense_spec(d_in: int, d_out: int, scale: float = 1.0) -> ParamSpec:
 
 
 def specs_with_leading_stack(specs: dict, n: int) -> dict:
-    """Prepend a 'layers' dimension of size n to every spec."""
-    return {k: ParamSpec((n,) + s.shape, std=s.std, dtype=s.dtype)
-            for k, s in specs.items()}
+    """Prepend a 'layers' dimension of size n to every spec of the tree."""
+    if isinstance(specs, ParamSpec):
+        return ParamSpec((n,) + specs.shape, std=specs.std,
+                         dtype=specs.dtype)
+    return {k: specs_with_leading_stack(s, n) for k, s in specs.items()}
 
 
 def init_from_specs(specs, generator: torch.Generator, param_dtype: str,
                     device: torch.device):
-    """Materialize a spec tree: normal·std for std > 0, zeros otherwise.
+    """Materialize a spec tree: zeros for std == 0, ones for std < 0
+    (Mamba2's ``A_log`` and ``D``), normal·std for std > 0.
 
     Draws on the CPU from ``generator`` in sorted key order, so a seed
     gives the same parameters on every device."""
@@ -52,6 +60,8 @@ def init_from_specs(specs, generator: torch.Generator, param_dtype: str,
         dt = torch_dtype(specs.dtype or param_dtype)
         if specs.std == 0.0:
             w = torch.zeros(specs.shape, dtype=torch.float32)
+        elif specs.std < 0:
+            w = torch.ones(specs.shape, dtype=torch.float32)
         else:
             w = torch.randn(specs.shape, generator=generator,
                             dtype=torch.float32) * specs.std
@@ -59,6 +69,36 @@ def init_from_specs(specs, generator: torch.Generator, param_dtype: str,
     return {k: init_from_specs(specs[k], generator, param_dtype, device)
             for k in sorted(specs)}
 
+
+def params_from_numpy(tree, device: DeviceLike = "cuda") -> dict:
+    """A reference parameter pytree, as numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, params)``), -> the port's tensors; layouts
+    and dtypes unchanged (bfloat16 arrays arrive via float32)."""
+    dev = resolve_device(device)
+
+    def conv(a):
+        if isinstance(a, dict):
+            return {k: conv(v) for k, v in a.items()}
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=dev, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(dev)
+    return conv(tree)
+
+
+def params_to_numpy(params) -> dict:
+    """The port's parameters -> the reference's tree of numpy arrays
+    (bfloat16 as float32)."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    t = params.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+# --------------------------------------------------------------------------- #
+# Norms
+# --------------------------------------------------------------------------- #
 
 def rms_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
              eps: float = 1e-6) -> torch.Tensor:
@@ -70,3 +110,24 @@ def rms_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
     if scale is not None:
         y = y * (1.0 + scale.float())
     return y.to(dt)
+
+
+def nonparam_layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm: standardize, no learnable affine."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps)).to(dt)
+
+
+def norm(x: torch.Tensor, params: dict, cfg) -> torch.Tensor:
+    if cfg.nonparametric_norm:
+        return nonparam_layer_norm(x)
+    return rms_norm(x, params["scale"])
+
+
+def norm_spec(cfg) -> dict:
+    if cfg.nonparametric_norm:
+        return {}
+    return {"scale": ParamSpec((cfg.d_model,), std=0.0, dtype="float32")}

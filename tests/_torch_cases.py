@@ -45,3 +45,37 @@ def wa_inputs(case, seed=2):
     if zero_tail:
         w[:, Skv * 2 // 3:] = 0.0
     return q, k, v, w
+
+
+SSD_CASES = [
+    # (Bt, S, H, P, N, chunk) — tests/test_kernels.py
+    (2, 64, 4, 32, 64, 16),
+    (1, 128, 2, 64, 128, 64),
+    (2, 100, 3, 16, 32, 32),                   # padding path
+    (1, 256, 8, 64, 128, 256),                 # single chunk
+]
+# SSD gates, scaled by the output's magnitude (max(1, max|ref|)): the
+# kernel and its plain version compute the same f32 chunk arithmetic in
+# another summation order (1e-5); bf16 rounds y to 8 mantissa bits (1e-2)
+SSD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def ssd_inputs(case, seed=7, a_scale=1.0):
+    """x (Bt, S, H, P), dt (Bt, S, H), B/C (Bt, S, N), A (H,) as float32
+    numpy, drawn as tests/test_kernels.py draws them; ``a_scale``
+    multiplies A (large values give the large-decay case)."""
+    Bt, S, H, P, N, _ = case
+    rng = np.random.RandomState(seed)
+    x = rng.randn(Bt, S, H, P).astype(np.float32) * 0.5
+    dt = np.abs(rng.randn(Bt, S, H)).astype(np.float32) * 0.4 + 0.01
+    B = rng.randn(Bt, S, N).astype(np.float32) * 0.3
+    C = rng.randn(Bt, S, N).astype(np.float32) * 0.3
+    A = (-np.abs(rng.randn(H)).astype(np.float32) - 0.1) * a_scale
+    return x, dt, B, C, A
+
+
+def scaled_err(out, ref):
+    """max |out - ref| / max(1, max |ref|), in float64."""
+    out = np.asarray(out, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.max(np.abs(out - ref)) / max(1.0, np.max(np.abs(ref))))

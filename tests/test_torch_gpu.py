@@ -1,7 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the engine on the card against the same engine on the CPU.  Every test
-here is marked ``gpu`` and skips without a CUDA device; the file imports
-no JAX, so it runs on a machine that has only PyTorch:
+the engine and the Mamba2 LM on the card against the same code on the
+CPU.  Every test here is marked ``gpu`` and skips without a CUDA device;
+the file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -13,9 +13,11 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
-from _torch_cases import (FA_CASES, TOL, WA_CASES, fa_inputs,  # noqa: E402
+from _torch_cases import (FA_CASES, SSD_CASES, SSD_TOL, TOL,  # noqa: E402
+                          WA_CASES, fa_inputs, scaled_err, ssd_inputs,
                           wa_inputs)
 
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs.capsim import config  # noqa: E402
 from repro_torch.core import predictor  # noqa: E402
 from repro_torch.core import standardize as std_mod  # noqa: E402
@@ -23,6 +25,9 @@ from repro_torch.core.engine import SimulationEngine  # noqa: E402
 from repro_torch.core.engine_config import EngineConfig  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.fused_serving import ops as wa_ops  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -107,3 +112,69 @@ def test_engine_on_card_matches_cpu(fused):
         assert a.oracle_cycles == b.oracle_cycles
         assert abs(b.predicted_cycles - a.predicted_cycles) \
             / abs(a.predicted_cycles) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain(dtype):
+    """SSD_CASES, a large-decay case and an all-padding chunk."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    before = ssd_ops.ssd_scan.launches
+    cases = [(case, 1.0) for case in SSD_CASES] + [
+        ((2, 300, 4, 64, 128, 256), 60.0)]
+    for case, a_scale in cases:
+        x, dt, B, C, A = ssd_inputs(case, a_scale=a_scale)
+        if case == SSD_CASES[1]:                      # all-padding chunk
+            for a in (x, dt, B, C):
+                a[:, 64:] = 0.0
+        args = (_cuda(x, tdt), _cuda(dt, torch.float32), _cuda(B, tdt),
+                _cuda(C, tdt), _cuda(A, torch.float32))
+        y, st = ssd_ops.ssd_scan(*args, chunk=case[-1])
+        yp, sp = ssd_ops.ssd_scan_plain(*args, chunk=case[-1])
+        torch.cuda.synchronize()
+        assert y.dtype == tdt and y.is_cuda and st.dtype == torch.float32
+        assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+        for out, ref in ((y, yp), (st, sp)):
+            err = scaled_err(out.float().cpu().numpy(),
+                             ref.float().cpu().numpy())
+            assert err < SSD_TOL[dtype], (case, a_scale, err)
+    assert ssd_ops.ssd_scan.launches == before + len(cases)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    x = torch.zeros(1, 8, 2, 8, device="cuda")          # head_dim 8
+    dt = torch.zeros(1, 8, 2, device="cuda")
+    B = torch.zeros(1, 8, 16, device="cuda")
+    A = -torch.ones(2, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 8.*not supported"):
+        ssd_ops.ssd_scan(x, dt, B, B, A)
+    x = torch.zeros(1, 8, 2, 16, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        ssd_ops.ssd_scan(x, dt.double(), B, B, A)
+    with pytest.raises(ValueError, match="on cpu"):
+        ssd_ops.ssd_scan(x, dt, B.cpu(), B, A)
+
+
+def test_mamba2_on_card_matches_cpu():
+    """The smoke-size Mamba2 LM: the same seeded parameters on both
+    devices, prefill over 40 tokens (padded third chunk) + 3 greedy
+    decode steps; logits <= 1e-4 relative, the same tokens."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("mamba2-780m")
+    params = tfm.init_params(cfg, seed=0, device="cpu")
+    on_card = tfm.init_params(cfg, seed=0, device="cuda")
+    for a, b in zip(params["blocks"]["i0"]["mixer"].values(),
+                    on_card["blocks"]["i0"]["mixer"].values()):
+        assert torch.equal(a, b.cpu())                # one seed, one init
+    tok = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 40)))
+    before = ssd_ops.ssd_scan.launches
+    card = generate(on_card, cfg, {"tokens": tok}, 3, device="cuda")
+    assert ssd_ops.ssd_scan.launches == before + cfg.num_layers
+    cpu = generate(params, cfg, {"tokens": tok}, 3, device="cpu")
+    rel = float((card.logits.cpu() - cpu.logits).abs().max()
+                / cpu.logits.abs().max())
+    assert rel <= 1e-4, rel
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)
