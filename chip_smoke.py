@@ -8,16 +8,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   1. device   the card's name, count and power limit; TF32 off for matmuls
               and cuDNN, so fp32 means fp32.
   2. build    every CUDA kernel from ``src/repro_torch/csrc``, one nvcc per
-              source, all started together.
+              source, all started together (registers, spills and seconds
+              per source); then, from ``cuobjdump``, each flash-attention
+              instantiation's HMMA count, registers and static shared
+              memory beside the dynamic shared memory a launch asks for:
+              HMMA > 0 in every bfloat16 instantiation (tensor cores), 0 in
+              every float32 one ("not measured" without ``cuobjdump``).
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main path's shapes and the reference kernel tests' sweeps,
               in float32 and bfloat16.  Attention: max abs err <= 2e-5 /
-              2e-2.  SSD scan (``SSD_CASES``, the Mamba2 prefill shape, a
-              4-chunk state carry, a large-decay case, an all-padding
-              chunk): max abs err / max |plain| <= 1e-5 / 1e-2, for y and
-              the state.
+              2e-2, exact zeros for a row with no valid key; flash also
+              at lengths that are not multiples of 16 or 64, a causal
+              window ending inside a key tile, a mask that empties a whole
+              64-key tile, every head dim, and strided q/k/v views of one
+              fused QKV tensor.  SSD scan (``SSD_CASES``, the Mamba2
+              prefill shape, a 4-chunk state carry, a large-decay case, an
+              all-padding chunk): max abs err / max |plain| <= 1e-5 /
+              1e-2, for y and the state.
   4. timing   each kernel at its path shapes (CUDA events after warm-up):
-              kernel, plain version, and, where one PyTorch call computes
+              kernel (and, for attention, its device time under
+              ``torch.profiler``: the instruction encoder's shape is
+              launch-bound, so the event time there is the wrapper's),
+              plain version, and, where one PyTorch call computes
               the same function, that call (``scaled_dot_product_attention``
               for attention, timed as a yardstick only — the port never
               calls it; none exists for the SSD scan), beside the least
@@ -26,9 +38,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   5. engine   ``SimulationEngine.run`` at the paper model's full width
               (E=128, 4 heads, 4+4 layers, M=360) with seeded random
               parameters, on the first 3 Table II benchmarks: unfused and
-              fused fp32 (kernel launch counters reset just before each run
-              and read just after), bf16, and one benchmark on the CPU
-              through the plain versions.  Checks: both kernels launched,
+              fused fp32 and unfused bf16, the paper model's own dtype
+              (kernel launch counters reset just before each run and read
+              just after), and one benchmark on the CPU through the plain
+              versions.  Checks: both kernels launched,
               predictions finite, fused vs unfused <= 1e-3 relative, card vs
               CPU <= 1e-4 relative, equal oracle cycles, bf16 within 1%.
   6. mamba2   the LM zoo's Mamba2-780m at full width (48 layers, d_model
@@ -47,13 +60,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               in each dtype are reported.
 
 The line before the last is the card's name and power limit from
-nvidia-smi; before it, one JSON object ``{"kernels": [...]}``.  The last
-line is ``{"ok": true, "device": {...}}``.
+nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (flash
+attention's entry also carries the block-self bfloat16 numbers as
+``*_bf16``).  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -96,6 +112,27 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time of one launch of the port's own kernel (names in
+    the ``capsim_*`` namespaces; ``fn`` launches one), from
+    ``torch.profiler``, averaged over the launches it recorded: at a
+    launch-bound shape the host clock of ``cuda_ms`` times the wrapper,
+    this the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ours = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "capsim" in e.key]
+    launches = sum(e.count for e in ours)
+    require(launches > 0, "the profiler saw no kernel of the port")
+    return sum(e.self_device_time_total for e in ours) / launches / 1e3
+
+
 def bound(B, Sq, Skv, H, D, dtype: str, aux: bool):
     """(ms, "bytes"|"operations"): q/k/v read once, o written once, the
     per-key mask/weights read once; QK^T and PV at 2 FLOPs per MAC."""
@@ -107,6 +144,63 @@ def bound(B, Sq, Skv, H, D, dtype: str, aux: bool):
     t_ops = flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def cuobjdump():
+    found = shutil.which("cuobjdump")
+    if found is None and Path("/usr/local/cuda/bin/cuobjdump").exists():
+        found = "/usr/local/cuda/bin/cuobjdump"
+    return found
+
+
+def flash_pipes(torch, build, fa_ops):
+    """Each flash-attention instantiation's HMMA count (``cuobjdump
+    -sass``), registers and static shared memory (``-res-usage``), and the
+    dynamic shared memory a launch asks for.  bfloat16 must run on the
+    tensor cores (HMMA > 0), float32 on the FMA pipes (HMMA == 0)."""
+    tool = cuobjdump()
+    lib = str(build.library_path("flash_attention"))
+    if tool is None:
+        print("sass flash_attention: cuobjdump not found; HMMA counts and "
+              "static shared memory not measured")
+        return
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    hmma, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            hmma[name] = 0
+        elif name is not None and re.search(r"\bHMMA\b", line):
+            hmma[name] += 1
+    usage = {}
+    pattern = r"Function (\S+):\s+REG:(\d+)[^\n]*?SHARED:(\d+)"
+    for found in re.finditer(pattern, res):
+        usage[found.group(1)] = (int(found.group(2)), int(found.group(3)))
+    seen = set()
+    for name, count in sorted(hmma.items()):
+        kind = re.search(r"fa_fwd_(bf16|f32)ILi(\d+)E", name)
+        if kind is None:
+            continue
+        dtype = torch.bfloat16 if kind.group(1) == "bf16" else torch.float32
+        d = int(kind.group(2))
+        seen.add((kind.group(1), d))
+        regs, static = usage.get(name, ("not measured", "not measured"))
+        print(f"sass flash_attention fa_fwd_{kind.group(1)}<{d}>: HMMA "
+              f"{count}, registers {regs}, static shared {static} B, "
+              f"dynamic shared {fa_ops.shared_bytes(dtype, d)} B")
+        if kind.group(1) == "bf16":
+            require(count > 0, f"bf16 flash D={d} has no HMMA: not on the "
+                    "tensor cores")
+        else:
+            require(count == 0, f"f32 flash D={d} has {count} HMMA: f32 "
+                    "must stay on the FMA pipes")
+    require(seen == {(k, d) for k in ("bf16", "f32")
+                     for d in fa_ops.HEAD_DIMS},
+            f"flash instantiations in the SASS: {sorted(seen)}")
 
 
 # --------------------------------------------------------------------- #
@@ -131,6 +225,20 @@ FA_SWEEP = [
     ("sweep", 1, 1, 257, 2, 128, True, 0, None),
     ("sweep", 1, 64, 192, 1, 16, True, 0, None),
     ("fully_masked_row", 4, 16, 16, 4, 32, False, 0, "empty_row"),
+    # the tiled kernel's edges: 16-row query blocks and 64-key tiles that
+    # end mid-block, a causal window that ends inside a key tile, a mask
+    # that empties one whole key tile while the others stay live, and
+    # every head dim in both dtypes
+    ("q1_kv257", 2, 1, 257, 4, 32, False, 0, "random"),
+    ("q17_kv257", 2, 17, 257, 4, 32, True, 0, "random"),
+    ("q17_kv257", 1, 17, 257, 2, 16, False, 0, None),
+    ("q100_kv257", 2, 100, 257, 2, 64, True, 0, None),
+    ("q100_kv257", 1, 100, 257, 2, 128, False, 0, "random"),
+    ("window_in_tile", 2, 100, 257, 2, 32, True, 40, None),
+    ("window_in_tile", 1, 33, 257, 2, 128, True, 50, "random"),
+    ("empty_key_tile", 2, 100, 257, 2, 32, False, 0, "empty_tile"),
+    ("empty_key_tile", 2, 70, 200, 2, 16, False, 0, "empty_tile"),
+    ("empty_key_tile", 2, 40, 300, 2, 64, True, 0, "empty_tile"),
 ]
 # (label, B, Sq, Skv, weights): fused self over U deduped tokens (U from
 # the dedup ladder, weights = multiplicities with zero-weight padding
@@ -163,9 +271,11 @@ def make_aux(torch, gen, kind, B, Skv):
         # at least half the clip (l_min=100 of l_clip=128 on the path)
         n = torch.randint(Skv // 2, Skv + 1, (B,), generator=gen)
         w = (torch.arange(Skv)[None] < n[:, None]).float()
-    elif kind == "random":
+    elif kind in ("random", "empty_tile"):
         w = (torch.rand(B, Skv, generator=gen) > 0.3).float()
         w[:, 0] = 1.0
+        if kind == "empty_tile":          # keys 64-127: one whole tile
+            w[:, 64:128] = 0.0
     elif kind == "counts":                # multiplicities + zero padding
         w = torch.randint(1, 9, (B, Skv), generator=gen).float()
         n = torch.randint(Skv // 2, Skv + 1, (B,), generator=gen)
@@ -236,6 +346,27 @@ def check_kernels(torch, fa_ops, wa_ops):
     print(f"kernel weighted_attention strided_qkv      float32  "
           f"max_abs_err={err:.3e}")
     require(err <= F32_TOL, f"weighted_attention strided views err {err}")
+    # flash attention on the same kind of views, both dtypes, every tile
+    # edge: 100 rows over 100 keys (ragged 16-row and 64-key tiles)
+    for dtype in ("float32", "bfloat16"):
+        qkv = torch.randn(8, 100, 384, generator=gen).to("cuda",
+                                                         getattr(torch, dtype))
+        q, k, v = (x.unflatten(-1, (4, 32)) for x in qkv.split(128, dim=-1))
+        m = make_aux(torch, gen, "random", 8, 100)
+        for causal in (False, True):
+            out = fa_ops.flash_attention(q, k, v, causal=causal, kv_mask=m)
+            ref = fa_ops.flash_attention_plain(q, k, v, causal=causal,
+                                               kv_mask=m)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            print(f"kernel flash_attention strided_qkv      {dtype:8s} "
+                  f"B=8 Sq=Skv=100 H=4 D=32 causal={causal} mask=random "
+                  f"max_abs_err={err:.3e}")
+            tol = F32_TOL if dtype == "float32" else BF16_TOL
+            require(err <= tol, f"flash_attention strided views {dtype} "
+                    f"err {err}")
+            errs["flash_attention"][dtype] = max(
+                errs["flash_attention"][dtype], err)
     return errs
 
 
@@ -260,6 +391,8 @@ def time_kernels(torch, fa_ops, wa_ops):
                 "shape": label, "dtype": dtype,
                 "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(
                     q, k, v, kv_mask=m)),
+                "device_ms": device_ms(torch, lambda: fa_ops.flash_attention(
+                    q, k, v, kv_mask=m)),
                 "plain_ms": cuda_ms(torch, lambda:
                                     fa_ops.flash_attention_plain(
                                         q, k, v, kv_mask=m)),
@@ -280,6 +413,8 @@ def time_kernels(torch, fa_ops, wa_ops):
                 "shape": label, "dtype": dtype,
                 "ms": cuda_ms(torch, lambda: wa_ops.weighted_attention(
                     q, k, v, w)),
+                "device_ms": device_ms(torch, lambda:
+                                       wa_ops.weighted_attention(q, k, v, w)),
                 "plain_ms": cuda_ms(torch, lambda:
                                     wa_ops.weighted_attention_plain(
                                         q, k, v, w)),
@@ -293,7 +428,9 @@ def time_kernels(torch, fa_ops, wa_ops):
     for name, rs in rows.items():
         for r in rs:
             print(f"time {name} {r['shape']:16s} {r['dtype']:8s} "
-                  f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                  f"kernel_ms={r['ms']:.4f} "
+                  f"device_ms={r['device_ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f} "
                   f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
                   f"bound_share={r['bound_ms'] / r['ms']:.3f}")
@@ -502,8 +639,20 @@ def check_engine(torch, fa_ops, wa_ops):
         require(a.oracle_cycles == b.oracle_cycles, "oracle cycles differ")
         require(rel <= 1e-3, f"fused vs unfused {a.name} rel {rel}")
 
-    bf16, _, _ = run_engine(torch, params, cfg, vocab, names,
-                            base.replace(precision="bf16"))
+    fa_ops.flash_attention.launches = 0
+    wa_ops.weighted_attention.launches = 0
+    bf16, wall, eng = run_engine(torch, params, cfg, vocab, names,
+                                 base.replace(precision="bf16"))
+    st = eng.last_stats
+    n_clips = sum(r.n_clips for r in bf16)
+    print(f"engine fused=False bf16: {n_clips} clips in {wall:.3f} s = "
+          f"{n_clips / wall:.1f} clips/s (host front-end and oracle "
+          f"included); predict {st.predict_seconds:.3f} s, {st.n_batches} "
+          f"batches, {st.n_pad} pad rows; launches flash="
+          f"{fa_ops.flash_attention.launches} weighted="
+          f"{wa_ops.weighted_attention.launches}")
+    require(fa_ops.flash_attention.launches > 0,
+            "bf16 run launched no flash kernel")
     for a, b in zip(runs[False], bf16):
         rel = abs(b.predicted_cycles - a.predicted_cycles) \
             / abs(a.predicted_cycles)
@@ -720,13 +869,15 @@ def main() -> int:
     logs = build.build()
     print(f"build: {sorted(logs) or 'up to date'} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for name, log in logs.items():
+    for name, (log, seconds) in logs.items():
         regs = [int(line.split("Used ")[1].split()[0])
                 for line in log.splitlines() if "Used " in line]
         spills = [line.strip() for line in log.splitlines()
                   if "spill stores" in line and " 0 bytes spill" not in line]
         print(f"build {name}: {len(regs)} instantiations, registers "
-              f"{min(regs)}-{max(regs)}, {len(spills)} with spills")
+              f"{min(regs)}-{max(regs)}, {len(spills)} with spills, nvcc "
+              f"{seconds:.1f} s")
+    flash_pipes(torch, build, fa_ops)
 
     errs = check_kernels(torch, fa_ops, wa_ops)
     errs["ssd"] = check_ssd(torch, ssd_ops)
@@ -750,7 +901,7 @@ def main() -> int:
     for name, (source, replaces, main_shape, dtype) in sources.items():
         row = next(r for r in rows[name]
                    if r["shape"] == main_shape and r["dtype"] == dtype)
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name]["float32"],
@@ -758,7 +909,17 @@ def main() -> int:
             "shape": f"{main_shape} {dtype}",
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+            "library_ms": row["library_ms"]}
+        if "device_ms" in row:
+            entry["device_ms"] = row["device_ms"]
+        if name == "flash_attention":     # the paper model's own dtype
+            row = next(r for r in rows[name]
+                       if r["shape"] == main_shape
+                       and r["dtype"] == "bfloat16")
+            entry.update({f"{key}_bf16": row[key] for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
+        kernels.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -1,25 +1,26 @@
-// Flash-Attention-2 forward for Hopper (sm_90a), shared by the two
-// attention kernels of the CAPSim port:
+// Flash-Attention-2 forward for Hopper (sm_90a), row-per-thread on the
+// FMA pipes.  It now serves weighted attention alone:
 //
-//   flash_attention.cu     replaces repro/kernels/flash_attention/kernel.py
-//                          _fa_kernel: binary per-key validity mask, causal
-//                          and sliding-window masks, q aligned to the end
-//                          of kv (q_offset = skv - sq).
 //   weighted_attention.cu  replaces repro/kernels/fused_serving/kernel.py
 //                          _wa_kernel: a per-key f32 weight multiplies the
 //                          max-shifted exponential; the row max runs over
 //                          every in-range key, zero-weight keys included.
 //
-// Both keep the TPU kernels' contract: f32 running max m, normalizer l and
+// Flash attention moved to its own body (flash_attention.cuh: tensor
+// cores in bf16, register tiles in f32), so the !WEIGHTED branches below
+// are no longer instantiated; they go when weighted attention moves onto
+// that body too.
+//
+// It keeps the TPU kernels' contract: f32 running max m, normalizer l and
 // accumulator acc; masked scores are -1e30; p is rounded to the value dtype
 // before the PV product; a row with no valid key (l == 0) writes zeros.
 //
-// What bounds it on the card.  At the main path's shapes (head_dim 32,
-// 4 heads, block self-attention over 360 context rows, batch 256) one call
-// does 1.7e10 FLOPs over 189 MB in f32: 254 us of f32 FMA issue at the
-// published 67 TFLOP/s against 56 us of HBM traffic, so the kernel is
-// bound by operations.  Tensor cores cannot help f32 parity (TF32 keeps
-// ~3 decimal digits), so the f32 path stays on the FMA pipes.
+// What bounds it on the card.  At the fused step's shapes (head_dim 32,
+// 4 heads, U = 128 deduplicated tokens, batch 256) one call does 2.1e9
+// FLOPs over 67 MB in f32: 32 us of f32 FMA issue at the published
+// 67 TFLOP/s against 20 us of HBM traffic, so the kernel is bound by
+// operations.  Tensor cores cannot help f32 parity (TF32 keeps ~3
+// decimal digits), so the f32 path stays on the FMA pipes.
 //
 // What the design does about it.  One CTA per (batch, head, tile of BQ
 // queries); each thread owns one query row and keeps q, acc, m and l in

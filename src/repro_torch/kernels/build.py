@@ -14,8 +14,9 @@ import ctypes
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -49,38 +50,46 @@ def _stale(name: str) -> bool:
                for src in CSRC.iterdir() if src.suffix in (".cu", ".cuh"))
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[str, float]]:
     """Compile every stale library among ``names``, one ``nvcc`` per
     source, all started together.  Returns each built library's compiler
-    log (``-Xptxas -v``: registers, shared memory and spills per
-    kernel); raises ``RuntimeError`` with the log if a build fails."""
+    log (``-Xptxas -v``: registers, shared memory and spills per kernel)
+    and its seconds of ``nvcc``; raises ``RuntimeError`` with the log if a
+    build fails."""
     names = [n for n in names if _stale(n)]
     if not names:
         return {}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         if name not in SOURCES:
             raise ValueError(f"unknown kernel source {name!r}")
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp"
+        log = BUILD_DIR / f"{name}.{os.getpid()}.log"
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    logs, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
-        if proc.returncode != 0:
-            failed.append(name)
-            continue
-        (BUILD_DIR / f"{name}.log").write_text(out)
-        os.replace(tmp, library_path(name))   # atomic for concurrent users
+        with open(log, "w") as out:
+            procs[name] = (tmp, log, subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT))
+    done, failed = {}, []
+    while len(done) < len(procs):
+        for name, (tmp, log, proc) in procs.items():
+            if name in done or proc.poll() is None:
+                continue
+            text = log.read_text()
+            log.unlink()
+            done[name] = (text, time.perf_counter() - t0)
+            if proc.returncode != 0:
+                failed.append(name)
+                continue
+            (BUILD_DIR / f"{name}.log").write_text(text)
+            os.replace(tmp, library_path(name))  # atomic for concurrent users
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
-    return logs
+                           + "\n".join(done[n][0] for n in failed))
+    return done
 
 
 def load(name: str) -> ctypes.CDLL:

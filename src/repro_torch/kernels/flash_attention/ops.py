@@ -8,6 +8,11 @@ outputs zeros.  Forward only: the port does inference.
 
 ``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors
 and runs ``flash_attention_plain`` for CPU tensors; anything else raises.
+The kernel copies q/k/v rows 16 bytes at a time, so each must start on a
+16-byte boundary and step by a multiple of 16 bytes per batch and row;
+the C entry point checks that (it alone knows the kernel's loads) and the
+wrapper raises ``ValueError`` where it does not hold.  The predictor's
+projections and the split views of a fused QKV projection pass.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_UNALIGNED = -2                 # capsim_flash_attention_fwd's refusal
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 
@@ -147,9 +153,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(*launch_args(q, k, v, kv_mask, o), int(causal), int(window),
             1.0 / math.sqrt(q.shape[3]), stream)
-    flash_attention.launches += 1
+    if rc == _UNALIGNED:
+        raise ValueError("flash_attention: q/k/v must start on 16 bytes "
+                         "and step by multiples of 16 bytes per batch and "
+                         f"row, got strides {q.stride()}/{k.stride()}/"
+                         f"{v.stride()}")
     build.check(lib, rc, "flash_attention")
+    flash_attention.launches += 1
     return o
 
 
 flash_attention.launches = 0
+
+
+def shared_bytes(dtype: torch.dtype, head_dim: int) -> int:
+    """Dynamic shared memory one launch of the kernel asks for."""
+    lib, _ = _kernel()
+    fn = lib.capsim_flash_attention_smem
+    fn.argtypes = [_I, _I]
+    fn.restype = ctypes.c_longlong
+    return int(fn(_DTYPE_CODES[dtype], head_dim))

@@ -12,6 +12,20 @@ FA_CASES = [
     (1, 1, 257, 2, 128, True, 0, False),      # decode-style single query
     (1, 64, 192, 1, 16, True, 0, False),      # Sq != Skv causal (suffix)
 ]
+# The tiled CUDA kernel's edges: 16-row query blocks and 64-key tiles that
+# end mid-block, a causal window that ends inside a key tile, a mask that
+# empties one whole key tile ("tile") while the others stay live, and
+# every head dim
+FA_EDGE_CASES = [
+    (2, 1, 257, 4, 32, False, 0, True),
+    (2, 17, 257, 4, 32, True, 0, True),
+    (1, 17, 257, 2, 16, False, 0, False),
+    (1, 100, 257, 2, 64, True, 0, False),
+    (1, 100, 257, 2, 128, False, 0, True),
+    (1, 100, 257, 2, 32, True, 40, False),    # window ends inside a tile
+    (2, 100, 257, 2, 32, False, 0, "tile"),
+    (2, 40, 200, 2, 16, True, 0, "tile"),
+]
 WA_CASES = [
     # (B, Sq, Skv, H, D, zero_tail) — tests/test_fused_serving.py shapes
     (3, 16, 24, 4, 8, False),
@@ -31,6 +45,8 @@ def fa_inputs(case, seed=7):
     if masked:
         m = (rng.rand(B, Skv) > 0.3).astype(np.float32)
         m[:, 0] = 1.0
+        if masked == "tile":                  # keys 64-127: one whole tile
+            m[:, 64:128] = 0.0
     return q, k, v, m
 
 

@@ -13,9 +13,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
-from _torch_cases import (FA_CASES, SSD_CASES, SSD_TOL, TOL,  # noqa: E402
-                          WA_CASES, fa_inputs, scaled_err, ssd_inputs,
-                          wa_inputs)
+from _torch_cases import (FA_CASES, FA_EDGE_CASES, SSD_CASES,  # noqa: E402
+                          SSD_TOL, TOL, WA_CASES, fa_inputs, scaled_err,
+                          ssd_inputs, wa_inputs)
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs.capsim import config  # noqa: E402
@@ -46,7 +46,8 @@ def test_flash_kernel_matches_plain(dtype):
     _need_card()
     tdt = getattr(torch, dtype)
     before = fa_ops.flash_attention.launches
-    for case in FA_CASES:
+    cases = FA_CASES + FA_EDGE_CASES
+    for case in cases:
         causal, window = case[5], case[6]
         q, k, v, m = fa_inputs(case)
         args = [_cuda(x, tdt) for x in (q, k, v)]
@@ -59,7 +60,29 @@ def test_flash_kernel_matches_plain(dtype):
         assert out.dtype == tdt and out.is_cuda
         err = float((out.float() - ref.float()).abs().max())
         assert err < TOL[dtype], (case, err)
-    assert fa_ops.flash_attention.launches == before + len(FA_CASES)
+    assert fa_ops.flash_attention.launches == before + len(cases)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_strided_views_and_keyless_rows(dtype):
+    """q/k/v as strided views of one fused QKV tensor (ragged 16-row and
+    64-key tiles), and a batch row whose keys are all masked: exact
+    zeros."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    rng = np.random.RandomState(3)
+    qkv = _cuda(rng.randn(3, 100, 3 * 4 * 32), tdt)
+    q, k, v = (x.unflatten(-1, (4, 32)) for x in qkv.split(128, dim=-1))
+    m = _cuda((rng.rand(3, 100) > 0.3).astype(np.float32), torch.float32)
+    m[1] = 0.0                                        # batch row 1: no key
+    for causal in (False, True):
+        out = fa_ops.flash_attention(q, k, v, causal=causal, kv_mask=m)
+        ref = fa_ops.flash_attention_plain(q, k, v, causal=causal,
+                                           kv_mask=m)
+        torch.cuda.synchronize()
+        assert float(out[1].float().abs().max()) == 0.0
+        err = float((out.float() - ref.float()).abs().max())
+        assert err < TOL[dtype], (causal, err)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -91,6 +114,10 @@ def test_kernels_refuse_what_they_do_not_take():
         fa_ops.flash_attention(q, q.cpu(), q)
     with pytest.raises(ValueError, match="mask/weights"):
         wa_ops.weighted_attention(q, q, q, torch.ones(1, 5, device="cuda"))
+    shifted = torch.zeros(1, 4, 33, device="cuda")[..., 1:].unflatten(
+        -1, (2, 16))                                  # starts 4 bytes in
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa_ops.flash_attention(q, shifted, q)
 
 
 @pytest.mark.parametrize("fused", [False, True])

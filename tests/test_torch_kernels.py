@@ -11,8 +11,8 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from _torch_cases import (FA_CASES, TOL, WA_CASES, fa_inputs,  # noqa: E402
-                          wa_inputs)
+from _torch_cases import (FA_CASES, FA_EDGE_CASES, TOL,  # noqa: E402
+                          WA_CASES, fa_inputs, wa_inputs)
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_fa  # noqa: E402
 from repro.kernels.fused_serving import ops as jax_wa  # noqa: E402
@@ -35,7 +35,7 @@ def _err(a_torch, b_jax):
                                 - np.asarray(b_jax.astype(jnp.float32)))))
 
 
-@pytest.mark.parametrize("case", FA_CASES)
+@pytest.mark.parametrize("case", FA_CASES + FA_EDGE_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_plain_matches_pallas(case, dtype):
     _, _, _, _, _, causal, window, _ = case
@@ -114,3 +114,4 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     meta = torch.zeros(1, 4, 1, 8, device="meta")
     with pytest.raises(ValueError):
         fa_ops.flash_attention(meta, meta, meta)
+
