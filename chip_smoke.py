@@ -9,23 +9,31 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               and cuDNN, so fp32 means fp32.
   2. build    every CUDA kernel from ``src/repro_torch/csrc``, one nvcc per
               source, all started together (registers, spills and seconds
-              per source); then, from ``cuobjdump``, each flash-attention
+              per source); then, from ``cuobjdump``, every kernel
               instantiation's HMMA count, registers and static shared
-              memory beside the dynamic shared memory a launch asks for:
-              HMMA > 0 in every bfloat16 instantiation (tensor cores), 0 in
-              every float32 one ("not measured" without ``cuobjdump``).
+              memory beside the dynamic shared memory a launch asks for
+              (the SSD scan's at the Mamba2 prefill shape): HMMA > 0 in
+              every bfloat16 instantiation of flash attention, weighted
+              attention and the SSD scan (tensor cores), 0 in every
+              float32 one ("not measured" without ``cuobjdump``).
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main path's shapes and the reference kernel tests' sweeps,
               in float32 and bfloat16.  Attention: max abs err <= 2e-5 /
-              2e-2, exact zeros for a row with no valid key; flash also
-              at lengths that are not multiples of 16 or 64, a causal
-              window ending inside a key tile, a mask that empties a whole
-              64-key tile, every head dim, and strided q/k/v views of one
-              fused QKV tensor.  SSD scan (``SSD_CASES``, the Mamba2
-              prefill shape, a 4-chunk state carry, a large-decay case, an
-              all-padding chunk): max abs err / max |plain| <= 1e-5 /
-              1e-2, for y and the state.
-  4. timing   each kernel at its path shapes (CUDA events after warm-up):
+              2e-2, exact zeros for a row with no valid key (weighted: all
+              weights 0, or zero-weight keys leading every live score by
+              ~200, so the row max taken over them underflows every p);
+              both also at lengths that are not multiples of 16 or 64,
+              every head dim, a whole 64-key tile masked or weighing 0,
+              and strided q/k/v views of one fused QKV tensor; flash at a
+              causal window ending inside a key tile.  SSD scan
+              (``SSD_CASES``, many chunks with a ragged last one, S shorter
+              than the chunk, P 128 with N 256, the Mamba2 prefill shape, a
+              4-chunk state carry, a large-decay case, an all-padding chunk,
+              B/C views that break 16-byte alignment): max abs err / max
+              |plain| <= 1e-5 / 1e-2, for y and the state.
+  4. timing   each kernel at its path shapes (CUDA events after warm-up,
+              the least of three means of at least 20 back-to-back calls,
+              enough to fill ~2 ms for short ones):
               kernel (and, for attention, its device time under
               ``torch.profiler``: the instruction encoder's shape is
               launch-bound, so the event time there is the wrapper's),
@@ -34,16 +42,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               for attention, timed as a yardstick only — the port never
               calls it; none exists for the SSD scan), beside the least
               time the card could take (bytes at 3.35 TB/s, operations at
-              67 TFLOP/s float32 or 989 TFLOP/s bfloat16, the larger).
+              67 TFLOP/s float32 or 989 TFLOP/s bfloat16, the larger); the
+              SSD scan's device time per launch of its four kernels.  Then
+              each timing gate of this slice, with its verdict: the SSD
+              scan's (bf16 <= 2.0 ms, f32 <= 4.5 ms) and weighted
+              attention's at U=128 in bf16 (<= 0.10 ms) fail the run; the
+              others (weighted bf16 U=64 <= 0.045 ms, weighted f32 below
+              the first kernel's times, flash's block-shape device times
+              within 5% of the previous body's) are reported.
   5. engine   ``SimulationEngine.run`` at the paper model's full width
               (E=128, 4 heads, 4+4 layers, M=360) with seeded random
               parameters, on the first 3 Table II benchmarks: unfused and
-              fused fp32 and unfused bf16, the paper model's own dtype
-              (kernel launch counters reset just before each run and read
-              just after), and one benchmark on the CPU through the plain
-              versions.  Checks: both kernels launched,
-              predictions finite, fused vs unfused <= 1e-3 relative, card vs
-              CPU <= 1e-4 relative, equal oracle cycles, bf16 within 1%.
+              fused fp32, unfused and fused bf16, the paper model's own
+              dtype (kernel launch counters reset just before each run and
+              read just after), and one benchmark on the CPU through the
+              plain versions.  Checks: both kernels launched, predictions
+              finite, fused vs unfused <= 1e-3 relative, card vs CPU <= 1e-4
+              relative, equal oracle cycles, each bf16 run within 1% of its
+              fp32 twin, and the fused bf16 run's launch counts equal to
+              the fused fp32 run's.
   6. mamba2   the LM zoo's Mamba2-780m at full width (48 layers, d_model
               1536, 48 SSD heads x 64, d_state 128, vocab 50280 padded to
               50288), seeded random parameters: ``generate`` over B=4
@@ -60,8 +77,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               in each dtype are reported.
 
 The line before the last is the card's name and power limit from
-nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (flash
-attention's entry also carries the block-self bfloat16 numbers as
+nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (the
+attention entries also carry their main shape's bfloat16 numbers as
 ``*_bf16``).  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -69,7 +86,6 @@ from __future__ import annotations
 import json
 import math
 import re
-import shutil
 import subprocess
 import sys
 import time
@@ -83,6 +99,18 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SSD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 MAMBA2_BATCH, MAMBA2_PROMPT, MAMBA2_DECODE = 4, 4096, 16
+# this slice's timing gates (ms, NVIDIA H100 80GB HBM3 at 700 W): the
+# weighted-attention kernel's first body (float32: below its times), the
+# flash body's block-shape device times (within 5%), the SSD scan's
+WA_BF16_GATE = {"fused_self_u64": 0.045, "fused_self_u128": 0.10,
+                "fused_cross_u128": 0.10}
+WA_F32_FIRST = {"fused_self_u64": 0.0868, "fused_self_u128": 0.2223,
+                "fused_cross_u128": 0.2201}
+FLASH_DEVICE_BEFORE = {("block_self", "bfloat16"): 0.1335,
+                       ("block_cross", "bfloat16"): 0.0671,
+                       ("block_self", "float32"): 0.6397,
+                       ("block_cross", "float32"): 0.2448}
+SSD_GATE = {"bfloat16": 2.0, "float32": 4.5}
 
 
 def require(ok: bool, what: str) -> None:
@@ -98,18 +126,34 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3,
+            rounds: int = 3, window_ms: float = 2.0) -> float:
+    """ms per call: CUDA events around back-to-back calls after
+    ``warmup``, the least mean of ``rounds`` such runs.  A run makes at
+    least ``iters`` calls and, for short calls, enough to fill about
+    ``window_ms`` (at most 500), so that the start of a run after a
+    synchronisation does not weigh on a call of a few microseconds.
+    Where a call's host time exceeds its device time (a launch-bound
+    shape), this is the host time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    t0 = time.perf_counter()
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    once_ms = 1e3 * (time.perf_counter() - t0)
+    iters = max(iters, min(500, math.ceil(window_ms / max(once_ms, 1e-3))))
+    best = float("inf")
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 def device_ms(torch, fn, iters: int = 20) -> float:
@@ -146,61 +190,85 @@ def bound(B, Sq, Skv, H, D, dtype: str, aux: bool):
                                        else "operations")
 
 
-def cuobjdump():
-    found = shutil.which("cuobjdump")
-    if found is None and Path("/usr/local/cuda/bin/cuobjdump").exists():
-        found = "/usr/local/cuda/bin/cuobjdump"
-    return found
+KERNEL_NAMES = r"(ssd_chunk_state|ssd_chunk_out|ssd_state_pass|ssd_cb|" \
+    r"fa_fwd_bf16|fa_fwd_f32)"
 
 
-def flash_pipes(torch, build, fa_ops):
-    """Each flash-attention instantiation's HMMA count (``cuobjdump
-    -sass``), registers and static shared memory (``-res-usage``), and the
-    dynamic shared memory a launch asks for.  bfloat16 must run on the
-    tensor cores (HMMA > 0), float32 on the FMA pipes (HMMA == 0)."""
-    tool = cuobjdump()
-    lib = str(build.library_path("flash_attention"))
-    if tool is None:
-        print("sass flash_attention: cuobjdump not found; HMMA counts and "
-              "static shared memory not measured")
+def kernel_label(mangled: str):
+    """(label, dtype or None, template ints) of a port kernel's mangled
+    name, e.g. ("ssd_chunk_out<bf16, 64>", "bf16", [64])."""
+    kind = re.search(KERNEL_NAMES, mangled)
+    if kind is None:
+        return None
+    name = kind.group(1)
+    dtype = ("bf16" if "13__nv_bfloat16" in mangled or name == "fa_fwd_bf16"
+             else "f32" if name == "fa_fwd_f32" or re.search(
+                 r"\d" + name + r"If", mangled) else None)
+    ints = [int(v) for v in re.findall(r"Li(\d+)E", mangled)]
+    flags = re.findall(r"Lb([01])E", mangled)
+    args = ([dtype] if name.startswith("ssd") and dtype else []) + \
+        [str(v) for v in ints] + \
+        [{"0": "flash", "1": "weighted"}[f] for f in flags]
+    return f"{name}<{', '.join(args)}>" if args else name, dtype, ints
+
+
+def sass_pipes(torch, build, fa_ops, ssd_ops):
+    """Each kernel instantiation's HMMA count (``cuobjdump -sass``),
+    registers and static shared memory (``-res-usage``), and the dynamic
+    shared memory a launch asks for (the SSD scan's at the Mamba2 prefill
+    shape).  bfloat16 must run on the tensor cores (HMMA > 0), float32 on
+    the FMA pipes (HMMA == 0)."""
+    if build.cuobjdump() is None:
+        print("sass: cuobjdump not found; HMMA counts and static shared "
+              "memory not measured")
         return
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
-                         text=True, check=True, timeout=120).stdout
-    hmma, name = {}, None
-    for line in sass.splitlines():
-        found = re.search(r"Function : (\S+)", line)
-        if found:
-            name = found.group(1)
-            hmma[name] = 0
-        elif name is not None and re.search(r"\bHMMA\b", line):
-            hmma[name] += 1
-    usage = {}
-    pattern = r"Function (\S+):\s+REG:(\d+)[^\n]*?SHARED:(\d+)"
-    for found in re.finditer(pattern, res):
-        usage[found.group(1)] = (int(found.group(2)), int(found.group(3)))
-    seen = set()
-    for name, count in sorted(hmma.items()):
-        kind = re.search(r"fa_fwd_(bf16|f32)ILi(\d+)E", name)
-        if kind is None:
-            continue
-        dtype = torch.bfloat16 if kind.group(1) == "bf16" else torch.float32
-        d = int(kind.group(2))
-        seen.add((kind.group(1), d))
-        regs, static = usage.get(name, ("not measured", "not measured"))
-        print(f"sass flash_attention fa_fwd_{kind.group(1)}<{d}>: HMMA "
-              f"{count}, registers {regs}, static shared {static} B, "
-              f"dynamic shared {fa_ops.shared_bytes(dtype, d)} B")
-        if kind.group(1) == "bf16":
-            require(count > 0, f"bf16 flash D={d} has no HMMA: not on the "
-                    "tensor cores")
+    _, _, _, P, N, q, _, _ = SSD_PATH[1:]
+    ssd_smem = {dt: ssd_ops.shared_bytes(getattr(torch, name), P, N, q)
+                for dt, name in (("f32", "float32"), ("bf16", "bfloat16"))}
+    ssd_slot = {"ssd_cb": 0, "ssd_chunk_state": 1, "ssd_state_pass": 2,
+                "ssd_chunk_out": 3}
+    for lib in ("flash_attention", "weighted_attention", "ssd"):
+        path = build.library_path(lib)
+        hmma = {k: v["HMMA"] for k, v in build.sass_opcodes(path).items()}
+        usage = build.resource_usage(path)
+        seen = set()
+        for name, count in sorted(hmma.items()):
+            found = kernel_label(name)
+            if found is None:
+                continue
+            label, dtype, ints = found
+            regs, static = usage.get(name, ("not measured", "not measured"))
+            base = label.split("<")[0]
+            if base.startswith("fa_fwd"):
+                tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+                dyn = fa_ops.shared_bytes(tdt, ints[0])
+                seen.add((dtype, ints[0]))
+            elif base == "ssd_state_pass":
+                dyn = 0
+            elif not ints or ints[0] == P:
+                dyn = ssd_smem[dtype][ssd_slot[base]]
+            else:
+                dyn = "- (not at the path shape)"
+            seen.add(label)
+            print(f"sass {lib} {label}: HMMA {count}, registers {regs}, "
+                  f"static shared {static} B, dynamic shared {dyn} B")
+            if dtype == "bf16":
+                require(count > 0, f"{lib} {label} has no HMMA: not on the "
+                        "tensor cores")
+            else:
+                require(count == 0, f"{lib} {label} has {count} HMMA: f32 "
+                        "must stay on the FMA pipes")
+        if lib != "ssd":
+            want = {(k, d) for k in ("bf16", "f32") for d in fa_ops.HEAD_DIMS}
+            require(want <= seen, f"{lib} instantiations in the SASS: "
+                    f"{sorted(x for x in seen if isinstance(x, tuple))}")
+            flag = "weighted" if lib == "weighted_attention" else "flash"
+            require(all(flag in x for x in seen if isinstance(x, str)),
+                    f"{lib} holds the other attention variant")
         else:
-            require(count == 0, f"f32 flash D={d} has {count} HMMA: f32 "
-                    "must stay on the FMA pipes")
-    require(seen == {(k, d) for k in ("bf16", "f32")
-                     for d in fa_ops.HEAD_DIMS},
-            f"flash instantiations in the SASS: {sorted(seen)}")
+            require(any("ssd_chunk_out<bf16" in x for x in seen)
+                    and any("ssd_chunk_out<f32" in x for x in seen),
+                    "ssd: both dtypes' instantiations in the SASS")
 
 
 # --------------------------------------------------------------------- #
@@ -240,17 +308,27 @@ FA_SWEEP = [
     ("empty_key_tile", 2, 70, 200, 2, 16, False, 0, "empty_tile"),
     ("empty_key_tile", 2, 40, 300, 2, 64, True, 0, "empty_tile"),
 ]
-# (label, B, Sq, Skv, weights): fused self over U deduped tokens (U from
-# the dedup ladder, weights = multiplicities with zero-weight padding
+# (label, B, Sq, Skv, H, D, weights): fused self over U deduped tokens (U
+# from the dedup ladder, weights = multiplicities with zero-weight padding
 # slots), fused cross from U to L_clip=128 (weights = clip_mask)
 WA_PATH = [
-    ("fused_self_u64", 256, 64, 64, "counts"),
-    ("fused_self_u128", 256, 128, 128, "counts"),
-    ("fused_cross_u128", 256, 128, 128, "clip"),
+    ("fused_self_u64", 256, 64, 64, 4, 32, "counts"),
+    ("fused_self_u128", 256, 128, 128, 4, 32, "counts"),
+    ("fused_cross_u128", 256, 128, 128, 4, 32, "clip"),
 ]
+# the tiled kernel's edges: U not a multiple of 16 or 64, every head dim,
+# a whole 64-key tile of zero weights, and zero-weight keys that lead
+# every live score (the row max runs over them: by ~200 in batch row 0,
+# which must then be zeros)
 WA_EDGE = [
-    ("zero_weight_keys", 8, 48, 48, "counts"),
-    ("all_zero_row", 8, 32, 32, "empty_row"),
+    ("zero_weight_keys", 8, 48, 48, 4, 32, "counts"),
+    ("all_zero_row", 8, 32, 32, 4, 32, "empty_row"),
+    ("u1", 4, 1, 1, 4, 32, "counts"),
+    ("u17_d16", 4, 17, 17, 4, 16, "counts"),
+    ("u65_d64", 4, 65, 65, 2, 64, "counts"),
+    ("u257_d128", 2, 257, 257, 2, 128, "counts"),
+    ("empty_key_tile", 4, 100, 200, 2, 32, "counts_empty_tile"),
+    ("max_at_zero", 4, 40, 70, 2, 32, "max_at_zero"),
 ]
 
 
@@ -276,10 +354,15 @@ def make_aux(torch, gen, kind, B, Skv):
         w[:, 0] = 1.0
         if kind == "empty_tile":          # keys 64-127: one whole tile
             w[:, 64:128] = 0.0
-    elif kind == "counts":                # multiplicities + zero padding
+    elif kind in ("counts", "counts_empty_tile", "max_at_zero"):
+        # multiplicities + zero padding
         w = torch.randint(1, 9, (B, Skv), generator=gen).float()
         n = torch.randint(Skv // 2, Skv + 1, (B,), generator=gen)
         w = w * (torch.arange(Skv)[None] < n[:, None])
+        if kind == "counts_empty_tile":   # keys 64-127: one whole tile
+            w[:, 64:128] = 0.0
+        if kind == "max_at_zero":         # every fourth key weighs 0
+            w[:, torch.arange(Skv) % 4 == 1] = 0.0
     elif kind == "empty_row":
         w = torch.ones(B, Skv)
         w[0] = 0.0
@@ -318,36 +401,52 @@ def check_kernels(torch, fa_ops, wa_ops):
             worst = max(worst, err)
         errs["flash_attention"][dtype] = worst
         worst = 0.0
-        for (label, B, Sq, Skv, kind) in WA_PATH + WA_EDGE:
-            q, k, v = make_qkv(torch, gen, B, Sq, Skv, 4, 32, tdt)
+        for (label, B, Sq, Skv, H, D, kind) in WA_PATH + WA_EDGE:
+            q, k, v = make_qkv(torch, gen, B, Sq, Skv, H, D, tdt)
             w = make_aux(torch, gen, kind, B, Skv)
+            if kind == "max_at_zero":     # zero-weight keys lead the scores
+                zero = (torch.arange(Skv) % 4 == 1).to(w.device)
+                q[..., 0] = q[..., 0].abs() + 1.0
+                k[:, zero, :, 0] = 5.0 * math.sqrt(D)
+                k[0, zero, :, 0] = 200.0 * math.sqrt(D)
             out = wa_ops.weighted_attention(q, k, v, w)
             ref = wa_ops.weighted_attention_plain(q, k, v, w)
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
             print(f"kernel weighted_attention {label:16s} {dtype:8s} "
-                  f"B={B} Sq={Sq} Skv={Skv} H=4 D=32 weights={kind} "
+                  f"B={B} Sq={Sq} Skv={Skv} H={H} D={D} weights={kind} "
                   f"max_abs_err={err:.3e}")
             require(err <= tol,
                     f"weighted_attention {label} {dtype} err {err}")
-            if kind == "empty_row":
+            if kind in ("empty_row", "max_at_zero"):
                 require(float(out[0].float().abs().max()) == 0.0,
-                        "weighted_attention: all-zero weights must output "
-                        "zeros")
+                        f"weighted_attention {label}: batch row 0 must "
+                        "output zeros")
+            if kind == "max_at_zero":
+                require(float(out[1:].float().abs().max()) > 0.0,
+                        "weighted_attention max_at_zero: rows 1.. are live")
             worst = max(worst, err)
         errs["weighted_attention"][dtype] = worst
-    # the fused step hands the kernel strided q/k/v views of one QKV matmul
-    qkv = torch.randn(256, 64, 384, generator=gen).to("cuda")
-    q, k, v = (x.unflatten(-1, (4, 32)) for x in qkv.split(128, dim=-1))
-    w = make_aux(torch, gen, "counts", 256, 64)
-    err = float((wa_ops.weighted_attention(q, k, v, w)
-                 - wa_ops.weighted_attention_plain(q, k, v, w))
-                .abs().max())
-    print(f"kernel weighted_attention strided_qkv      float32  "
-          f"max_abs_err={err:.3e}")
-    require(err <= F32_TOL, f"weighted_attention strided views err {err}")
-    # flash attention on the same kind of views, both dtypes, every tile
-    # edge: 100 rows over 100 keys (ragged 16-row and 64-key tiles)
+    # the fused step hands the weighted kernel strided q/k/v views of one
+    # QKV matmul; flash attention gets the same kind of views; both dtypes,
+    # every tile edge: 100 rows over 100 keys (ragged 16-row and 64-key
+    # tiles)
+    for dtype in ("float32", "bfloat16"):
+        qkv = torch.randn(8, 100, 384, generator=gen).to("cuda",
+                                                         getattr(torch, dtype))
+        q, k, v = (x.unflatten(-1, (4, 32)) for x in qkv.split(128, dim=-1))
+        w = make_aux(torch, gen, "counts", 8, 100)
+        err = float((wa_ops.weighted_attention(q, k, v, w).float()
+                     - wa_ops.weighted_attention_plain(q, k, v, w).float())
+                    .abs().max())
+        print(f"kernel weighted_attention strided_qkv      {dtype:8s} "
+              f"B=8 Sq=Skv=100 H=4 D=32 weights=counts max_abs_err="
+              f"{err:.3e}")
+        tol = F32_TOL if dtype == "float32" else BF16_TOL
+        require(err <= tol, f"weighted_attention strided views {dtype} "
+                f"err {err}")
+        errs["weighted_attention"][dtype] = max(
+            errs["weighted_attention"][dtype], err)
     for dtype in ("float32", "bfloat16"):
         qkv = torch.randn(8, 100, 384, generator=gen).to("cuda",
                                                          getattr(torch, dtype))
@@ -403,7 +502,7 @@ def time_kernels(torch, fa_ops, wa_ops):
             row["bound_ms"], row["bound_by"] = bound(B, Sq, Skv, H, D,
                                                      dtype, m is not None)
             rows["flash_attention"].append(row)
-        for (label, B, Sq, Skv, kind) in WA_PATH:
+        for (label, B, Sq, Skv, _, _, kind) in WA_PATH:
             q, k, v = make_qkv(torch, gen, B, Sq, Skv, 4, 32, tdt)
             w = make_aux(torch, gen, kind, B, Skv)
             qt, kt, vt = sdpa_inputs(q, k, v)
@@ -437,6 +536,37 @@ def time_kernels(torch, fa_ops, wa_ops):
     return rows
 
 
+def gate(what: str, value: float, limit: float, enforced: bool) -> None:
+    """Print a timing gate's verdict; an enforced gate that is missed
+    fails the run."""
+    ok = value <= limit
+    print(f"gate {what}: {value:.4f} ms <= {limit:.4f} ms "
+          f"{'met' if ok else 'MISSED'}"
+          f"{'' if enforced else ' (reported, not enforced)'}")
+    if enforced:
+        require(ok, f"timing gate {what}: {value} > {limit}")
+
+
+def check_gates(rows) -> None:
+    """This slice's timing gates on the rows of time_kernels/time_ssd."""
+    for r in rows["weighted_attention"]:
+        if r["dtype"] == "bfloat16":
+            limit = WA_BF16_GATE[r["shape"]]
+            gate(f"weighted {r['shape']} bf16 kernel_ms", r["ms"], limit,
+                 limit >= 0.10)
+        else:
+            gate(f"weighted {r['shape']} f32 kernel_ms below the first "
+                 "body's", r["ms"], WA_F32_FIRST[r["shape"]], False)
+    for r in rows["flash_attention"]:
+        before = FLASH_DEVICE_BEFORE.get((r["shape"], r["dtype"]))
+        if before is not None:
+            gate(f"flash {r['shape']} {r['dtype']} device_ms within 5%",
+                 r["device_ms"], 1.05 * before, False)
+    for r in rows["ssd"]:
+        gate(f"ssd {r['shape']} {r['dtype']} kernel_ms", r["ms"],
+             SSD_GATE[r["dtype"]], True)
+
+
 # --------------------------------------------------------------------- #
 # SSD scan
 # --------------------------------------------------------------------- #
@@ -456,6 +586,13 @@ SSD_CHECKS = [
     ("state_carry", 2, 1024, 8, 64, 128, 256, 1.0, False),
     ("large_decay", 2, 300, 4, 64, 128, 256, 60.0, False),
     ("padding_chunk", 1, 512, 4, 64, 128, 256, 1.0, True),
+    # the chunk-parallel kernel's edges: many chunks with a ragged last
+    # one, S shorter than the chunk, the widest head and state, and B/C
+    # views one element off 16 bytes (the plain-copy path)
+    ("many_chunks_ragged", 1, 5 * 64 + 17, 2, 32, 64, 64, 1.0, False),
+    ("s_below_chunk", 2, 40, 3, 16, 32, 64, 1.0, False),
+    ("p128_n256", 1, 128, 2, 128, 256, 64, 1.0, False),
+    ("unaligned_bc", 2, 300, 4, 64, 20, 128, 1.0, False),
 ]
 
 
@@ -492,6 +629,11 @@ def check_ssd(torch, ssd_ops):
         for (label, Bt, S, H, P, N, q, a_scale, pad) in SSD_CHECKS:
             args = ssd_inputs(torch, gen, Bt, S, H, P, N, tdt, a_scale,
                               q if pad else 0)
+            if label == "unaligned_bc":   # rows N + 1 apart, one element in
+                x, dt, B, C, A = args
+                B, C = (torch.nn.functional.pad(t, (1, 0))[..., 1:]
+                        for t in (B, C))
+                args = (x, dt, B, C, A)
             y, st = ssd_ops.ssd_scan(*args, chunk=q)
             yp, sp = ssd_ops.ssd_scan_plain(*args, chunk=q)
             torch.cuda.synchronize()
@@ -526,22 +668,44 @@ def check_ssd(torch, ssd_ops):
 
 
 def ssd_bound(Bt, S, H, P, N, q, dtype: str):
-    """(ms, "bytes"|"operations") for the work the function needs: per
-    chunk of L real steps (the last one ragged), the causal half of the
-    scores, L(L+1)/2 pairs of N MACs for C·Bᵀ and of P for the decayed
-    product with x·dt, and L·N·P MACs each for the carried state's output
-    and the state update; x read and y written, B/C, dt and A read, the
-    f32 state written once."""
+    """(ms, "bytes"|"operations") for the work the function needs.  Per
+    chunk of L real steps (the last one ragged) and batch row, C·Bᵀ over
+    the causal half once, L(L+1)/2 pairs of N MACs, since B and C are
+    shared by every head; per head the decayed causal product with x·dt,
+    L(L+1)/2 pairs of P MACs, and L·N·P MACs each for the carried state's
+    output and the state update.  Bytes: x read and y written, B/C, dt
+    and A read, the f32 state written once."""
     elem = 4 if dtype == "float32" else 2
     lens = [min(q, S - t) for t in range(0, S, q)]
-    flops = float(Bt * H) * sum(L * (L + 1) * (N + P) + 4 * L * N * P
-                                for L in lens)
+    flops = float(Bt) * sum(L * (L + 1) * N for L in lens) \
+        + float(Bt * H) * sum(L * (L + 1) * P + 4 * L * N * P for L in lens)
     nbytes = (2 * Bt * S * H * P + 2 * Bt * S * N) * elem \
         + 4 * (Bt * S * H + H + Bt * H * P * N)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def device_breakdown(torch, fn, iters: int = 5):
+    """Device ms per call of each port kernel ``fn`` launches (names in
+    the ``capsim_*`` namespaces), from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "capsim" in e.key:
+            name = re.sub(r"\(capsim_ssd::Args.*", "", e.key)
+            out[name.replace("capsim_ssd::", "").replace("void ", "")] = \
+                e.self_device_time_total / iters / 1e3
+    require(bool(out), "the profiler saw no kernel of the port")
+    return out
 
 
 def time_ssd(torch, ssd_ops):
@@ -555,15 +719,21 @@ def time_ssd(torch, ssd_ops):
                "ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan(*args, chunk=q),
                              iters=10, warmup=2),
                "plain_ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan_plain(
-                   *args, chunk=q), iters=3, warmup=1),
+                   *args, chunk=q), iters=3, warmup=1, rounds=1),
                "library_ms": None}
+        parts = device_breakdown(torch, lambda: ssd_ops.ssd_scan(*args,
+                                                                chunk=q))
+        row["device_ms"] = sum(parts.values())
         row["bound_ms"], row["bound_by"] = ssd_bound(Bt, S, H, P, N, q,
                                                      dtype)
         rows.append(row)
         print(f"time ssd {label:16s} {dtype:8s} kernel_ms={row['ms']:.4f} "
+              f"device_ms={row['device_ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms=none "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-              f"bound_share={row['bound_ms'] / row['ms']:.4f}")
+              f"bound_share={row['bound_ms'] / row['ms']:.4f}; device ms "
+              "per kernel: " + "; ".join(f"{k} {v:.4f}"
+                                         for k, v in parts.items()))
     return rows
 
 
@@ -639,26 +809,36 @@ def check_engine(torch, fa_ops, wa_ops):
         require(a.oracle_cycles == b.oracle_cycles, "oracle cycles differ")
         require(rel <= 1e-3, f"fused vs unfused {a.name} rel {rel}")
 
-    fa_ops.flash_attention.launches = 0
-    wa_ops.weighted_attention.launches = 0
-    bf16, wall, eng = run_engine(torch, params, cfg, vocab, names,
-                                 base.replace(precision="bf16"))
-    st = eng.last_stats
-    n_clips = sum(r.n_clips for r in bf16)
-    print(f"engine fused=False bf16: {n_clips} clips in {wall:.3f} s = "
-          f"{n_clips / wall:.1f} clips/s (host front-end and oracle "
-          f"included); predict {st.predict_seconds:.3f} s, {st.n_batches} "
-          f"batches, {st.n_pad} pad rows; launches flash="
-          f"{fa_ops.flash_attention.launches} weighted="
-          f"{wa_ops.weighted_attention.launches}")
-    require(fa_ops.flash_attention.launches > 0,
-            "bf16 run launched no flash kernel")
-    for a, b in zip(runs[False], bf16):
-        rel = abs(b.predicted_cycles - a.predicted_cycles) \
-            / abs(a.predicted_cycles)
-        print(f"bf16 vs fp32 {a.name}: rel {rel:.3e}")
-        require(a.oracle_cycles == b.oracle_cycles, "oracle cycles differ")
-        require(rel <= 1e-2, f"bf16 vs fp32 {a.name} rel {rel}")
+    # bf16, the paper model's own dtype: unfused (flash) and fused (the
+    # weighted kernel's bf16 instantiation on the engine path)
+    for fused in (False, True):
+        fa_ops.flash_attention.launches = 0
+        wa_ops.weighted_attention.launches = 0
+        bf16, wall, eng = run_engine(
+            torch, params, cfg, vocab, names,
+            base.replace(precision="bf16", fused_serving=fused))
+        counts = (fa_ops.flash_attention.launches,
+                  wa_ops.weighted_attention.launches)
+        st = eng.last_stats
+        n_clips = sum(r.n_clips for r in bf16)
+        print(f"engine fused={fused} bf16: {n_clips} clips in {wall:.3f} s "
+              f"= {n_clips / wall:.1f} clips/s (host front-end and oracle "
+              f"included); predict {st.predict_seconds:.3f} s, "
+              f"{st.n_batches} batches, {st.n_pad} pad rows; launches "
+              f"flash={counts[0]} weighted={counts[1]}")
+        require(counts[0] > 0, f"bf16 fused={fused} run launched no flash "
+                "kernel")
+        if fused:
+            require(counts == launches[True], f"fused bf16 launches {counts}"
+                    f" != fused fp32 launches {launches[True]}")
+        for a, b in zip(runs[fused], bf16):
+            rel = abs(b.predicted_cycles - a.predicted_cycles) \
+                / abs(a.predicted_cycles)
+            print(f"bf16 vs fp32 fused={fused} {a.name}: rel {rel:.3e}")
+            require(a.oracle_cycles == b.oracle_cycles,
+                    "oracle cycles differ")
+            require(rel <= 1e-2, f"bf16 vs fp32 fused={fused} {a.name} "
+                    f"rel {rel}")
 
     cpu, cpu_wall, _ = run_engine(torch, params, cfg, vocab, names[:1],
                                   base, device="cpu")
@@ -799,8 +979,9 @@ def check_mamba2(torch, fa_ops, wa_ops, ssd_ops):
 
 def device_profile(torch, fn, top: int = 5):
     """Run ``fn`` once under ``torch.profiler``.  Returns (its result, wall
-    s, device busy s = the sum of the kernels' device times, the ``top``
-    kernels by device time as (name, ms, calls))."""
+    s, device busy s = the sum of the kernels' device times, the port's
+    own kernels' device s, the ``top`` kernels by device time as (name,
+    ms, calls))."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -814,16 +995,20 @@ def device_profile(torch, fn, top: int = 5):
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    ours = sum(e.self_device_time_total for e in kernels
+               if "capsim" in e.key) / 1e6
     require(busy > 0, "the profiler saw no device time")
-    return out, wall, busy, [(e.key, e.self_device_time_total / 1e3,
-                              e.count) for e in kernels[:top]]
+    return out, wall, busy, ours, [(e.key, e.self_device_time_total / 1e3,
+                                    e.count) for e in kernels[:top]]
 
 
-def print_profile(what: str, wall: float, busy: float, top) -> None:
+def print_profile(what: str, wall: float, busy: float, ours: float,
+                  top) -> None:
     print(f"{what} profiled: wall {1e3 * wall:.2f} ms, device busy "
-          f"{1e3 * busy:.2f} ms (idle share {1 - busy / wall:.3f}); top "
-          "kernels " + "; ".join(f"{name[:60]} {ms:.2f} ms x{n}"
-                                 for name, ms, n in top))
+          f"{1e3 * busy:.2f} ms (idle share {1 - busy / wall:.3f}); the "
+          f"port's kernels {1e3 * ours:.2f} ms ({ours / busy:.3f} of busy); "
+          "top kernels " + "; ".join(f"{name[:60]} {ms:.2f} ms x{n}"
+                                     for name, ms, n in top))
 
 
 def _leaves(tree):
@@ -877,12 +1062,13 @@ def main() -> int:
         print(f"build {name}: {len(regs)} instantiations, registers "
               f"{min(regs)}-{max(regs)}, {len(spills)} with spills, nvcc "
               f"{seconds:.1f} s")
-    flash_pipes(torch, build, fa_ops)
+    sass_pipes(torch, build, fa_ops, ssd_ops)
 
     errs = check_kernels(torch, fa_ops, wa_ops)
     errs["ssd"] = check_ssd(torch, ssd_ops)
     rows = time_kernels(torch, fa_ops, wa_ops)
     rows["ssd"] = time_ssd(torch, ssd_ops)
+    check_gates(rows)
     launches = check_engine(torch, fa_ops, wa_ops)
     launches["ssd"] = check_mamba2(torch, fa_ops, wa_ops, ssd_ops)
 
@@ -912,7 +1098,7 @@ def main() -> int:
             "library_ms": row["library_ms"]}
         if "device_ms" in row:
             entry["device_ms"] = row["device_ms"]
-        if name == "flash_attention":     # the paper model's own dtype
+        if name != "ssd":                 # the paper model's own dtype
             row = next(r for r in rows[name]
                        if r["shape"] == main_shape
                        and r["dtype"] == "bfloat16")

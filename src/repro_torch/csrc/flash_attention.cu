@@ -2,8 +2,9 @@
 // repro/kernels/flash_attention/kernel.py::_fa_kernel (reached through
 // flash_attention_bhsd).  The kernel bodies (bf16 on the tensor cores,
 // f32 register-tiled on the FMA pipes), what bounds them and the design
-// are in flash_attention.cuh; this file is their plain-C entry point,
-// loaded from Python with ctypes (repro_torch/kernels/flash_attention/ops.py).
+// are in flash_attention.cuh; this file instantiates them without weights
+// (W = false) and is their plain-C entry point, loaded from Python with
+// ctypes (repro_torch/kernels/flash_attention/ops.py).
 #include "flash_attention.cuh"
 
 extern "C" int capsim_flash_attention_fwd(
@@ -15,7 +16,7 @@ extern "C" int capsim_flash_attention_fwd(
   capsim_fa::Args a{q,    k,    v,    kv_mask, o,    B,    Sq,
                     Skv,  H,    q_sb, q_ss,    k_sb, k_ss, v_sb,
                     v_ss, o_sb, o_ss, causal,  window, Skv - Sq, scale};
-  return capsim_fa::launch(dtype, head_dim, a,
+  return capsim_fa::launch<false>(dtype, head_dim, a,
                            static_cast<cudaStream_t>(stream));
 }
 

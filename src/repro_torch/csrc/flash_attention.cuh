@@ -1,8 +1,13 @@
-// Flash-attention forward for Hopper (sm_90a): the body behind
-// flash_attention.cu, which replaces the TPU kernel
-// repro/kernels/flash_attention/kernel.py::_fa_kernel.
+// Flash-attention forward for Hopper (sm_90a): the body behind two entry
+// points, each of which instantiates only its own variant (W, a template
+// parameter, never a runtime branch):
 //
-// Contract (the TPU kernel's, repeated by flash_attention_plain):
+//   flash_attention.cu     W = false, replaces the TPU kernel
+//                          repro/kernels/flash_attention/kernel.py::_fa_kernel
+//   weighted_attention.cu  W = true, replaces the TPU kernel
+//                          repro/kernels/fused_serving/kernel.py::_wa_kernel
+//
+// Flash contract (the TPU kernel's, repeated by flash_attention_plain):
 // q (B, Sq, H, D), k/v (B, Skv, H, D) read by batch and row strides with
 // dense head and feature axes; an optional contiguous f32 (B, Skv)
 // validity mask; causal and sliding-window masks with q aligned to the
@@ -10,25 +15,36 @@
 // runs over live scores; m, l and acc are f32; p is rounded to the value
 // dtype before the PV product; a row with no valid key writes zeros.
 //
+// Weighted contract (weighted_attention_plain): the same layout with a
+// contiguous f32 (B, Skv) weight per key in the mask's slot and no causal
+// or window mask.  The row max runs over every key before Skv, zero-weight
+// keys included, so a tile's bits are "key < Skv" and every full tile
+// skips the per-score tests; the weight multiplies the max-shifted
+// exponential, p = w * 2^(s*scale*log2e - m); l sums the f32 p and the
+// PV product sees p in the value dtype.  A row whose keys all weigh 0
+// writes exact zeros (l == 0, every p == 0).
+//
 // What bounds it on the card.  At the block encoder's shapes (B 256, H 4,
 // D 32, 360 queries over 360 or 128 keys) one call moves 24-94 MB and
 // does 3-17 GFLOP of products.  In bf16 that is 0.02-0.03 ms of HBM
 // traffic against ~0.02 ms of tensor-core work at mma.sync rates, plus
 // one exponential per score: 1.3e8 for block self, ~0.03-0.04 ms on the
 // SFUs at boost clock.  In f32 the products bound it: 0.25 ms of FMA
-// issue at the published 67 TFLOP/s.
+// issue at the published 67 TFLOP/s.  The fused step's weighted shapes
+// (B 256, H 4, D 32, U = 64 or 128 over 64 or 128 keys) are 8-30x
+// smaller: 0.005-0.01 ms of bytes in bf16, 0.01-0.03 ms of FMA in f32.
 //
 // What the design does about it.  One CTA of NW warps (4, or 1-2 when
 // Sq <= 32) per (batch, head, 16*NW queries); each warp owns 16 query
 // rows and walks every key tile of 64 keys that its rows can see.  The
 // query tiles of one (batch, head) are neighbours in the 1-D grid, so
 // they read its K/V from L2 rather than each from HBM.  K/V tiles and
-// their validity words stream through shared memory by cp.async in a
-// two-stage ring, so the next tile's copy overlaps this tile's products;
-// rows past Skv are zero-filled by the copy.  Causal and windowed CTAs
-// start and stop at the first and last tile any of their rows can see,
-// and a tile that all of a warp's rows see whole skips the per-score
-// mask tests.  Exponentials are 2^x on the SFU (ex2.approx.ftz) with
+// their validity words (or weights) stream through shared memory by
+// cp.async in a two-stage ring, so the next tile's copy overlaps this
+// tile's products; rows past Skv are zero-filled by the copy (weight 0).
+// Causal and windowed CTAs start and stop at the first and last tile any
+// of their rows can see, and a tile that all of a warp's rows see whole
+// skips the per-score mask tests.  Exponentials are 2^x on the SFU (ex2.approx.ftz) with
 // scale*log2(e) folded into one FFMA.
 //
 //   bf16: a Flash-Attention-2 forward on
@@ -61,7 +77,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "ptx.cuh"
+
 namespace capsim_fa {
+
+using namespace capsim;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -72,86 +92,13 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
-  const float* kv_mask;  // (B, Skv) validity or null
+  const float* kv_mask;  // (B, Skv): flash validity or null; W: weights
   void* o;
   int B, Sq, Skv, H;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss;  // in elements
   int causal, window, q_offset;
   float scale;
 };
-
-// ----------------------------------------------------------------------
-// PTX helpers
-// ----------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-fills when !pred (nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// addr: a shared-space byte address (smem_u32)
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
-                                              unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a * b on the tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the SFU: one MUFU.EX2, what exp2f lowers to under fast math
-// (relative error ~2^-22; results below 2^-126 flush to 0)
-__device__ __forceinline__ float exp2_sfu(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two f32 -> one register of two bf16 (round to nearest even), lo first
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
 
 // ----------------------------------------------------------------------
 // Shared between the two bodies
@@ -263,12 +210,22 @@ struct KVStream {
   }
 };
 
-// The tile's 64 validity words as two ballots: bit j of lo (hi) is key j
-// (32 + j), set if the key is valid and before Skv.
-__device__ __forceinline__ void tile_bits(const float* mt, int lane,
-                                          unsigned& lo, unsigned& hi) {
-  lo = __ballot_sync(0xffffffffu, mt[lane] > 0.f);
-  hi = __ballot_sync(0xffffffffu, mt[lane + 32] > 0.f);
+// The tile's 64 keys as two words: bit j of lo (hi) is key j (32 + j).
+// Flash: set if the key is valid and before Skv (two ballots of the
+// validity words).  W: set if the key is before Skv, whatever its weight,
+// since the row max runs over zero-weight keys too.
+template <bool W>
+__device__ __forceinline__ void tile_bits(const Args& a, const float* mt,
+                                          int k0, int lane, unsigned& lo,
+                                          unsigned& hi) {
+  if constexpr (W) {
+    const int n = a.Skv - k0;
+    lo = n >= 32 ? 0xffffffffu : (1u << n) - 1u;
+    hi = n >= 64 ? 0xffffffffu : n > 32 ? (1u << (n - 32)) - 1u : 0u;
+  } else {
+    lo = __ballot_sync(0xffffffffu, mt[lane] > 0.f);
+    hi = __ballot_sync(0xffffffffu, mt[lane + 32] > 0.f);
+  }
 }
 
 // True on every lane when the warp's rows see all keys [k0, k0 + BK):
@@ -301,7 +258,7 @@ struct Bf16Smem {
       (Q + 4 * TILE) * sizeof(__nv_bfloat16) + 2 * BK * sizeof(float);
 };
 
-template <int D>
+template <int D, bool W>
 __global__ void __launch_bounds__(MAX_WARPS * 32) fa_fwd_bf16(Args a) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   using S = Bf16Smem<D>;
@@ -418,7 +375,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) fa_fwd_bf16(Args a) {
       // (scale > 0), and p = 2^(s*scale*log2e - m) is one FFMA and one
       // MUFU.EX2.
       unsigned lo, hi;
-      tile_bits(mt, lane, lo, hi);
+      tile_bits<W>(a, mt, k0, lane, lo, hi);
       float mx[2];
       if (tile_whole(a, lo, hi, k0, kmin, kmax)) {
         // a tree, not a chain of 16 dependent max operations
@@ -459,15 +416,20 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) fa_fwd_bf16(Args a) {
         l[row] *= alpha[row];
       }
       // a masked score (-1e30) gives exactly 0, also in a row that has
-      // no live key yet (mref = 0)
+      // no live key yet (mref = 0); W: the key's weight multiplies p
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n) {
+        float2 wk = make_float2(1.f, 1.f);
+        if constexpr (W)
+          wk = *reinterpret_cast<const float2*>(mt + n * 8 + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = exp2_sfu(fmaf(s[n][e], sl2, -mref[e / 2]));
+          float p = exp2_sfu(fmaf(s[n][e], sl2, -mref[e / 2]));
+          if constexpr (W) p *= (e & 1) ? wk.y : wk.x;
           s[n][e] = p;
           l[e / 2] += p;           // this lane's part of the row sum
         }
+      }
 #pragma unroll
       for (int i = 0; i < DT; ++i)
 #pragma unroll
@@ -526,7 +488,7 @@ struct F32Smem {
   static constexpr size_t BYTES = (Q + 4 * TILE + P + 2 * BK) * sizeof(float);
 };
 
-template <int D>
+template <int D, bool W>
 __global__ void __launch_bounds__(MAX_WARPS * 32) fa_fwd_f32(Args a) {
   using S = F32Smem<D>;
   constexpr int QI = 4;                       // query rows a thread
@@ -637,8 +599,11 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) fa_fwd_f32(Args a) {
       }
 
       unsigned lo, hi;
-      tile_bits(mt, lane, lo, hi);
+      tile_bits<W>(a, mt, k0, lane, lo, hi);
       const bool whole = tile_whole(a, lo, hi, k0, kmin, kmax);
+      float wk[KJ];                 // W: this lane's keys' weights
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) wk[j] = W ? mt[kx + 8 * j] : 1.f;
 #pragma unroll
       for (int i = 0; i < QI; ++i) {
         float mx = NEG_INF;
@@ -661,7 +626,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) fa_fwd_f32(Args a) {
         float psum = 0.f;
 #pragma unroll
         for (int j = 0; j < KJ; ++j) {
-          const float p = exp2_sfu(fmaf(s[i][j], sl2, -mref));  // masked: 0
+          float p = exp2_sfu(fmaf(s[i][j], sl2, -mref));  // masked: 0
+          if constexpr (W) p *= wk[j];
           prow[4 * i * S::PSTRIDE + kx + 8 * j] = p;
           psum += p;
         }
@@ -776,12 +742,12 @@ int launch_kernel(Kernel kernel, size_t smem, unsigned long long& ready,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool W>
 int launch_d(int dtype, const Args& a, cudaStream_t stream) {
   static unsigned long long ready_f32 = 0, ready_bf16 = 0;
-  return dtype == 0 ? launch_kernel(fa_fwd_f32<D>, F32Smem<D>::BYTES,
+  return dtype == 0 ? launch_kernel(fa_fwd_f32<D, W>, F32Smem<D>::BYTES,
                                     ready_f32, a, stream)
-                    : launch_kernel(fa_fwd_bf16<D>, Bf16Smem<D>::BYTES,
+                    : launch_kernel(fa_fwd_bf16<D, W>, Bf16Smem<D>::BYTES,
                                     ready_bf16, a, stream);
 }
 
@@ -795,11 +761,12 @@ inline bool aligned16(const void* p, long long sb, long long ss, int nb,
          (ns <= 1 || (ss * elem) % 16 == 0);
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns 0, a cudaError_t, -1 for a
-// (dtype, head_dim) pair the kernel is not built for, or -2 for q/k/v
-// that are not 16-byte aligned (aligned16).
-inline int launch(int dtype, int head_dim, const Args& a,
-                  cudaStream_t stream) {
+// dtype: 0 = float32, 1 = bfloat16; W: weighted attention (a.kv_mask
+// holds the weights; causal and window must be 0).  Returns 0, a
+// cudaError_t, -1 for a (dtype, head_dim) pair the kernel is not built
+// for, or -2 for q/k/v that are not 16-byte aligned (aligned16).
+template <bool W>
+int launch(int dtype, int head_dim, const Args& a, cudaStream_t stream) {
   if (dtype != 0 && dtype != 1) return -1;
   if (a.B == 0 || a.Sq == 0 || a.H == 0) return 0;
   const int elem = dtype == 0 ? 4 : 2;
@@ -808,10 +775,10 @@ inline int launch(int dtype, int head_dim, const Args& a,
       !aligned16(a.v, a.v_sb, a.v_ss, a.B, a.Skv, elem))
     return -2;
   switch (head_dim) {
-    case 16: return launch_d<16>(dtype, a, stream);
-    case 32: return launch_d<32>(dtype, a, stream);
-    case 64: return launch_d<64>(dtype, a, stream);
-    case 128: return launch_d<128>(dtype, a, stream);
+    case 16: return launch_d<16, W>(dtype, a, stream);
+    case 32: return launch_d<32, W>(dtype, a, stream);
+    case 64: return launch_d<64, W>(dtype, a, stream);
+    case 128: return launch_d<128, W>(dtype, a, stream);
     default: return -1;
   }
 }

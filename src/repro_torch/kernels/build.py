@@ -10,13 +10,15 @@ missing or older than any source under ``csrc/``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Counter, Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -113,3 +115,49 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.capsim_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({rc}: {msg})")
+
+
+def cuobjdump() -> Optional[str]:
+    """The CUDA toolkit's ``cuobjdump``, or None where it is missing."""
+    found = shutil.which("cuobjdump")
+    if found is None and Path("/usr/local/cuda/bin/cuobjdump").exists():
+        found = "/usr/local/cuda/bin/cuobjdump"
+    return found
+
+
+def sass_opcodes(path: Path) -> Dict[str, Counter[str]]:
+    """Per kernel (mangled name) of a built library or cubin, the count of
+    each SASS opcode (``cuobjdump -sass``; predicates and modifiers
+    dropped, so ``@P0 HMMA.16816.F32.BF16`` counts as ``HMMA``)."""
+    tool = cuobjdump()
+    if tool is None:
+        raise RuntimeError("cuobjdump not found")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out: Dict[str, Counter[str]] = {}
+    name = None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            out[name] = collections.Counter()
+            continue
+        inst = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_]*)", line)
+        if name is not None and inst:
+            out[name][inst.group(1)] += 1
+    return out
+
+
+def resource_usage(path: Path) -> Dict[str, Tuple[int, int]]:
+    """Per kernel of a built library: (registers, static shared bytes)
+    from ``cuobjdump -res-usage``."""
+    tool = cuobjdump()
+    if tool is None:
+        raise RuntimeError("cuobjdump not found")
+    res = subprocess.run([tool, "-res-usage", str(path)],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    pattern = r"Function (\S+):\s+REG:(\d+)[^\n]*?SHARED:(\d+)"
+    return {m.group(1): (int(m.group(2)), int(m.group(3)))
+            for m in re.finditer(pattern, res)}

@@ -123,6 +123,27 @@ def launch_args(q, k, v, aux, o):
             v.stride(0), v.stride(1), o.stride(0), o.stride(1))
 
 
+def current_stream(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream on ``device`` (the
+    private accessor where PyTorch has it: a Stream object costs
+    microseconds a launch)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index if device.index is not None
+                   else torch.cuda.current_device())
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_aligned(rc: int, q, k, v, what: str) -> None:
+    """Raise ``ValueError`` if the C entry point refused q/k/v that do
+    not start on 16 bytes or step by whole 16-byte units per batch and
+    row (it alone knows the kernel's loads)."""
+    if rc == _UNALIGNED:
+        raise ValueError(f"{what}: q/k/v must start on 16 bytes and step "
+                         "by multiples of 16 bytes per batch and row, got "
+                         f"strides {q.stride()}/{k.stride()}/{v.stride()}")
+
+
 ARG_TYPES = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
              _L, _L, _L, _L, _L, _L, _L, _L]
 
@@ -149,15 +170,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_mask = kv_mask.float().contiguous()
     check_attention_args(q, k, v, kv_mask, "flash_attention")
     lib, fn = _kernel()
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    o = torch.empty_like(q)     # q's head and feature axes are dense
+    stream = current_stream(q.device)
     rc = fn(*launch_args(q, k, v, kv_mask, o), int(causal), int(window),
             1.0 / math.sqrt(q.shape[3]), stream)
-    if rc == _UNALIGNED:
-        raise ValueError("flash_attention: q/k/v must start on 16 bytes "
-                         "and step by multiples of 16 bytes per batch and "
-                         f"row, got strides {q.stride()}/{k.stride()}/"
-                         f"{v.stride()}")
+    check_aligned(rc, q, k, v, "flash_attention")
     build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1
     return o

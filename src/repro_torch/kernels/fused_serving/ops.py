@@ -8,8 +8,13 @@ included, and the weight multiplies the max-shifted exponential,
 zeros.  Layout: q (B, Sq, H, D), k/v (B, Skv, H, D), kv_weight (B, Skv)
 f32.  Inference only.
 
-``weighted_attention`` launches ``csrc/weighted_attention.cu`` for CUDA
-tensors and runs ``weighted_attention_plain`` for CPU tensors.
+``weighted_attention`` launches ``csrc/weighted_attention.cu`` (flash
+attention's body with the weight, ``csrc/flash_attention.cuh``) for CUDA
+tensors and runs ``weighted_attention_plain`` for CPU tensors.  Like
+flash attention's, the kernel copies q/k/v rows 16 bytes at a time: each
+must start on 16 bytes and step by multiples of 16 bytes per batch and
+row, or the wrapper raises ``ValueError``; the fused step's split QKV
+views pass.
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ops import (ARG_TYPES,
+                                                     check_aligned,
                                                      check_attention_args,
+                                                     current_stream,
                                                      launch_args,
                                                      softmax_pv_plain)
 
@@ -57,12 +64,13 @@ def weighted_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_weight = kv_weight.float().contiguous()
     check_attention_args(q, k, v, kv_weight, "weighted_attention")
     lib, fn = _kernel()
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    o = torch.empty_like(q)     # q's head and feature axes are dense
+    stream = current_stream(q.device)
     rc = fn(*launch_args(q, k, v, kv_weight, o),
             1.0 / math.sqrt(q.shape[3]), stream)
-    weighted_attention.launches += 1
+    check_aligned(rc, q, k, v, "weighted_attention")
     build.check(lib, rc, "weighted_attention")
+    weighted_attention.launches += 1
     return o
 
 

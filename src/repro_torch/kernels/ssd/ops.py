@@ -20,8 +20,12 @@ to disagree at the 1e-5 gate.  The decay is always formed as one
 Returns y (Bt, S, H, P) in x's dtype and the final state (Bt, H, P, N)
 f32 (the state after the last real step; padded steps leave it).
 
-``ssd_scan`` launches ``csrc/ssd.cu`` for CUDA tensors and runs
-``ssd_scan_plain`` for CPU tensors; anything else raises.
+``ssd_scan`` launches ``csrc/ssd.cu`` (four kernels on the current
+stream: C·Bᵀ per chunk, each chunk's state contribution, the pass over
+chunks, y) for CUDA tensors and runs ``ssd_scan_plain`` for CPU tensors;
+anything else raises.  The kernels' f32 workspace (C·Bᵀ per chunk and
+one state per chunk and head, about x's size in bf16 at the Mamba2
+shapes) is allocated here, on x's device.
 """
 from __future__ import annotations
 
@@ -114,8 +118,10 @@ def check_ssd_args(x, dt, B, C, A) -> None:
 def _kernel():
     lib = build.load("ssd")
     fn = lib.capsim_ssd_scan
-    fn.argtypes = [_I] + [_P] * 7 + [_I] * 6 + [_L] * 10 + [_P]
+    fn.argtypes = [_I] + [_P] * 7 + [_I] * 6 + [_L] * 10 + [_P, _P]
     fn.restype = ctypes.c_int
+    lib.capsim_ssd_workspace_bytes.argtypes = [_I] * 6
+    lib.capsim_ssd_workspace_bytes.restype = _L
     return lib, fn
 
 
@@ -133,16 +139,34 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     lib, fn = _kernel()
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     state = torch.empty(Bt, H, P, N, dtype=torch.float32, device=x.device)
+    workspace = torch.empty(
+        lib.capsim_ssd_workspace_bytes(Bt, S, H, P, N, q),
+        dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
             B.data_ptr(), C.data_ptr(), A.data_ptr(), y.data_ptr(),
             state.data_ptr(), Bt, S, H, P, N, q,
             x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
             B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-            y.stride(0), y.stride(1), stream)
-    ssd_scan.launches += 1
+            y.stride(0), y.stride(1), workspace.data_ptr(), stream)
     build.check(lib, rc, f"ssd_scan (head_dim {P}, d_state {N}, chunk {q})")
+    ssd_scan.launches += 1
     return y, state
 
 
 ssd_scan.launches = 0
+
+
+def shared_bytes(dtype: torch.dtype, head_dim: int, d_state: int,
+                 chunk: int) -> tuple:
+    """Dynamic shared memory of the kernel's four launches (C·Bᵀ, chunk
+    states, the pass over chunks, y) at one shape."""
+    lib, _ = _kernel()
+    fn = lib.capsim_ssd_shared_bytes
+    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_L)]
+    fn.restype = _I
+    out = (_L * 4)()
+    if fn(_DTYPE_CODES[dtype], head_dim, d_state, chunk, out) != 0:
+        raise ValueError(f"ssd_scan: head_dim {head_dim}, d_state "
+                         f"{d_state}, chunk {chunk} not supported")
+    return tuple(int(v) for v in out)

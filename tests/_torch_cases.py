@@ -32,6 +32,20 @@ WA_CASES = [
     (2, 33, 47, 4, 8, False),                 # ragged
     (2, 16, 24, 4, 8, True),                  # zero-weight padding keys
 ]
+# The tiled CUDA kernel's edges (the last field is wa_inputs' kind): U
+# deduplicated tokens that are not multiples of 16 or 64, every head dim,
+# a 64-key tile whose weights are all 0 ("tile"), and zero-weight keys
+# that carry the row's largest score ("max_at_zero"): the row max runs
+# over them, so in batch row 0, where they lead by ~200, every live p
+# underflows and the row is zeros
+WA_EDGE_CASES = [
+    (2, 1, 1, 4, 32, False),
+    (2, 17, 17, 4, 16, False),
+    (2, 65, 65, 2, 64, True),
+    (1, 257, 257, 2, 128, False),
+    (2, 100, 200, 2, 32, "tile"),
+    (3, 40, 70, 2, 32, "max_at_zero"),
+]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -51,15 +65,26 @@ def fa_inputs(case, seed=7):
 
 
 def wa_inputs(case, seed=2):
-    B, Sq, Skv, H, D, zero_tail = case
+    """kind (the case's last field): True zeroes the last third of the
+    weights, "tile" keys 64-127, "max_at_zero" every fourth key, whose
+    score then leads the row's (by ~5, and by ~200 in batch row 0)."""
+    B, Sq, Skv, H, D, kind = case
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
     k = rng.standard_normal((B, Skv, H, D)).astype(np.float32)
     v = rng.standard_normal((B, Skv, H, D)).astype(np.float32)
     w = rng.integers(0, 5, (B, Skv)).astype(np.float32)
     w[:, 0] = 1.0
-    if zero_tail:
+    if kind is True:
         w[:, Skv * 2 // 3:] = 0.0
+    elif kind == "tile":
+        w[:, 64:128] = 0.0
+    elif kind == "max_at_zero":
+        zero = np.arange(Skv) % 4 == 1
+        w[:, zero] = 0.0
+        q[..., 0] = np.abs(q[..., 0]) + 1.0       # scores along feature 0
+        k[:, zero, :, 0] = 5.0 * np.sqrt(D)
+        k[0, zero, :, 0] = 200.0 * np.sqrt(D)
     return q, k, v, w
 
 
@@ -69,6 +94,13 @@ SSD_CASES = [
     (1, 128, 2, 64, 128, 64),
     (2, 100, 3, 16, 32, 32),                   # padding path
     (1, 256, 8, 64, 128, 256),                 # single chunk
+]
+# The chunk-parallel CUDA kernel's edges: many chunks with a ragged last
+# one, S shorter than the chunk, and the widest head and state
+SSD_EDGE_CASES = [
+    (1, 5 * 64 + 17, 2, 32, 64, 64),
+    (2, 40, 3, 16, 32, 64),
+    (1, 128, 2, 128, 256, 64),
 ]
 # SSD gates, scaled by the output's magnitude (max(1, max|ref|)): the
 # kernel and its plain version compute the same f32 chunk arithmetic in

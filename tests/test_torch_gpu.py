@@ -14,8 +14,9 @@ torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 from _torch_cases import (FA_CASES, FA_EDGE_CASES, SSD_CASES,  # noqa: E402
-                          SSD_TOL, TOL, WA_CASES, fa_inputs, scaled_err,
-                          ssd_inputs, wa_inputs)
+                          SSD_EDGE_CASES, SSD_TOL, TOL, WA_CASES,
+                          WA_EDGE_CASES, fa_inputs, scaled_err, ssd_inputs,
+                          wa_inputs)
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs.capsim import config  # noqa: E402
@@ -89,7 +90,9 @@ def test_flash_kernel_strided_views_and_keyless_rows(dtype):
 def test_weighted_kernel_matches_plain(dtype):
     _need_card()
     tdt = getattr(torch, dtype)
-    for case in WA_CASES:
+    before = wa_ops.weighted_attention.launches
+    cases = WA_CASES + WA_EDGE_CASES
+    for case in cases:
         q, k, v, w = wa_inputs(case)
         if case[4] not in fa_ops.HEAD_DIMS:          # kernel head dims
             q, k, v = (np.concatenate([x, x], axis=-1) for x in (q, k, v))
@@ -102,6 +105,24 @@ def test_weighted_kernel_matches_plain(dtype):
         assert float(out[0].float().abs().max()) == 0.0
         err = float((out.float() - ref.float()).abs().max())
         assert err < TOL[dtype], (case, err)
+    assert wa_ops.weighted_attention.launches == before + len(cases)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_weighted_kernel_strided_views(dtype):
+    """q/k/v as strided views of one fused QKV tensor, as the fused step
+    hands them over, over 100 deduplicated tokens (ragged tiles)."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    rng = np.random.RandomState(4)
+    qkv = _cuda(rng.randn(3, 100, 3 * 4 * 32), tdt)
+    q, k, v = (x.unflatten(-1, (4, 32)) for x in qkv.split(128, dim=-1))
+    w = _cuda(rng.randint(0, 5, (3, 100)).astype(np.float32), torch.float32)
+    out = wa_ops.weighted_attention(q, k, v, w)
+    ref = wa_ops.weighted_attention_plain(q, k, v, w)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    assert err < TOL[dtype], err
 
 
 def test_kernels_refuse_what_they_do_not_take():
@@ -118,6 +139,9 @@ def test_kernels_refuse_what_they_do_not_take():
         -1, (2, 16))                                  # starts 4 bytes in
     with pytest.raises(ValueError, match="16 bytes"):
         fa_ops.flash_attention(q, shifted, q)
+    with pytest.raises(ValueError, match="16 bytes"):
+        wa_ops.weighted_attention(q, shifted, q,
+                                  torch.ones(1, 4, device="cuda"))
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -143,11 +167,12 @@ def test_engine_on_card_matches_cpu(fused):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_kernel_matches_plain(dtype):
-    """SSD_CASES, a large-decay case and an all-padding chunk."""
+    """SSD_CASES, SSD_EDGE_CASES, a large-decay case and an all-padding
+    chunk."""
     _need_card()
     tdt = getattr(torch, dtype)
     before = ssd_ops.ssd_scan.launches
-    cases = [(case, 1.0) for case in SSD_CASES] + [
+    cases = [(case, 1.0) for case in SSD_CASES + SSD_EDGE_CASES] + [
         ((2, 300, 4, 64, 128, 256), 60.0)]
     for case, a_scale in cases:
         x, dt, B, C, A = ssd_inputs(case, a_scale=a_scale)
@@ -166,6 +191,24 @@ def test_ssd_kernel_matches_plain(dtype):
                              ref.float().cpu().numpy())
             assert err < SSD_TOL[dtype], (case, a_scale, err)
     assert ssd_ops.ssd_scan.launches == before + len(cases)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_on_unaligned_views(dtype):
+    """B/C as views one element past a 16-byte boundary, rows N + 1
+    apart, N = 20: the kernel's plain-copy path."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    x, dt, B, C, A = ssd_inputs((2, 300, 4, 64, 20, 128), seed=8)
+    wide = [_cuda(np.pad(t, ((0, 0), (0, 0), (1, 0))), tdt) for t in (B, C)]
+    args = (_cuda(x, tdt), _cuda(dt, torch.float32), wide[0][..., 1:],
+            wide[1][..., 1:], _cuda(A, torch.float32))
+    y, st = ssd_ops.ssd_scan(*args, chunk=128)
+    yp, sp = ssd_ops.ssd_scan_plain(*args, chunk=128)
+    torch.cuda.synchronize()
+    for out, ref in ((y, yp), (st, sp)):
+        err = scaled_err(out.float().cpu().numpy(), ref.float().cpu().numpy())
+        assert err < SSD_TOL[dtype], err
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take():

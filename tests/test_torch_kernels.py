@@ -12,7 +12,7 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from _torch_cases import (FA_CASES, FA_EDGE_CASES, TOL,  # noqa: E402
-                          WA_CASES, fa_inputs, wa_inputs)
+                          WA_CASES, WA_EDGE_CASES, fa_inputs, wa_inputs)
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_fa  # noqa: E402
 from repro.kernels.fused_serving import ops as jax_wa  # noqa: E402
@@ -65,7 +65,7 @@ def test_flash_plain_matches_oracle_and_zero_rows():
     assert float(np.max(np.abs(np.asarray(jref)[1]))) == 0.0
 
 
-@pytest.mark.parametrize("case", WA_CASES)
+@pytest.mark.parametrize("case", WA_CASES + WA_EDGE_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_weighted_plain_matches_pallas(case, dtype):
     q, k, v, w = wa_inputs(case)

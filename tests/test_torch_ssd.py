@@ -12,8 +12,8 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from _torch_cases import (SSD_CASES, SSD_TOL, scaled_err,  # noqa: E402
-                          ssd_inputs)
+from _torch_cases import (SSD_CASES, SSD_EDGE_CASES, SSD_TOL,  # noqa: E402
+                          scaled_err, ssd_inputs)
 
 from repro.kernels.ssd.ops import ssd_scan as jax_ssd_scan  # noqa: E402
 from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref  # noqa: E402
@@ -43,7 +43,7 @@ def _np(t):
                       else jnp.asarray(t, jnp.float32))
 
 
-@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("case", SSD_CASES + SSD_EDGE_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_plain_matches_pallas_and_oracle(case, dtype):
     chunk = case[-1]
