@@ -24,14 +24,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               ~200, so the row max taken over them underflows every p);
               both also at lengths that are not multiples of 16 or 64,
               every head dim, a whole 64-key tile masked or weighing 0,
-              and strided q/k/v views of one fused QKV tensor; flash at a
-              causal window ending inside a key tile.  SSD scan
+              and strided q/k/v views of one fused QKV tensor (100 and 369
+              rows); flash at a causal window ending inside a key tile;
+              head dim 112 (zero-padded onto the D=128 instantiation) in
+              flash, causal or not, and in weighted attention.  SSD scan
               (``SSD_CASES``, many chunks with a ragged last one, S shorter
               than the chunk, P 128 with N 256, the Mamba2 prefill shape, a
               4-chunk state carry, a large-decay case, an all-padding chunk,
               B/C views that break 16-byte alignment): max abs err / max
-              |plain| <= 1e-5 / 1e-2, for y and the state.
-  4. timing   each kernel at its path shapes (CUDA events after warm-up,
+              |plain| <= 1e-5 / 1e-2 for y, 1e-5 / 1e-4 for the state.
+  4. timing   each kernel at its path shapes (the multicore block
+              encoder's M=369 among them; CUDA events after warm-up,
               the least of three means of at least 20 back-to-back calls,
               enough to fill ~2 ms for short ones):
               kernel (and, for attention, its device time under
@@ -61,7 +64,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               relative, equal oracle cycles, each bf16 run within 1% of its
               fp32 twin, and the fused bf16 run's launch counts equal to
               the fused fp32 run's.
-  6. mamba2   the LM zoo's Mamba2-780m at full width (48 layers, d_model
+  6. multicore ``run_multicore`` at the same width on the multicore suite
+              (mt.stream, mt.chase, mt.counter, mt.mix, each on 4 cores;
+              context width M=369), one checkpoint each, batch 256:
+              unfused and fused in fp32 and bf16 (counters reset before
+              each run and read after).  Per run: clips, wall seconds and
+              clips/s, predict seconds, batches and pad rows, the launches
+              of each kernel (flash > 0 in every run, weighted > 0 exactly
+              in the fused ones), per core predicted and oracle cycles;
+              the U of every fused batch.  Checks: clips conserved (the
+              cores' sum is the predictor's count), fused vs unfused
+              <= 1e-3 in fp32, bf16 vs fp32 <= 1% (unfused and fused), card vs CPU (mt.stream)
+              <= 1e-4 per core with equal oracle cycles.  Then the weighted
+              kernel at each U the fused step reached (self weighted by
+              multiplicities summing to 369, cross to 128) against its
+              plain version, and timed like phase 4.
+  7. rt-store ``rt_store_dir`` in a temporary directory under ``build/``:
+              a cold multicore run persists, a restart loads the table
+              (rows loaded > 0, none encoded), the tables are bit-exact and
+              the restart's per-core predictions bitwise the cold run's,
+              in fp32 and in bf16; a store the CPU path wrote into the
+              same directory is not adopted by the card, which adopts its
+              own (the key names framework and device).
+  8. mamba2   the LM zoo's Mamba2-780m at full width (48 layers, d_model
               1536, 48 SSD heads x 64, d_state 128, vocab 50280 padded to
               50288), seeded random parameters: ``generate`` over B=4
               prompts of 4096 tokens + 16 greedy decode steps, in float32
@@ -75,6 +100,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               run, and, under ``torch.profiler``, the device-busy time,
               idle share and top kernels of one prefill and one decode step
               in each dtype are reported.
+  9. mamba2 bf16 gate: 12 layers at full width, the same seeded bf16
+              parameters on the card and through the port's CPU bf16 path,
+              a prefill of 2 x 300 tokens: the last row's logits card vs
+              CPU within half of the port's bf16-vs-f32 gap (on the CPU),
+              and each layer fed the CPU's input within 1e-3.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (the
@@ -94,11 +124,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 BENCHMARKS = 3
+MULTICORE_CORES, MULTICORE_INTERVAL = 4, 20_000
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SSD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the final state: in bf16 the operands formed in f32 enter the products
+# as hi and lo halves, so the state keeps f32 accuracy (y is rounded to
+# bf16 on both sides, so its max error is a bf16 ulp at the largest |y|)
+SSD_STATE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
 MAMBA2_BATCH, MAMBA2_PROMPT, MAMBA2_DECODE = 4, 4096, 16
+MAMBA2_GATE_LAYERS, MAMBA2_GATE_BATCH, MAMBA2_GATE_PROMPT = 12, 2, 300
 # this slice's timing gates (ms, NVIDIA H100 80GB HBM3 at 700 W): the
 # weighted-attention kernel's first body (float32: below its times), the
 # flash body's block-shape device times (within 5%), the SSD scan's
@@ -166,13 +202,20 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ours = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "capsim" in e.key]
-    launches = sum(e.count for e in ours)
+    # a capture that records no device event at all is the profiler's
+    # fault, not the kernel's: take another, at most twice
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ours = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "capsim" in e.key]
+        launches = sum(e.count for e in ours)
+        if launches:
+            break
+        print("device_ms: the profiler recorded no kernel of the port; "
+              "capturing again")
     require(launches > 0, "the profiler saw no kernel of the port")
     return sum(e.self_device_time_total for e in ours) / launches / 1e3
 
@@ -283,6 +326,10 @@ FA_PATH = [
     ("inst_encoder", 64, 16, 16, 4, 32, False, 0, "tokens"),
     ("block_self", 256, 360, 360, 4, 32, False, 0, None),
     ("block_cross", 256, 360, 128, 4, 32, False, 0, "clip"),
+    # the multicore path: each core's context carries its core-id channel,
+    # M = 369 (369 mod 64 = 49 keys in the last tile)
+    ("block_self_m369", 256, 369, 369, 4, 32, False, 0, None),
+    ("block_cross_m369", 256, 369, 128, 4, 32, False, 0, "clip"),
 ]
 FA_SWEEP = [
     ("sweep", 2, 128, 128, 4, 64, True, 0, None),
@@ -307,6 +354,10 @@ FA_SWEEP = [
     ("empty_key_tile", 2, 100, 257, 2, 32, False, 0, "empty_tile"),
     ("empty_key_tile", 2, 70, 200, 2, 16, False, 0, "empty_tile"),
     ("empty_key_tile", 2, 40, 300, 2, 64, True, 0, "empty_tile"),
+    # head_dim 112 runs zero-padded on the D=128 instantiation
+    ("d112", 2, 100, 257, 2, 112, False, 0, "random"),
+    ("d112_causal", 2, 100, 257, 2, 112, True, 0, None),
+    ("d112_window", 1, 33, 257, 2, 112, True, 50, "random"),
 ]
 # (label, B, Sq, Skv, H, D, weights): fused self over U deduped tokens (U
 # from the dedup ladder, weights = multiplicities with zero-weight padding
@@ -329,6 +380,8 @@ WA_EDGE = [
     ("u257_d128", 2, 257, 257, 2, 128, "counts"),
     ("empty_key_tile", 4, 100, 200, 2, 32, "counts_empty_tile"),
     ("max_at_zero", 4, 40, 70, 2, 32, "max_at_zero"),
+    ("u100_d112", 4, 100, 100, 2, 112, "counts"),
+    ("u257_d112", 2, 257, 257, 2, 112, "counts_empty_tile"),
 ]
 
 
@@ -447,11 +500,13 @@ def check_kernels(torch, fa_ops, wa_ops):
                 f"err {err}")
         errs["weighted_attention"][dtype] = max(
             errs["weighted_attention"][dtype], err)
-    for dtype in ("float32", "bfloat16"):
-        qkv = torch.randn(8, 100, 384, generator=gen).to("cuda",
-                                                         getattr(torch, dtype))
+    # (and at the multicore context width, 369 rows)
+    for dtype, S in (("float32", 100), ("bfloat16", 100), ("float32", 369),
+                     ("bfloat16", 369)):
+        qkv = torch.randn(8, S, 384, generator=gen).to("cuda",
+                                                       getattr(torch, dtype))
         q, k, v = (x.unflatten(-1, (4, 32)) for x in qkv.split(128, dim=-1))
-        m = make_aux(torch, gen, "random", 8, 100)
+        m = make_aux(torch, gen, "random", 8, S)
         for causal in (False, True):
             out = fa_ops.flash_attention(q, k, v, causal=causal, kv_mask=m)
             ref = fa_ops.flash_attention_plain(q, k, v, causal=causal,
@@ -459,7 +514,7 @@ def check_kernels(torch, fa_ops, wa_ops):
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
             print(f"kernel flash_attention strided_qkv      {dtype:8s} "
-                  f"B=8 Sq=Skv=100 H=4 D=32 causal={causal} mask=random "
+                  f"B=8 Sq=Skv={S} H=4 D=32 causal={causal} mask=random "
                   f"max_abs_err={err:.3e}")
             tol = F32_TOL if dtype == "float32" else BF16_TOL
             require(err <= tol, f"flash_attention strided views {dtype} "
@@ -660,7 +715,7 @@ def check_ssd(torch, ssd_ops):
                   f"P={P} N={N} chunk={q} A_scale={a_scale} rel_err_y="
                   f"{ey:.3e} rel_err_state={es:.3e} max_abs_err="
                   f"{abs_err:.3e}{extra}")
-            require(ey <= SSD_TOL[dtype] and es <= SSD_TOL[dtype],
+            require(ey <= SSD_TOL[dtype] and es <= SSD_STATE_TOL[dtype],
                     f"ssd {label} {dtype}: rel err y {ey} state {es}")
             worst = max(worst, abs_err)
         errs[dtype] = worst
@@ -854,6 +909,286 @@ def check_engine(torch, fa_ops, wa_ops):
 
 
 # --------------------------------------------------------------------- #
+# multicore engine and the persistent RT store
+# --------------------------------------------------------------------- #
+
+def run_multicore(torch, params, cfg, vocab, mbenches, config,
+                  device="cuda"):
+    from repro_torch.core.engine import SimulationEngine
+    engine = SimulationEngine.from_config(params, cfg, vocab, config,
+                                          device=device)
+    t0 = time.perf_counter()
+    results = engine.run_multicore(mbenches)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return results, time.perf_counter() - t0, engine
+
+
+def print_multicore(what, results, wall, engine, counts) -> None:
+    st, rt = engine.last_stats, engine.last_rt_stats
+    n_clips = sum(r.n_clips for r in results)
+    print(f"multicore {what}: {n_clips} clips in {wall:.3f} s = "
+          f"{n_clips / wall:.1f} clips/s (host front-end and oracle "
+          f"included); predict {st.predict_seconds:.3f} s, {st.n_batches} "
+          f"batches, {st.n_pad} pad rows; rt {rt.n_rows_encoded} rows "
+          f"encoded, {rt.n_rows_loaded} loaded; launches flash={counts[0]} "
+          f"weighted={counts[1]}")
+    for r in results:
+        for c in r.cores:
+            print(f"  {c.name:16s} clips={c.n_clips} predicted="
+                  f"{c.predicted_cycles!r} oracle={c.oracle_cycles!r}")
+    require(sum(c.n_clips for r in results for c in r.cores)
+            == st.n_predicted == st.n_clips,
+            f"multicore {what}: clips not conserved")
+    require(all(math.isfinite(c.predicted_cycles) and c.n_clips > 0
+                for r in results for c in r.cores),
+            f"multicore {what}: a core has no clips or a non-finite "
+            "prediction")
+
+
+def per_core_rel(a_results, b_results, what: str, tol: float) -> float:
+    """max over cores of |b - a| / |a|; checks that the cores, their
+    clips and their oracle cycles line up."""
+    worst = 0.0
+    for a, b in zip(a_results, b_results, strict=True):
+        for ca, cb in zip(a.cores, b.cores, strict=True):
+            require((ca.name, ca.n_clips) == (cb.name, cb.n_clips),
+                    f"{what}: cores differ")
+            require(ca.oracle_cycles == cb.oracle_cycles,
+                    f"{what}: oracle cycles differ at {ca.name}")
+            worst = max(worst, abs(cb.predicted_cycles - ca.predicted_cycles)
+                        / abs(ca.predicted_cycles))
+    print(f"{what}: max per-core rel {worst:.3e} (limit {tol:g})")
+    require(worst <= tol, f"{what}: per-core rel {worst} > {tol}")
+    return worst
+
+
+def check_multicore(torch, fa_ops, wa_ops):
+    """The multicore suite (mt.stream, mt.chase, mt.counter, mt.mix, each
+    on MULTICORE_CORES cores) through ``run_multicore`` at the paper
+    model's full width.  Returns (launches, the weighted kernel's (U,
+    rows) seen in the fused runs)."""
+    from repro_torch.configs.capsim import config
+    from repro_torch.core import predictor
+    from repro_torch.core import standardize as std_mod
+    from repro_torch.core.engine_config import EngineConfig
+    from repro_torch.isa import multicore
+
+    cfg = config()
+    vocab = std_mod.build_vocab()
+    params = predictor.init_params(cfg, seed=0, device="cuda")
+    mbenches = multicore.all_multicore_benchmarks(MULTICORE_CORES)
+    base = EngineConfig(precision="fp32", interval_size=MULTICORE_INTERVAL,
+                        max_checkpoints=1, batch_size=256, with_oracle=True)
+    print(f"multicore config: E={cfg.d_model} heads={cfg.num_heads} "
+          f"head_dim={cfg.head_dim} M=369 L_clip={base.l_clip} batch="
+          f"{base.batch_size} interval={base.interval_size} checkpoints="
+          f"{base.max_checkpoints} benchmarks={[m.name for m in mbenches]} "
+          f"x{MULTICORE_CORES} cores")
+    # the fused step's U per batch, read off the host-side dedup
+    seen_u = {}
+    dedupe = std_mod.dedupe_context_tokens
+
+    def recording(ctx, *a, **kw):
+        uniq, counts = dedupe(ctx, *a, **kw)
+        require(ctx.shape[1] == 369, f"a fused batch has M={ctx.shape[1]}")
+        seen_u[uniq.shape[1]] = seen_u.get(uniq.shape[1], 0) + 1
+        return uniq, counts
+
+    runs, launches = {}, [0, 0]
+    for precision in ("fp32", "bf16"):
+        for fused in (False, True):
+            fa_ops.flash_attention.launches = 0
+            wa_ops.weighted_attention.launches = 0
+            std_mod.dedupe_context_tokens = recording
+            try:
+                res, wall, eng = run_multicore(
+                    torch, params, cfg, vocab, mbenches,
+                    base.replace(precision=precision, fused_serving=fused))
+            finally:
+                std_mod.dedupe_context_tokens = dedupe
+            counts = (fa_ops.flash_attention.launches,
+                      wa_ops.weighted_attention.launches)
+            if precision == "fp32":
+                launches = [launches[0] + counts[0], launches[1] + counts[1]]
+            runs[precision, fused] = res
+            print_multicore(f"{precision} fused={fused}", res, wall, eng,
+                            counts)
+            require(counts[0] > 0, f"multicore {precision} fused={fused}: "
+                    "no flash launch")
+            require((counts[1] > 0) == fused, f"multicore {precision} "
+                    f"fused={fused}: weighted launches {counts[1]}")
+    print(f"multicore fused batches by U: {dict(sorted(seen_u.items()))}")
+    per_core_rel(runs["fp32", False], runs["fp32", True],
+                 "multicore fused vs unfused fp32", 1e-3)
+    for fused in (False, True):
+        per_core_rel(runs["fp32", fused], runs["bf16", fused],
+                     f"multicore bf16 vs fp32 fused={fused}", 1e-2)
+    # the card's fp32 run against the port's CPU path, one benchmark
+    cpu, cpu_wall, _ = run_multicore(torch, params, cfg, vocab,
+                                     mbenches[:1], base, device="cpu")
+    print(f"multicore CPU plain path: {mbenches[0].name} in {cpu_wall:.1f} s")
+    per_core_rel(runs["fp32", False][:1], cpu,
+                 f"multicore card vs CPU {mbenches[0].name}", 1e-4)
+    return {"flash_attention": launches[0],
+            "weighted_attention": launches[1]}, seen_u
+
+
+def multicore_weighted_shapes(torch, wa_ops, seen_u):
+    """The weighted kernel at each U the multicore fused step reached
+    (batch 256, H4 D32): self U->U weighted by multiplicities summing to
+    369, cross U->128 weighted by clip_mask; kernel vs plain in both
+    dtypes, and the timing rows."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(4)
+    rows, errs = [], {}
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        tol = F32_TOL if dtype == "float32" else BF16_TOL
+        for U in sorted(seen_u):
+            for label, Skv in ((f"mc_fused_self_u{U}", U),
+                               (f"mc_fused_cross_u{U}", 128)):
+                B, H, D = 256, 4, 32
+                q, k, v = make_qkv(torch, gen, B, U, Skv, H, D, tdt)
+                if Skv == U:      # multiplicities of U slots summing to 369
+                    n = torch.randint(max(1, U // 2), U + 1, (B,),
+                                      generator=gen)
+                    w = torch.zeros(B, U)
+                    for b in range(B):
+                        w[b, :n[b]] = torch.bincount(
+                            torch.randint(0, int(n[b]), (369 - int(n[b]),),
+                                          generator=gen),
+                            minlength=int(n[b])).float() + 1.0
+                    w = w.cuda()
+                else:
+                    w = make_aux(torch, gen, "clip", B, Skv)
+                out = wa_ops.weighted_attention(q, k, v, w)
+                ref = wa_ops.weighted_attention_plain(q, k, v, w)
+                torch.cuda.synchronize()
+                err = float((out.float() - ref.float()).abs().max())
+                print(f"kernel weighted_attention {label:16s} {dtype:8s} "
+                      f"B={B} Sq={U} Skv={Skv} H={H} D={D} "
+                      f"max_abs_err={err:.3e}")
+                require(err <= tol, f"weighted_attention {label} {dtype} "
+                        f"err {err}")
+                errs[dtype] = max(errs.get(dtype, 0.0), err)
+                qt, kt, vt = (x.transpose(1, 2).contiguous()
+                              for x in (q, k, v))
+                log_w = torch.log(w)[:, None, None, :].to(tdt)
+                row = {"shape": label, "dtype": dtype,
+                       "ms": cuda_ms(torch, lambda: wa_ops.weighted_attention(
+                           q, k, v, w)),
+                       "device_ms": device_ms(torch, lambda:
+                                              wa_ops.weighted_attention(
+                                                  q, k, v, w)),
+                       "plain_ms": cuda_ms(torch, lambda:
+                                           wa_ops.weighted_attention_plain(
+                                               q, k, v, w)),
+                       "library_ms": cuda_ms(torch, lambda:
+                                             F.scaled_dot_product_attention(
+                                                 qt, kt, vt, attn_mask=log_w))}
+                row["bound_ms"], row["bound_by"] = bound(B, U, Skv, H, D,
+                                                         dtype, True)
+                rows.append(row)
+                print(f"time weighted_attention {label:16s} {dtype:8s} "
+                      f"kernel_ms={row['ms']:.4f} "
+                      f"device_ms={row['device_ms']:.4f} "
+                      f"plain_ms={row['plain_ms']:.4f} "
+                      f"library_ms={row['library_ms']:.4f} "
+                      f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+                      f"bound_share={row['bound_ms'] / row['ms']:.3f}")
+    return rows, errs
+
+
+def check_rt_store(torch):
+    """The persistent RT store on the card, through ``rt_store_dir``:
+    a run persists, a restart adopts the table (rows loaded, none
+    encoded) and reproduces the run bitwise, in fp32 and in bf16 (whose
+    table round-trips bit for bit), and a store the CPU path wrote in the
+    same directory is not adopted by the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.capsim import config
+    from repro_torch.core import predictor
+    from repro_torch.core import standardize as std_mod
+    from repro_torch.core.engine_config import EngineConfig
+    from repro_torch.core.rt_cache import RTCache
+    from repro_torch.isa import multicore
+
+    cfg = config()
+    vocab = std_mod.build_vocab()
+    params = predictor.init_params(cfg, seed=0, device="cuda")
+    mbenches = multicore.all_multicore_benchmarks(MULTICORE_CORES)
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    store = Path(tempfile.mkdtemp(prefix="rt_store_", dir=build_dir))
+    try:
+        for precision in ("fp32", "bf16"):
+            ec = EngineConfig(precision=precision,
+                              interval_size=MULTICORE_INTERVAL,
+                              max_checkpoints=1, batch_size=256,
+                              with_oracle=False, rt_store_dir=str(store))
+            runs = []
+            for attempt in ("cold", "restart"):
+                res, wall, eng = run_multicore(torch, params, cfg, vocab,
+                                               mbenches, ec)
+                rt = eng.last_rt_stats
+                table = eng._rt_cache.table[:eng._rt_cache.n_rows]
+                runs.append(([c.predicted_cycles for r in res
+                              for c in r.cores], rt, table))
+                print(f"rt-store {precision} {attempt}: {wall:.3f} s, "
+                      f"{rt.n_rows_encoded} rows encoded in "
+                      f"{rt.build_seconds:.4f} s, {rt.n_rows_loaded} loaded "
+                      f"in {rt.store_load_seconds:.4f} s, table "
+                      f"{table.dtype}")
+            (p1, rt1, t1), (p2, rt2, t2) = runs
+            require(rt1.n_rows_loaded == 0 and rt1.n_rows_encoded > 0,
+                    f"rt-store {precision}: the cold run loaded rows")
+            require(rt2.n_rows_loaded == rt1.n_rows_encoded > 0
+                    and rt2.n_rows_encoded == 0,
+                    f"rt-store {precision}: restart loaded "
+                    f"{rt2.n_rows_loaded}, encoded {rt2.n_rows_encoded}")
+            bits = torch.int16 if t1.dtype == torch.bfloat16 else torch.int32
+            require(torch.equal(t1.view(bits), t2.view(bits)),
+                    f"rt-store {precision}: the adopted table is not "
+                    "bit-exact")
+            require(p1 == p2, f"rt-store {precision}: restart predictions "
+                    "are not bitwise the cold run's")
+            print(f"rt-store {precision}: table {tuple(t1.shape)} "
+                  f"{t1.dtype} bit-exact, {len(p1)} per-core predictions "
+                  "bitwise equal")
+        # a store the port's CPU path writes into the same directory, with
+        # the same parameters, config (the bf16 runs' inference config is
+        # ``cfg`` itself), l_token and vocab, is not the card's (C1/C2):
+        # the card adopts its own bf16 table, the CPU its own rows
+        p_cpu = _to(params, "cpu")
+        cpu_cache = RTCache(p_cpu, cfg, 16, device="cpu",
+                            store_dir=str(store),
+                            store_extra=vocab.signature())
+        require(cpu_cache.stats.n_rows_loaded == 0,
+                "the CPU path adopted a table the card encoded")
+        cpu_cache.ensure_rows(mbenches[0].compiled()[0].token_table(vocab,
+                                                                    16))
+        cpu_cache.persist()
+        card = RTCache(params, cfg, 16, device="cuda", store_dir=str(store),
+                       store_extra=vocab.signature())
+        again = RTCache(p_cpu, cfg, 16, device="cpu", store_dir=str(store),
+                        store_extra=vocab.signature())
+        print(f"rt-store CPU-written store in the same directory: the card "
+              f"loaded {card.stats.n_rows_loaded} rows (its own bf16 "
+              f"table: {t1.shape[0]}), the CPU {again.stats.n_rows_loaded} "
+              f"(its own: {cpu_cache.n_rows})")
+        require(card.stats.n_rows_loaded == t1.shape[0] and torch.equal(
+            card.table[:card.n_rows].view(torch.int16), t1.view(torch.int16)),
+                "the card did not adopt exactly its own bf16 table")
+        require(again.stats.n_rows_loaded == cpu_cache.n_rows,
+                "the CPU path did not adopt its own store")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
 # Mamba2 LM
 # --------------------------------------------------------------------- #
 
@@ -977,6 +1312,64 @@ def check_mamba2(torch, fa_ops, wa_ops, ssd_ops):
     return launches
 
 
+def rel_norm(a, b) -> float:
+    """|a - b| / |b| (Frobenius), in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def check_mamba2_bf16(torch):
+    """bf16 Mamba2 on the card held to the port's CPU bf16 path: the same
+    seeded bf16 parameters, cut to MAMBA2_GATE_LAYERS layers at full
+    width, one prefill of MAMBA2_GATE_PROMPT tokens (a ragged second SSD
+    chunk).  Gated as the CPU test gates the port against JAX: the last
+    row's logits on the card lie within half of the port's own bf16-vs-
+    f32 gap (on the CPU) of the CPU's, and each layer fed the CPU's input
+    stays within 1e-3 (relative norm) of the CPU's output."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("mamba2-780m").replace(num_layers=MAMBA2_GATE_LAYERS)
+    f32 = cfg.replace(dtype="float32", param_dtype="float32")
+    V = cfg.vocab_size
+    p32 = tfm.init_params(f32, seed=2, device="cpu")
+    p16 = cast_params(p32, tfm.model_specs(cfg), torch.bfloat16)
+    p16_card, p32_card = _to(p16, "cuda"), _to(p32, "cuda")
+    tok = torch.randint(0, V, (MAMBA2_GATE_BATCH, MAMBA2_GATE_PROMPT),
+                        generator=torch.Generator().manual_seed(2))
+    t0 = time.perf_counter()
+
+    def last(p, c, device):
+        logits, _ = tfm.prefill_step(p, {"tokens": tok.to(device)}, c)
+        return logits[:, -1, :V].float().cpu()
+    card16, card32 = last(p16_card, cfg, "cuda"), last(p32_card, f32, "cuda")
+    cpu16, cpu32 = last(p16, cfg, "cpu"), last(p32, f32, "cpu")
+    gap_cpu, gap_card = rel_norm(cpu16, cpu32), rel_norm(card16, card32)
+    d = rel_norm(card16, cpu16)
+    # each layer fed the CPU's input
+    x = tfm._embed_tokens(p16, tok, cfg)
+    per_layer = []
+    for r in range(cfg.num_layers):
+        y_cpu, _ = tfm._block_forward(tfm._index(p16["blocks"], r)["i0"], x,
+                                      cfg, "prefill", None)
+        y_card, _ = tfm._block_forward(
+            tfm._index(p16_card["blocks"], r)["i0"], x.cuda(), cfg,
+            "prefill", None)
+        per_layer.append(rel_norm(y_card.cpu(), y_cpu))
+        x = y_cpu
+    print(f"mamba2 bf16 gate ({cfg.num_layers} layers at full width, "
+          f"B={MAMBA2_GATE_BATCH} x {MAMBA2_GATE_PROMPT} tokens, "
+          f"{time.perf_counter() - t0:.1f} s): last-row logits card vs CPU "
+          f"{d:.3e}; the port's bf16 vs f32 gap on the CPU {gap_cpu:.3e} "
+          f"(on the card {gap_card:.3e}); per layer fed the CPU's input "
+          f"max {max(per_layer):.3e} (" + ", ".join(
+              f"{v:.2e}" for v in per_layer) + ")")
+    require(d < 0.5 * gap_cpu, f"mamba2 bf16 card vs CPU {d} >= half of "
+            f"the bf16 vs f32 gap {gap_cpu}")
+    require(max(per_layer) <= 1e-3, f"mamba2 bf16 per layer "
+            f"{max(per_layer)} > 1e-3")
+
+
 def device_profile(torch, fn, top: int = 5):
     """Run ``fn`` once under ``torch.profiler``.  Returns (its result, wall
     s, device busy s = the sum of the kernels' device times, the port's
@@ -1070,7 +1463,17 @@ def main() -> int:
     rows["ssd"] = time_ssd(torch, ssd_ops)
     check_gates(rows)
     launches = check_engine(torch, fa_ops, wa_ops)
+    mc_launches, seen_u = check_multicore(torch, fa_ops, wa_ops)
+    for name, n in mc_launches.items():
+        launches[name] += n
+    mc_rows, mc_errs = multicore_weighted_shapes(torch, wa_ops, seen_u)
+    rows["weighted_attention"] += mc_rows
+    for dtype, err in mc_errs.items():
+        errs["weighted_attention"][dtype] = max(
+            errs["weighted_attention"][dtype], err)
+    check_rt_store(torch)
     launches["ssd"] = check_mamba2(torch, fa_ops, wa_ops, ssd_ops)
+    check_mamba2_bf16(torch)
 
     sources = {"flash_attention": (
         "src/repro_torch/csrc/flash_attention.cu",

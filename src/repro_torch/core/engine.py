@@ -1,5 +1,5 @@
 """Batched multi-benchmark simulation engine (port of
-``repro/core/engine.py``, the single-core ``SimulationEngine.run`` path).
+``repro/core/engine.py``: ``SimulationEngine.run`` and ``run_multicore``).
 
 Benchmarks go through the host front-end (columnar functional simulator,
 slicing, tokenization and context matrices, all numpy), their clips pool
@@ -21,9 +21,17 @@ simulates the next benchmark, and a retire is the ``.cpu()`` of a batch's
 output tensor.  The same spans and metric names as the reference feed the
 stats views.
 
+``run_multicore`` feeds N interleaved per-core functional sims
+(``isa/multicore.py``) through the same pooled predictor and RT cache:
+each core's context rows carry its core-id channel (M = 369), and
+per-(core, checkpoint) segments demux back to per-core ``SimResult``s.
+With ``EngineConfig.rt_store_dir`` the RT cache loads its table from a
+persistent store keyed on (params, config, vocab, framework and device)
+and every run persists it after ``drain``.
+
 ``EngineConfig`` fields whose subsystems are not ported yet (device mesh,
-multicore, sampling, fault injection, the persistent RT store) raise
-``NotImplementedError`` naming their ROADMAP item.
+sampling, fault injection) raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -40,14 +48,12 @@ from repro_torch.core import standardize as std_mod
 from repro_torch.core.engine_config import EngineConfig
 from repro_torch.core.rt_cache import RTCache, RTCacheStats
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.isa import funcsim, progen, timing
+from repro_torch.isa import funcsim, multicore, progen, timing
 from repro_torch.obs import SPAN_SECONDS_TOTAL, Observability
 
 # EngineConfig fields outside this port's slice -> the ROADMAP item that
 # ports them (the check is "field differs from its default")
 _UNPORTED = {
-    "rt_store_dir": "port queue item 2, RT store",
-    "multicore": "port queue item 3, run_multicore + isa/multicore.py",
     "sampling": "port queue item 4, sampling",
     "faults": "port queue item 5, serving + fault injection",
     "mesh_shape": "port queue item 6, mesh / multi-GPU",
@@ -325,13 +331,18 @@ class BatchedPredictor:
 
     def _buffer(self, tok: np.ndarray, ctx: np.ndarray,
                 mask: np.ndarray) -> None:
+        # dispatch-boundary width check: the pool concatenates context
+        # rows across many programs/cores, so a mixed or unknown layout
+        # must fail here with the producer on the stack, before a kernel
         ctx_mod.validate_context_width(ctx.shape[1], "BatchedPredictor")
         if self._ctx_width is None:
             self._ctx_width = ctx.shape[1]
         elif ctx.shape[1] != self._ctx_width:
             raise ValueError(
                 f"BatchedPredictor: context width {ctx.shape[1]} differs "
-                f"from the pool's {self._ctx_width}")
+                f"from the pool's {self._ctx_width} — single-core, "
+                "core-tagged, and peer-channel clips cannot share one "
+                "batch pool")
         self._tok.append(tok)
         self._ctx.append(ctx)
         self._mask.append(mask)
@@ -360,6 +371,15 @@ class BatchedPredictor:
                        else np.concatenate(taken))
         self._buffered -= k
         return tuple(out)
+
+    def reset_context_width(self) -> None:
+        """Unpin the pool's context-width check between independent
+        flushes (the pool must be empty), so consecutive flushes may carry
+        different (but internally consistent) context layouts."""
+        if self._buffered:
+            raise RuntimeError(
+                "cannot reset context width with clips still buffered")
+        self._ctx_width = None
 
     def _dispatch(self, tok, ctx, mask, n_real: int) -> None:
         # the span includes any blocking retires forced by the in-flight cap
@@ -454,7 +474,7 @@ class BatchedPredictor:
 
 @dataclasses.dataclass
 class _Job:
-    bench: progen.Benchmark
+    bench: object                     # Benchmark or (multicore) core label
     offset: int = 0                   # first clip index in the global pool
     n_clips: int = 0
     n_intervals: int = 0
@@ -462,6 +482,43 @@ class _Job:
     oracle_cycles: float = 0.0
     oracle_seconds: float = 0.0
     func_seconds: float = 0.0
+    # multicore demux: (bench, core) clips land in per-checkpoint
+    # segments interleaved across cores, so predictions accumulate
+    # segment-by-segment instead of as one contiguous pool slice
+    predicted_cycles: float = 0.0
+    name: str = ""
+
+
+@dataclasses.dataclass
+class MulticoreSimResult:
+    """One multicore benchmark's demuxed (benchmark, core) results.
+
+    ``predicted_cycles`` / ``oracle_cycles`` are the across-core sums
+    (total core-cycles of the N-core run); the per-core breakdown is in
+    ``cores`` (entries named ``<bench>#c<k>``).
+    """
+
+    name: str
+    n_cores: int
+    cores: List[SimResult]
+
+    @property
+    def predicted_cycles(self) -> float:
+        return sum(r.predicted_cycles for r in self.cores)
+
+    @property
+    def oracle_cycles(self) -> Optional[float]:
+        if any(r.oracle_cycles is None for r in self.cores):
+            return None
+        return sum(r.oracle_cycles for r in self.cores)
+
+    @property
+    def n_clips(self) -> int:
+        return sum(r.n_clips for r in self.cores)
+
+    @property
+    def n_instructions(self) -> int:
+        return sum(r.n_instructions for r in self.cores)
 
 
 class SimulationEngine:
@@ -511,9 +568,14 @@ class SimulationEngine:
         self.timing_params = (timing_params if timing_params is not None
                               else timing.TimingParams())
         # one cache per engine: params are pinned at construction, so the
-        # table never goes stale; new programs just append unseen rows
+        # table never goes stale; new programs just append unseen rows.
+        # With rt_store_dir the cache loads (or later persists) the table
+        # under a (params, cfg, l_token, vocab, framework/device) key.
         self._rt_cache = (RTCache(self.params, self.cfg, config.l_token,
-                                  device=self.device, obs=self.obs)
+                                  device=self.device,
+                                  store_dir=config.rt_store_dir,
+                                  store_extra=vocab.signature(),
+                                  obs=self.obs)
                           if config.rt_cache else None)
         self._queue: List[progen.Benchmark] = []
         self.last_stats: Optional[PredictorStats] = None
@@ -537,9 +599,12 @@ class SimulationEngine:
             self.submit(progen.build_benchmark(name))
 
     def _feed_trace(self, trace, token_table, static_ids,
-                    pred: BatchedPredictor, job: _Job) -> int:
-        """Tokenize + context one interval trace and enqueue its clips.
-        Returns the clip count enqueued."""
+                    pred: BatchedPredictor, job: _Job,
+                    core_id: Optional[int] = None) -> int:
+        """Tokenize + context one interval trace and enqueue its clips,
+        the shared interval body of the single-core and multicore paths
+        (``core_id=None`` keeps the single-core context layout bit for
+        bit).  Returns the clip count enqueued."""
         n = len(trace)
         job.n_intervals += 1
         job.n_instructions += n
@@ -555,8 +620,8 @@ class SimulationEngine:
             n_clips = tok.shape[0]             # slice_fixed partition
 
         with self.obs.span("engine.context", instance=self.instance):
-            ctx_all = ctx_mod.context_tokens_from_matrix(trace.snapshots,
-                                                         self.vocab)
+            ctx_all = ctx_mod.context_tokens_from_matrix(
+                trace.snapshots, self.vocab, core_id=core_id)
             rows = np.minimum(np.arange(n_clips), len(ctx_all) - 1)
             ctx = ctx_all[rows]
 
@@ -632,6 +697,8 @@ class SimulationEngine:
                                 - (rt_stats.build_seconds - b0))
             offset = job.offset + job.n_clips
         preds = pred.drain()
+        if self._rt_cache is not None:
+            self._rt_cache.persist()          # no-op without a store_dir
         self.last_stats = pred.stats
         self.last_rt_stats = (rt_stats.freeze()
                               if self._rt_cache is not None else None)
@@ -661,3 +728,139 @@ class SimulationEngine:
     def simulate(self, bench: progen.Benchmark) -> SimResult:
         """Single-benchmark convenience path (``capsim_simulate``)."""
         return self.run([bench])[0]
+
+    # ------------------------------ multicore ------------------------------ #
+
+    def run_multicore(self,
+                      mbenches: Sequence[multicore.MulticoreBenchmark], *,
+                      quantum: Optional[int] = None
+                      ) -> List[MulticoreSimResult]:
+        """Multicore path: interleaved per-core functional sims ->
+        (benchmark, core) clip shards through the same pooled
+        ``BatchedPredictor`` + shared ``RTCache`` -> demuxed per-core
+        ``SimResult``s summed into per-benchmark cycles.
+
+        Clips arrive in per-(core, checkpoint) segments interleaved
+        across cores, so demux walks the recorded segment list; per-core
+        predicted cycles accumulate one ``float(segment.sum())`` per
+        checkpoint, the accumulation order of a per-core sequential loop.
+        Each core's context matrices carry its ``core_id`` channel
+        (``context_tokens_from_matrix(..., core_id=c)``); the oracle is
+        ``timing.total_cycles_multicore`` over the recorded commit
+        interleave.
+        """
+        if self.config.peer_channels:
+            raise NotImplementedError(
+                "peer_channels serving is reserved, in the reference too: "
+                "the peer-context training channels are not wired into "
+                "the trace engine's context layout yet")
+        if quantum is None:
+            quantum = (self.config.quantum
+                       if self.config.quantum is not None
+                       else multicore.DEFAULT_QUANTUM)
+        self.frontend_stats = FrontendStats(self.obs, self.instance)
+        pred = BatchedPredictor(self.params, self.cfg, config=self.config,
+                                rt_cache=self._rt_cache, obs=self.obs,
+                                device=self.device)
+        rt_stats = (self._rt_cache.stats if self._rt_cache is not None
+                    else RTCacheStats())
+        all_jobs: List[List[_Job]] = []
+        segments: List[Tuple[_Job, int]] = []
+        for mb in mbenches:
+            cprogs = mb.compiled()
+            token_tables = [cp.token_table(self.vocab, self.l_token)
+                            for cp in cprogs]
+            static_ids = None
+            if self._rt_cache is not None:
+                # all cores of one program share identical token tables
+                # (immediates collapse to <CONST>), so rows dedupe to one
+                # RT-table entry set across the whole benchmark
+                static_ids = [
+                    self._rt_cache.ensure_rows(
+                        tt, keys=cp.token_row_keys(self.vocab,
+                                                   self.l_token))
+                    for cp, tt in zip(cprogs, token_tables)]
+            jobs = [_Job(bench=mb, name=f"{mb.name}#c{c}")
+                    for c in range(mb.n_cores)]
+            all_jobs.append(jobs)
+            states = mb.fresh_states()
+            d0 = pred.stats.dispatch_seconds
+            b0 = rt_stats.build_seconds
+            oracle_s = 0.0
+            with self.obs.span("engine.job", instance=self.instance,
+                               args={"bench": mb.name}) as jsp:
+                if self.warmup:
+                    with self.obs.span("engine.interpret",
+                                       instance=self.instance):
+                        multicore.run_multicore(cprogs, self.warmup,
+                                                states, quantum=quantum)
+                n_ckp = min(mb.ckp_num, self.max_checkpoints)
+                for _ in range(n_ckp):
+                    with self.obs.span("engine.interpret",
+                                       instance=self.instance):
+                        mtrace = multicore.run_multicore(
+                            cprogs, self.interval_size, states,
+                            snapshot_every=self.l_min, quantum=quantum)
+                    if len(mtrace) == 0:
+                        break
+                    for c, trace in enumerate(mtrace.cores):
+                        if not len(trace):
+                            continue
+                        n_clips = self._feed_trace(
+                            trace, token_tables[c],
+                            static_ids[c] if static_ids is not None
+                            else None,
+                            pred, jobs[c], core_id=c)
+                        segments.append((jobs[c], n_clips))
+                    if self.with_oracle:
+                        with self.obs.span("engine.oracle",
+                                           instance=self.instance) as osp:
+                            totals = timing.total_cycles_multicore(
+                                mtrace.cores, mtrace.schedule,
+                                self.timing_params)
+                        dt = osp.seconds
+                        oracle_s += dt
+                        for c, cyc in enumerate(totals):
+                            jobs[c].oracle_cycles += cyc
+                            jobs[c].oracle_seconds += dt / mb.n_cores
+            mb_seconds = (jsp.seconds - oracle_s
+                          - (pred.stats.dispatch_seconds - d0)
+                          - (rt_stats.build_seconds - b0))
+            mb_clips = max(sum(j.n_clips for j in jobs), 1)
+            for job in jobs:
+                job.func_seconds = mb_seconds * (job.n_clips / mb_clips)
+
+        preds = pred.drain()
+        if self._rt_cache is not None:
+            self._rt_cache.persist()          # no-op without a store_dir
+        self.last_stats = pred.stats
+        self.last_rt_stats = (rt_stats.freeze()
+                              if self._rt_cache is not None else None)
+        total = sum(n for _, n in segments)
+        if not preds.shape[0] == total == pred.stats.n_predicted:
+            raise RuntimeError("clip accounting mismatch between shards "
+                               "and predictions")
+        off = 0
+        for job, n in segments:
+            job.predicted_cycles += float(preds[off:off + n].sum())
+            off += n
+
+        results = []
+        total_clips = max(total, 1)
+        for mb, jobs in zip(mbenches, all_jobs):
+            cores = [SimResult(
+                name=job.name,
+                n_intervals=job.n_intervals,
+                n_instructions=job.n_instructions,
+                n_clips=job.n_clips,
+                predicted_cycles=job.predicted_cycles,
+                oracle_cycles=job.oracle_cycles if self.with_oracle
+                else None,
+                func_seconds=job.func_seconds,
+                predict_seconds=pred.stats.predict_seconds
+                * (job.n_clips / total_clips),
+                oracle_seconds=job.oracle_seconds if self.with_oracle
+                else None) for job in jobs]
+            results.append(MulticoreSimResult(
+                name=mb.name, n_cores=mb.n_cores, cores=cores))
+        return results

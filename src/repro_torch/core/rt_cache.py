@@ -15,23 +15,75 @@ the writes, and anything derived from the table (the fused step's serving
 plan) keys on it.  In-place writes only fill rows no batch has gathered
 yet, and run in stream order after every batch dispatched before them.
 
-The reference's persistent store (``store_dir``) needs the port of
-``checkpoint/ckpt.py`` and is not ported yet.
+Persistence (``store_dir``), as the reference's: the (row bytes -> RT
+vector) table is checkpointed through ``checkpoint/ckpt.py`` under a
+content key hashing the parameter bytes (on the host: bfloat16 by its raw
+bits, int8 fake-quantized weights as stored), the model config, l_token
+and ``extra``: the vocab signature, and after it the framework and device
+(``store_tag``: ``repro_torch/cpu`` or ``repro_torch/cuda/<card name>``).
+So a store the JAX package wrote is never adopted, nor one encoded on the
+CPU by the card or the reverse (the two differ by ~2e-7): equal keys mean
+bitwise-equal tables, as in the reference, within one framework and
+device.  A fresh cache with a matching key adopts the stored table byte
+for byte instead of re-encoding; any key component changing lands on
+another store path; a corrupt or truncated store warns and falls back to
+the cold encode.  The reference's fault-injection hooks (a corrupt read
+inside the load's ``try``, a crash at ``ckpt.save``'s ``pre_publish``)
+come with the serving layer's fault injector, which is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import warnings
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import predictor as pred_mod
 from repro_torch.core.standardize import dedupe_token_rows
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import SPAN_SECONDS_TOTAL, Observability
 
 PAD_ROW_ID = 0
+
+# Bump when the persisted layout/semantics change: old stores then fail
+# the metadata check and rebuild cold instead of being misread.
+RT_STORE_VERSION = 1
+
+
+def store_tag(device: DeviceLike) -> str:
+    """The framework and device a table was encoded with, for the store
+    key: tables encoded on the CPU and on a card differ in the last bits."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return f"repro_torch/cuda/{torch.cuda.get_device_name(dev)}"
+    return "repro_torch/cpu"
+
+
+def rt_store_key(params, cfg, l_token: Optional[int] = None,
+                 extra: str = "") -> str:
+    """Content key for the persistent RT store: a hash over the exact
+    parameter bytes, the model config repr, the token-row width, and
+    ``extra`` (the vocab signature and ``store_tag`` by convention).
+    Equal keys => bitwise-equal tables."""
+    h = hashlib.sha256()
+    flat = ckpt._flatten(params)
+    for key in sorted(flat):
+        t = flat[key].detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)         # the raw bits
+        h.update(key.encode())
+        h.update(str(tuple(t.shape)).encode())
+        h.update(str(flat[key].dtype).encode())
+        h.update(t.numpy().tobytes())
+    h.update(repr(cfg).encode())
+    h.update(str(l_token).encode())
+    h.update(extra.encode())
+    return h.hexdigest()[:32]
 
 # Every encode pass runs at least this many rows (the reference's XLA-CPU
 # row-stability class).  The port keeps the bucket ladder so an encode
@@ -64,6 +116,8 @@ class RTCacheStatsSnapshot(_RowsAvoidedMixin):
     n_rows_served: int = 0
     n_lookups: int = 0
     build_seconds: float = 0.0
+    n_rows_loaded: int = 0
+    store_load_seconds: float = 0.0
 
 
 class RTCacheStats(_RowsAvoidedMixin):
@@ -96,12 +150,23 @@ class RTCacheStats(_RowsAvoidedMixin):
     def n_lookups(self) -> int:
         return int(self._val("capsim_rt_lookups_total"))
 
-    @property
-    def build_seconds(self) -> float:
+    def _span_s(self, span: str) -> float:
         if self._obs is None:
             return 0.0
-        return self._obs.metrics.value(SPAN_SECONDS_TOTAL, span="rt.build",
+        return self._obs.metrics.value(SPAN_SECONDS_TOTAL, span=span,
                                        instance=self._instance)
+
+    @property
+    def build_seconds(self) -> float:
+        return self._span_s("rt.build")
+
+    @property
+    def n_rows_loaded(self) -> int:
+        return int(self._val("capsim_rt_rows_loaded"))
+
+    @property
+    def store_load_seconds(self) -> float:
+        return self._span_s("rt.store_load")
 
     def freeze(self) -> RTCacheStatsSnapshot:
         return RTCacheStatsSnapshot(
@@ -109,7 +174,9 @@ class RTCacheStats(_RowsAvoidedMixin):
             n_encode_passes=self.n_encode_passes,
             n_rows_served=self.n_rows_served,
             n_lookups=self.n_lookups,
-            build_seconds=self.build_seconds)
+            build_seconds=self.build_seconds,
+            n_rows_loaded=self.n_rows_loaded,
+            store_load_seconds=self.store_load_seconds)
 
 
 class RTCache:
@@ -119,11 +186,14 @@ class RTCache:
     ``ensure_rows`` returns global int32 row ids, encoding unseen rows in
     one bucketed pass; ``table`` is the (capacity, E) tensor
     ``forward_cached`` gathers from.  Capacity doubles when full (a new
-    tensor); ``version`` increments on every write.
+    tensor); ``version`` increments on every write.  With ``store_dir``
+    the cache first adopts the table persisted under its content key, if
+    any, and ``persist`` writes it back.
     """
 
     def __init__(self, params, cfg, l_token: Optional[int] = None, *,
                  capacity: int = 4096, device: DeviceLike = "cuda",
+                 store_dir: Optional[str] = None, store_extra: str = "",
                  obs: Optional[Observability] = None):
         self.device = resolve_device(device)
         self.params = params
@@ -148,12 +218,26 @@ class RTCache:
             "capsim_rt_lookups_total",
             "Rows presented to ensure_rows.",
             ("instance",)).labels(instance=self.instance)
+        self._g_loaded = m.gauge(
+            "capsim_rt_rows_loaded",
+            "Rows adopted from the persistent store (0 after a failed "
+            "load).", ("instance",)).labels(instance=self.instance)
         self._index: Dict[bytes, int] = {}
         self._table: Optional[torch.Tensor] = None
         self._capacity = capacity
         self._n = 0
         self.version = 0
         self.stats = RTCacheStats(self.obs, self.instance)
+        # persistent store: one ckpt directory per content key under
+        # store_dir; loaded eagerly so a warm store never cold-encodes
+        self._store_path: Optional[Path] = None
+        self._persisted_rows = 0
+        if store_dir is not None:
+            self._store_key = rt_store_key(
+                params, cfg, l_token,
+                f"{store_extra}\n{store_tag(self.device)}")
+            self._store_path = Path(store_dir) / self._store_key
+            self._load_store()
 
     @property
     def n_rows(self) -> int:
@@ -240,3 +324,94 @@ class RTCache:
         self._n += k
         self._c_encoded.inc(k)
         self._c_passes.inc()
+
+    # ------------------------------------------------------------------ #
+    # Persistent store
+    # ------------------------------------------------------------------ #
+
+    def _load_store(self) -> None:
+        """Adopt the persisted (rows -> RT vectors) table if a store
+        exists under this cache's content key.  Key/version mismatch is
+        the expected invalidation path (silent clean rebuild); a store
+        that matches the key but fails validation (truncated file, wrong
+        shapes, non-finite values) warns and cold-encodes."""
+        with self.obs.span("rt.store_load", instance=self.instance):
+            self._load_store_inner(self._store_path)
+
+    def _load_store_inner(self, path: Path) -> None:
+        try:
+            step = ckpt.latest_step(str(path))
+            if step is None:
+                return
+            meta = ckpt.read_manifest(step, str(path)).get("metadata", {})
+            if (meta.get("store_key") != self._store_key
+                    or meta.get("version") != RT_STORE_VERSION):
+                return                           # clean rebuild, no warn
+            n, lt, e = (int(meta["n_rows"]), int(meta["l_token"]),
+                        int(meta["d_model"]))
+            if n < 1 or (self.l_token is not None and lt != self.l_token):
+                return
+            state = ckpt.restore({"rows": None, "table": None}, step,
+                                 str(path), device="cpu")
+            rows = state["rows"].numpy()
+            table = state["table"]
+            if rows.shape != (n, lt) or tuple(table.shape) != (n, e):
+                raise ValueError(
+                    f"stored shapes {rows.shape}/{tuple(table.shape)} != "
+                    f"manifest ({n}, {lt})/({n}, {e})")
+            if rows.dtype != np.int32:
+                raise ValueError(f"stored rows dtype {rows.dtype}")
+            if table.dtype not in (torch.float32, torch.bfloat16):
+                raise ValueError(f"stored table dtype {table.dtype}")
+            if not bool(torch.isfinite(table).all()):
+                raise ValueError("stored table has non-finite values")
+            if rows[0].any():
+                raise ValueError("stored pad row (id 0) is not all-<PAD>")
+            keys = [r.tobytes() for r in rows]
+            if len(set(keys)) != n:
+                raise ValueError("stored rows are not unique")
+            self.l_token = lt
+            while self._capacity < n:
+                self._capacity *= 2
+            self._table = torch.zeros((self._capacity, e), dtype=table.dtype,
+                                      device=self.device)
+            self._table[:n] = table.to(self.device)
+            self.version += 1
+            self._index = {k: i for i, k in enumerate(keys)}
+            self._n = n
+            self._persisted_rows = n
+            self._g_loaded.set(n)
+        except Exception as exc:                     # noqa: BLE001
+            warnings.warn(
+                f"RT store at {path} unreadable ({exc!r}); "
+                "falling back to cold encode", stacklevel=2)
+            self._index = {}
+            self._table = None
+            self._n = 0
+            self._persisted_rows = 0
+            self._g_loaded.set(0)
+            self.obs.event("rt_store_load_failure", path=str(path),
+                           error=repr(exc))
+
+    def persist(self) -> Optional[Path]:
+        """Checkpoint the current table under the store key (atomic
+        overwrite via ``ckpt.save``).  No-op without a store, on an empty
+        cache, or when nothing grew since the last load/persist.  Rows
+        are reconstructed from the index keys, so the persisted mapping
+        is exactly what ``ensure_rows`` would serve."""
+        if (self._store_path is None or self._n == 0
+                or self._n == self._persisted_rows):
+            return None
+        rows = np.zeros((self._n, self.l_token), np.int32)
+        for key, gid in self._index.items():
+            rows[gid] = np.frombuffer(key, np.int32)
+        table = self._table[:self._n]
+        meta = {"store_key": self._store_key,
+                "version": RT_STORE_VERSION,
+                "n_rows": int(self._n),
+                "l_token": int(self.l_token),
+                "d_model": int(table.shape[1])}
+        out = ckpt.save({"rows": rows, "table": table}, 0,
+                        str(self._store_path), metadata=meta)
+        self._persisted_rows = self._n
+        return out

@@ -69,11 +69,15 @@
 //
 //   bf16: mma.sync.m16n8k16 bf16 with f32 accumulation, fragments by
 //   ldmatrix (.trans where the layout asks).  x, B and C enter the
-//   products as given; the operands formed in f32 (CB exp(..) dt, w x)
-//   and the f32 incoming state are rounded to bf16 where they are staged,
-//   which is this kernel's precision choice (its error at the prefill
-//   shape: PERF.md).  Sums, seg, decays and the state pass stay in f32
-//   (seg in f64).
+//   products as given (exact in bf16).  The operands formed in f32 (CB
+//   exp(..) dt, w x) and the f32 incoming state are staged as two bf16
+//   tiles, hi = bf16(v) and lo = bf16(v - hi), and each of their products
+//   is two mma passes, hi and lo, into the same f32 accumulator: the
+//   operand keeps ~16 significant bits, not bf16's 8, so y agrees with
+//   the f32 plain version on the same bf16 inputs to ~1e-5 instead of the
+//   ~4e-3 a single bf16 rounding gave, which a 12-layer bf16 Mamba2
+//   amplified past the port's own bf16-vs-f32 gap (PERF.md).  Sums,
+//   seg, decays and the state pass stay in f32 (seg in f64).
 //
 //   f32: the same tiles on the FMA pipes in full f32 (no mma of any
 //   precision, no TF32): each thread owns 4 rows x W/8 columns, so per 4
@@ -99,6 +103,22 @@ constexpr int TILE = 64;          // steps of a chunk sub-tile
 constexpr int MAX_STATE = 256;    // largest d_state
 constexpr int MAX_CHUNK = 1024;   // largest q
 constexpr int PASS_THREADS = 256;
+
+// bf16 tiles of an operand formed in f32 are staged as hi and lo halves:
+// 1 extra (lo) tile in bf16, none in f32
+template <typename T>
+__host__ __device__ constexpr int lo_tiles() {
+  return sizeof(T) == 2 ? 1 : 0;
+}
+
+// an f32 pair -> its bf16 hi pair and the bf16 pair of what hi misses
+__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(a - f.x, b - f.y);
+}
 
 struct Args {
   const void* x;
@@ -433,8 +453,9 @@ __global__ void __launch_bounds__(256) ssd_chunk_state(Args a, int NT) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* Xs = reinterpret_cast<T*>(smem);                  // [64][PT] w x
   T* Bs = Xs + TILE * XS;                              // [64][NT]
+  T* Xl = Bs + TILE * bs;                              // bf16: w x - Xs
   double* seg = reinterpret_cast<double*>(
-      smem + align16(sizeof(T) * TILE * (XS + bs)));
+      smem + align16(sizeof(T) * TILE * (XS * (1 + lo_tiles<T>()) + bs)));
   float* dts = reinterpret_cast<float*>(seg + a.QP);
   float* wts = dts + a.QP;
 
@@ -459,7 +480,8 @@ __global__ void __launch_bounds__(256) ssd_chunk_state(Args a, int NT) {
     copy_tile(Bs, bs, bg + j0 * a.b_ss, a.b_ss, TILE, NT, qlen - j0,
               a.N - n0, a.vec, a.B);
     copy_wait();
-    // x_j <- w_j x_j in place, 16 bytes a thread and step
+    // x_j <- w_j x_j in place (bf16: its hi half; the lo half to Xl),
+    // 16 bytes a thread and step
     constexpr int V = 16 / sizeof(T), CPR = PT / V;
     for (int e = threadIdx.x; e < TILE * CPR; e += blockDim.x) {
       const int r = e / CPR;
@@ -470,19 +492,23 @@ __global__ void __launch_bounds__(256) ssd_chunk_state(Args a, int NT) {
         *reinterpret_cast<float4*>(v) =
             make_float4(f.x * w, f.y * w, f.z * w, f.w * w);
       } else {
-        uint4 u = *reinterpret_cast<uint4*>(v);
+        uint4 u = *reinterpret_cast<uint4*>(v), l;
         unsigned* p = reinterpret_cast<unsigned*>(&u);
+        unsigned* pl = reinterpret_cast<unsigned*>(&l);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const float2 f = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(p + k));
-          p[k] = pack_bf16(f.x * w, f.y * w);
+          split_bf16(f.x * w, f.y * w, p[k], pl[k]);
         }
         *reinterpret_cast<uint4*>(v) = u;
+        *reinterpret_cast<uint4*>(Xl + (v - Xs)) = l;
       }
     }
     __syncthreads();
     G::gemm(acc, Bs + warp * 16, bs, Xs, XS, TILE);
+    if constexpr (lo_tiles<T>())
+      G::gemm(acc, Bs + warp * 16, bs, Xl, XS, TILE);
   }
   G::store(acc, a.chunk + (long long)bhc * a.P * a.N +
                     (long long)(n0 + warp * 16) * a.P + p0,
@@ -540,9 +566,12 @@ struct OutSmem {
   static constexpr int SS = pad<T>(PT), XS = pad<T>(PT), MS = pad<T>(TILE);
   __host__ __device__ static int cs(int NP) { return pad<T>(NP); }
   // state_in^T [NP][PT], C [64][NP], CB exp(..) dt [64][64] and x
-  // [64][PT], all in T; then seg (f64, then seg log2(e)), dt, exp(seg)
+  // [64][PT], all in T (bf16: state_in^T and CB exp(..) dt as hi and lo
+  // tiles); then seg (f64, then seg log2(e)), dt, exp(seg)
   __host__ __device__ static size_t tiles(int NP) {
-    return align16(sizeof(T) * ((size_t)NP * SS + TILE * (cs(NP) + MS + XS)));
+    constexpr int L = 1 + lo_tiles<T>();
+    return align16(sizeof(T) *
+                   ((size_t)NP * SS * L + TILE * (cs(NP) + MS * L + XS)));
   }
   __host__ __device__ static size_t bytes(int NP, int QP) {
     return tiles(NP) + (size_t)QP * (sizeof(double) + 2 * sizeof(float));
@@ -564,15 +593,17 @@ __global__ void __launch_bounds__(128) ssd_chunk_out(Args a) {
   const int NP = a.NP, cs = S::cs(NP);
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ss = reinterpret_cast<T*>(smem);          // [NP][PT] state_in^T
-  T* Cs = Ss + NP * S::SS;                     // [64][NP]
+  T* Sl = Ss + NP * S::SS;                     // bf16: state_in^T - Ss
+  T* Cs = Sl + lo_tiles<T>() * NP * S::SS;   // [64][NP]
   T* Ms = Cs + TILE * cs;                      // [64][64] CB exp(..) dt
-  T* Xs = Ms + TILE * S::MS;                   // [64][PT] x
+  T* Ml = Ms + TILE * S::MS;                   // bf16: CB exp(..) dt - Ms
+  T* Xs = Ml + lo_tiles<T>() * TILE * S::MS; // [64][PT] x
   double* seg = reinterpret_cast<double*>(smem + S::tiles(NP));
   float* dts = reinterpret_cast<float*>(seg + a.QP);
   float* es = dts + a.QP;
 
-  // the incoming state, (N, P) f32 in the workspace: a copy in f32, a
-  // conversion in bf16
+  // the incoming state, (N, P) f32 in the workspace: a copy in f32, hi
+  // and lo halves in bf16
   const float* sg = a.chunk + (long long)bhc * a.P * a.N + p0;
   if constexpr (sizeof(T) == 4) {
     copy_tile(reinterpret_cast<float*>(Ss), S::SS, sg, a.P, NP, PT, a.N,
@@ -584,8 +615,9 @@ __global__ void __launch_bounds__(128) ssd_chunk_out(Args a) {
           ? *reinterpret_cast<const float4*>(sg + (long long)n * a.P + p)
           : make_float4(0.f, 0.f, 0.f, 0.f);
       unsigned* d = reinterpret_cast<unsigned*>(Ss + n * S::SS + p);
-      d[0] = pack_bf16(v.x, v.y);
-      d[1] = pack_bf16(v.z, v.w);
+      unsigned* dl = reinterpret_cast<unsigned*>(Sl + n * S::SS + p);
+      split_bf16(v.x, v.y, d[0], dl[0]);
+      split_bf16(v.z, v.w, d[1], dl[1]);
     }
   }
   chunk_seg(a, b, h, t0, qlen, dts, seg);        // syncs
@@ -646,8 +678,10 @@ __global__ void __launch_bounds__(128) ssd_chunk_out(Args a) {
           *reinterpret_cast<float4*>(dst) =
               make_float4(m[0], m[1], m[2], m[3]);
         } else {
-          reinterpret_cast<unsigned*>(dst)[0] = pack_bf16(m[0], m[1]);
-          reinterpret_cast<unsigned*>(dst)[1] = pack_bf16(m[2], m[3]);
+          unsigned* hi = reinterpret_cast<unsigned*>(dst);
+          unsigned* lo = reinterpret_cast<unsigned*>(Ml + (dst - Ms));
+          split_bf16(m[0], m[1], hi[0], lo[0]);
+          split_bf16(m[2], m[3], hi[1], lo[1]);
         }
       }
       cp_async_wait<0>();
@@ -655,6 +689,8 @@ __global__ void __launch_bounds__(128) ssd_chunk_out(Args a) {
       if (j0 == 0) {               // exp(seg_i) (C_i . state_in)
         zero<PT>(acc);
         G::gemm(acc, Cs + warp * 16 * cs, cs, Ss, S::SS, NP);
+        if constexpr (lo_tiles<T>())
+          G::gemm(acc, Cs + warp * 16 * cs, cs, Sl, S::SS, NP);
 #pragma unroll
         for (int n = 0; n < PT / 8; ++n)
 #pragma unroll
@@ -665,6 +701,8 @@ __global__ void __launch_bounds__(128) ssd_chunk_out(Args a) {
           }
       }
       G::gemm(acc, Ms + warp * 16 * S::MS, S::MS, Xs, S::XS, TILE);
+      if constexpr (lo_tiles<T>())
+        G::gemm(acc, Ml + warp * 16 * S::MS, S::MS, Xs, S::XS, TILE);
     }
     G::store(acc, yg + (long long)(i0 + warp * 16) * a.y_ss, a.y_ss,
              qlen - i0 - warp * 16);
@@ -719,7 +757,8 @@ Plan plan(const Args& a) {
   p.NT = a.NP % 128 == 0 ? 128 : a.NP % 64 == 0 ? 64
        : a.NP % 32 == 0 ? 32 : 16;
   p.smem[0] = sizeof(T) * 2 * TILE * pad<T>(a.NP);
-  p.smem[1] = align16(sizeof(T) * TILE * (pad<T>(PT) + pad<T>(p.NT))) +
+  p.smem[1] = align16(sizeof(T) * TILE *
+                      (pad<T>(PT) * (1 + lo_tiles<T>()) + pad<T>(p.NT))) +
               (size_t)a.QP * (sizeof(double) + 2 * sizeof(float));
   p.smem[2] = 0;
   p.smem[3] = OutSmem<T, PT>::bytes(a.NP, a.QP);

@@ -27,6 +27,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+PADDED_HEAD_DIMS = {112: 128}   # head dim -> the instantiation it pads to
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _UNALIGNED = -2                 # capsim_flash_attention_fwd's refusal
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -79,7 +80,8 @@ def check_attention_args(q, k, v, aux, what: str) -> None:
     k/v (B, Skv, H, D) share one CUDA device and one dtype (float32 or
     bfloat16) with D in ``HEAD_DIMS``; the head and feature axes must be
     dense (strides D and 1), batch and row strides are free.  ``aux``
-    (the mask or weights) is None or a contiguous float32 (B, Skv)."""
+    (the mask or weights) is None or a contiguous float32 (B, Skv).  D
+    may also be a key of ``PADDED_HEAD_DIMS``."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
             raise ValueError(f"{what}: {name} is on {x.device}, expected "
@@ -99,8 +101,9 @@ def check_attention_args(q, k, v, aux, what: str) -> None:
     Skv = k.shape[1]
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{what}: dtype {q.dtype} not supported")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {D} not in {HEAD_DIMS}")
+    if D not in HEAD_DIMS and D not in PADDED_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {D} not in {HEAD_DIMS} or "
+                         f"{tuple(PADDED_HEAD_DIMS)}")
     if k.shape != (B, Skv, H, D) or v.shape != k.shape:
         raise ValueError(f"{what}: k/v shapes {tuple(k.shape)}/"
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
@@ -132,6 +135,17 @@ def current_stream(device: torch.device) -> int:
         return raw(device.index if device.index is not None
                    else torch.cuda.current_device())
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def pad_head_dim(q, k, v):
+    """q/k/v zero-padded along D to the instantiation a head dim in
+    ``PADDED_HEAD_DIMS`` runs on (new dense tensors); others as they
+    are."""
+    to = PADDED_HEAD_DIMS.get(q.shape[3])
+    if to is None:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(x, (0, to - x.shape[3]))
+                 for x in (q, k, v))
 
 
 def check_aligned(rc: int, q, k, v, what: str) -> None:
@@ -170,14 +184,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_mask = kv_mask.float().contiguous()
     check_attention_args(q, k, v, kv_mask, "flash_attention")
     lib, fn = _kernel()
+    D = q.shape[3]
+    q, k, v = pad_head_dim(q, k, v)
     o = torch.empty_like(q)     # q's head and feature axes are dense
     stream = current_stream(q.device)
     rc = fn(*launch_args(q, k, v, kv_mask, o), int(causal), int(window),
-            1.0 / math.sqrt(q.shape[3]), stream)
+            1.0 / math.sqrt(D), stream)
     check_aligned(rc, q, k, v, "flash_attention")
     build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1
-    return o
+    return o if o.shape[3] == D else o[..., :D].contiguous()
 
 
 flash_attention.launches = 0

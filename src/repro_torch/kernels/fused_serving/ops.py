@@ -14,7 +14,7 @@ tensors and runs ``weighted_attention_plain`` for CPU tensors.  Like
 flash attention's, the kernel copies q/k/v rows 16 bytes at a time: each
 must start on 16 bytes and step by multiples of 16 bytes per batch and
 row, or the wrapper raises ``ValueError``; the fused step's split QKV
-views pass.
+views pass.  Head dims as flash attention's, 112 zero-padded to 128.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attention.ops import (ARG_TYPES,
                                                      check_attention_args,
                                                      current_stream,
                                                      launch_args,
+                                                     pad_head_dim,
                                                      softmax_pv_plain)
 
 
@@ -64,14 +65,15 @@ def weighted_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_weight = kv_weight.float().contiguous()
     check_attention_args(q, k, v, kv_weight, "weighted_attention")
     lib, fn = _kernel()
+    D = q.shape[3]
+    q, k, v = pad_head_dim(q, k, v)
     o = torch.empty_like(q)     # q's head and feature axes are dense
     stream = current_stream(q.device)
-    rc = fn(*launch_args(q, k, v, kv_weight, o),
-            1.0 / math.sqrt(q.shape[3]), stream)
+    rc = fn(*launch_args(q, k, v, kv_weight, o), 1.0 / math.sqrt(D), stream)
     check_aligned(rc, q, k, v, "weighted_attention")
     build.check(lib, rc, "weighted_attention")
     weighted_attention.launches += 1
-    return o
+    return o if o.shape[3] == D else o[..., :D].contiguous()
 
 
 weighted_attention.launches = 0

@@ -4,7 +4,10 @@ Port of ``repro/launch/serve.py``.  ``--arch capsim`` (the default) runs
 ``SimulationEngine`` over the first ``--n-benchmarks`` programs of the
 synthetic suite (Table II) at the paper model's full width, with seeded
 random parameters, and prints per-benchmark predictions, clip throughput
-and the RT-cache build.  ``--arch mamba2-780m`` runs the LM zoo's
+and the RT-cache build; ``--multicore N`` serves the multi-threaded
+variants of the suite at N cores each (per-core and summed predictions),
+and ``--rt-store-dir DIR`` loads the RT table from a persistent store
+there, and persists it after the run.  ``--arch mamba2-780m`` runs the LM zoo's
 prefill + greedy decode loop (``generate``) on the smoke config, as the
 reference does.  ``--device`` defaults to ``cuda``; ``--device cpu`` runs
 the kernels' plain versions.
@@ -25,28 +28,47 @@ def serve_capsim(args) -> None:
     from repro_torch.core.engine import SimulationEngine
     from repro_torch.core.engine_config import EngineConfig
     from repro_torch.device import resolve_device
-    from repro_torch.isa import progen
+    from repro_torch.isa import multicore, progen
 
     device = resolve_device(args.device)
     engine_config = EngineConfig(
         interval_size=args.interval_size, warmup=0, max_checkpoints=1,
         l_min=100, batch_size=args.batch_size, with_oracle=False,
         rt_cache=not args.no_rt_cache, precision=args.precision,
+        multicore=args.multicore, rt_store_dir=args.rt_store_dir,
         fused_serving=args.fused_serving)
     vocab = std_mod.build_vocab()
     cfg = config().replace(dtype="float32")
     params = predictor.init_params(cfg, seed=0, device=device)
     engine = SimulationEngine.from_config(params, cfg, vocab, engine_config,
                                           device=device)
-    engine.submit_names(list(progen.TABLE_II)[: args.n_benchmarks])
-    t0 = time.time()
-    results = engine.run()
-    wall = time.time() - t0
+    if args.multicore > 0:
+        # (benchmark, core) shards through the same pooled predictor;
+        # per-core results demuxed, per-benchmark summed
+        mbenches = multicore.all_multicore_benchmarks(args.multicore)
+        t0 = time.time()
+        mresults = engine.run_multicore(mbenches)
+        wall = time.time() - t0
+        for mr in mresults:
+            print(f"  {mr.name:16s} x{mr.n_cores} cores "
+                  f"clips={mr.n_clips:5d} "
+                  f"predicted={mr.predicted_cycles:12.0f} core-cycles")
+            for cr in mr.cores:
+                print(f"    {cr.name:16s} clips={cr.n_clips:5d} "
+                      f"predicted={cr.predicted_cycles:12.0f} cycles")
+        served = (f"{len(mresults)} benchmarks x {args.multicore} cores "
+                  f"({sum(mr.n_cores for mr in mresults)} core shards)")
+    else:
+        engine.submit_names(list(progen.TABLE_II)[: args.n_benchmarks])
+        t0 = time.time()
+        results = engine.run()
+        wall = time.time() - t0
+        for r in results:
+            print(f"  {r.name:16s} clips={r.n_clips:5d} "
+                  f"predicted={r.predicted_cycles:12.0f} cycles")
+        served = f"{len(results)} benchmarks"
     stats = engine.last_stats
-    for r in results:
-        print(f"  {r.name:16s} clips={r.n_clips:5d} "
-              f"predicted={r.predicted_cycles:12.0f} cycles")
-    print(f"served {len(results)} benchmarks on {device} "
+    print(f"served {served} on {device} "
           f"({stats.n_clips} clips, {stats.n_batches} device batches, "
           f"{stats.n_pad} pad rows) in {wall:.1f}s "
           f"= {stats.n_clips / max(wall, 1e-9):.0f} clips/s")
@@ -55,6 +77,9 @@ def serve_capsim(args) -> None:
         print(f"rt-cache: {rt.n_rows_encoded} static rows encoded in "
               f"{rt.build_seconds:.2f}s served {rt.n_rows_served} dynamic "
               f"rows ({rt.rows_avoided} instruction-encoder rows avoided)")
+        if rt.n_rows_loaded:
+            print(f"rt-store: {rt.n_rows_loaded} rows loaded in "
+                  f"{rt.store_load_seconds:.2f}s (cold encode skipped)")
 
 
 @dataclasses.dataclass
@@ -136,6 +161,9 @@ def main() -> None:
     ap.add_argument("--batch-size", type=int, default=256)
     ap.add_argument("--interval-size", type=int, default=10_000)
     ap.add_argument("--n-benchmarks", type=int, default=4)
+    ap.add_argument("--multicore", type=int, default=0, metavar="N_CORES",
+                    help="serve the multi-threaded benchmark variants at "
+                         "N cores per benchmark (0 = single-core suite)")
     ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--no-rt-cache", action="store_true",
                     help="monolithic predict path (re-encode every "
@@ -148,6 +176,11 @@ def main() -> None:
                     help="dedup-fused block-encoder serving step "
                          "(weighted attention over each clip's unique "
                          "context tokens + precomputed cross K/V)")
+    ap.add_argument("--rt-store-dir", default=None, metavar="DIR",
+                    help="persistent content-addressed RT-cache store: "
+                         "load-or-rebuild the (row -> RT vector) table "
+                         "keyed on (params, config, vocab, framework and "
+                         "device), persisted after each run")
     args = ap.parse_args()
     if args.arch == "capsim":
         serve_capsim(args)

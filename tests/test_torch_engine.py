@@ -199,8 +199,8 @@ def test_rt_cache_pad_row_growth_and_index_clips(params):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mesh_shape", (2,)), ("multicore", 2), ("sampling", {"fraction": 0.5}),
-    ("faults", {"device_error": 0.1}), ("rt_store_dir", "store")])
+    ("mesh_shape", (2,)), ("sampling", {"fraction": 0.5}),
+    ("faults", {"device_error": 0.1})])
 def test_unported_config_fields_raise(params, field, value):
     with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
         SimulationEngine(params, TCFG, TV,

@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the engine and the Mamba2 LM on the card against the same code on the
-CPU.  Every test here is marked ``gpu`` and skips without a CUDA device;
+the engine (single-core and multicore, and its RT store's restart) and
+the Mamba2 LM on the card against the same code on the CPU.  Every test here is marked ``gpu`` and skips without a CUDA device;
 the file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -26,6 +26,7 @@ from repro_torch.core.engine import SimulationEngine  # noqa: E402
 from repro_torch.core.engine_config import EngineConfig  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.fused_serving import ops as wa_ops  # noqa: E402
+from repro_torch.isa import multicore  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -125,6 +126,43 @@ def test_weighted_kernel_strided_views(dtype):
     assert err < TOL[dtype], err
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_112_runs_zero_padded(dtype):
+    """head_dim 112 (kimi-k2's) on the D=128 instantiation with q/k/v
+    zero-padded and the scale of D=112: flash (causal and not, a masked
+    key tail, a query block and key tile that end mid-way) and weighted
+    attention (zero weights, an all-zero row) against their plain
+    versions, which take D=112 as it is."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    rng = np.random.RandomState(11)
+    q, k, v = (_cuda(rng.randn(2, s, 3, 112), tdt) for s in (100, 257, 257))
+    m = _cuda((rng.rand(2, 257) > 0.3).astype(np.float32), torch.float32)
+    w = _cuda(rng.randint(0, 5, (2, 257)).astype(np.float32), torch.float32)
+    w[0] = 0.0
+    before = (fa_ops.flash_attention.launches,
+              wa_ops.weighted_attention.launches)
+    for causal in (False, True):
+        out = fa_ops.flash_attention(q, k, v, causal=causal, kv_mask=m)
+        ref = fa_ops.flash_attention_plain(q, k, v, causal=causal,
+                                           kv_mask=m)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and out.is_contiguous()
+        err = float((out.float() - ref.float()).abs().max())
+        assert err < TOL[dtype], (causal, err)
+    kq = k[:, :100]
+    out = wa_ops.weighted_attention(kq, k, v, w)
+    ref = wa_ops.weighted_attention_plain(kq, k, v, w)
+    torch.cuda.synchronize()
+    assert out.shape == kq.shape
+    assert float(out[0].float().abs().max()) == 0.0
+    err = float((out.float() - ref.float()).abs().max())
+    assert err < TOL[dtype], err
+    assert (fa_ops.flash_attention.launches,
+            wa_ops.weighted_attention.launches) == (before[0] + 2,
+                                                    before[1] + 1)
+
+
 def test_kernels_refuse_what_they_do_not_take():
     _need_card()
     q = torch.zeros(1, 4, 2, 8, device="cuda")        # head_dim 8
@@ -163,6 +201,68 @@ def test_engine_on_card_matches_cpu(fused):
         assert a.oracle_cycles == b.oracle_cycles
         assert abs(b.predicted_cycles - a.predicted_cycles) \
             / abs(a.predicted_cycles) < 1e-4
+
+
+def _multicore_engine_config(**kw):
+    return EngineConfig(interval_size=1_200, warmup=150, max_checkpoints=2,
+                        l_min=32, l_clip=32, batch_size=16,
+                        precision="fp32", **kw)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_multicore_engine_on_card_matches_cpu(fused):
+    """run_multicore at context width 369 on the card and on the CPU:
+    the same clips and oracle cycles per core, predictions <= 1e-4
+    relative, both kernels launched."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = config().replace(d_model=32, num_heads=2, head_dim=16, d_ff=64,
+                           dtype="float32")
+    params = predictor.init_params(cfg, seed=0, device="cpu")
+    vocab = std_mod.build_vocab()
+    ec = _multicore_engine_config(fused_serving=fused)
+    runs = {}
+    before = (fa_ops.flash_attention.launches,
+              wa_ops.weighted_attention.launches)
+    for device in ("cuda", "cpu"):
+        eng = SimulationEngine(params, cfg, vocab, ec, device=device)
+        runs[device] = eng.run_multicore(
+            [multicore.build_multicore_benchmark("mt.mix", 2),
+             multicore.build_multicore_benchmark("mt.chase", 3)])
+    assert fa_ops.flash_attention.launches > before[0]
+    assert (wa_ops.weighted_attention.launches > before[1]) == fused
+    for a, b in zip(runs["cpu"], runs["cuda"]):
+        for ca, cb in zip(a.cores, b.cores):
+            assert (ca.name, ca.n_clips) == (cb.name, cb.n_clips)
+            assert ca.oracle_cycles == cb.oracle_cycles
+            assert abs(cb.predicted_cycles - ca.predicted_cycles) \
+                / abs(ca.predicted_cycles) < 1e-4
+
+
+def test_rt_store_restart_bitwise_on_card(tmp_path):
+    """An engine on the card persists its RT table; a second one adopts
+    it (rows loaded, nothing encoded) and reproduces the first run bit
+    for bit; an engine on the CPU in the same directory adopts nothing."""
+    _need_card()
+    cfg = config().replace(d_model=32, num_heads=2, head_dim=16, d_ff=64,
+                           dtype="float32")
+    params = predictor.init_params(cfg, seed=0, device="cpu")
+    vocab = std_mod.build_vocab()
+    ec = _multicore_engine_config(rt_store_dir=str(tmp_path))
+    mbs = [multicore.build_multicore_benchmark("mt.mix", 2)]
+    runs = []
+    for _ in range(2):
+        eng = SimulationEngine(params, cfg, vocab, ec, device="cuda")
+        runs.append(([c.predicted_cycles for c in
+                      eng.run_multicore(mbs)[0].cores], eng.last_rt_stats))
+    (p1, st1), (p2, st2) = runs
+    assert st1.n_rows_loaded == 0 and st1.n_rows_encoded > 0
+    assert st2.n_rows_loaded == st1.n_rows_encoded
+    assert st2.n_rows_encoded == 0
+    assert p1 == p2                                   # bitwise
+    cpu = SimulationEngine(params, cfg, vocab, ec, device="cpu")
+    cpu.run_multicore(mbs)
+    assert cpu.last_rt_stats.n_rows_loaded == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

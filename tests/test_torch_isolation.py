@@ -58,12 +58,19 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.core import standardize as std_mod
     from repro_torch.core.engine import SimulationEngine
     from repro_torch.core.rt_cache import RTCache
+    from repro_torch.core.simulate import capsim_simulate_multicore
+    from repro_torch.isa import multicore
     cfg = smoke_config()
     params = predictor.init_params(cfg, device="cpu")
+    vocab = std_mod.build_vocab()
+    mb = multicore.build_multicore_benchmark("mt.mix", 2)
     for build in (lambda: predictor.init_params(cfg),
                   lambda: RTCache(params, cfg),
+                  lambda: SimulationEngine(params, cfg, vocab),
                   lambda: SimulationEngine(params, cfg,
-                                           std_mod.build_vocab())):
+                                           vocab).run_multicore([mb]),
+                  lambda: capsim_simulate_multicore(mb, params, cfg,
+                                                    vocab)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
 

@@ -115,3 +115,35 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     with pytest.raises(ValueError):
         fa_ops.flash_attention(meta, meta, meta)
 
+
+
+@pytest.mark.parametrize("kind", ["flash", "flash_causal", "weighted"])
+def test_head_dim_112_zero_padding_is_exact(kind):
+    """The kernels take head dim 112 zero-padded to 128 with the scale of
+    112: on the plain versions (whose scale follows D), padding q/k/v
+    with ``pad_head_dim`` and rescaling q by sqrt(128/112) gives the
+    unpadded result in the first 112 features and zeros after them."""
+    rng = np.random.RandomState(12)
+    q, k, v = (torch.from_numpy(rng.randn(2, s, 3, 112).astype(np.float32))
+               for s in (40, 70, 70))
+    m = torch.from_numpy((rng.rand(2, 70) > 0.3).astype(np.float32))
+    qp, kp, vp = fa_ops.pad_head_dim(q, k, v)
+    assert qp.shape[3] == kp.shape[3] == vp.shape[3] == \
+        fa_ops.PADDED_HEAD_DIMS[112] == 128
+    assert float(qp[..., 112:].abs().max()) == 0.0
+    qp = qp * (128 / 112) ** 0.5
+    if kind == "weighted":
+        w = m * torch.from_numpy(rng.randint(1, 5, (2, 70))).float()
+        ref = wa_ops.weighted_attention_plain(q, k, v, w)
+        out = wa_ops.weighted_attention_plain(qp, kp, vp, w)
+    else:
+        causal = kind == "flash_causal"
+        ref = fa_ops.flash_attention_plain(q, k, v, causal=causal, kv_mask=m)
+        out = fa_ops.flash_attention_plain(qp, kp, vp, causal=causal,
+                                           kv_mask=m)
+    assert float(out[..., 112:].abs().max()) == 0.0
+    np.testing.assert_allclose(out[..., :112].numpy(), ref.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    # the dims the kernels are built for pass through unpadded
+    q32 = torch.zeros(1, 4, 2, 32)
+    assert all(x is q32 for x in fa_ops.pad_head_dim(q32, q32, q32))
