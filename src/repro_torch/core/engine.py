@@ -29,9 +29,21 @@ With ``EngineConfig.rt_store_dir`` the RT cache loads its table from a
 persistent store keyed on (params, config, vocab, framework and device)
 and every run persists it after ``drain``.
 
-``EngineConfig`` fields whose subsystems are not ported yet (device mesh,
-sampling, fault injection) raise ``NotImplementedError`` naming their
-ROADMAP item.
+``EngineConfig.sampling`` switches both runs to the analytical-ML fusion
+path (``core/analytical.py``, ``core/sampler.py``): each job's clips
+collect on the host with their analytical features, only a stratified
+sample reaches the predictor, and the rest extrapolate with a bootstrap
+CI.  At ``fraction=1.0`` every clip is fed in the unsampled path's order,
+so the device batches are the same rows and ``predicted_cycles`` is
+bitwise the unsampled run's: always single-core, and per core when every
+core runs one checkpoint (with more, the unsampled path feeds and sums a
+core's clips checkpoint by checkpoint, interleaved with the other cores).
+``EngineConfig.faults`` builds one ``serving.faults.FaultInjector`` per
+engine, consulted at dispatch, at retire, at the RT store's load and at
+its persist.
+
+The device mesh (``EngineConfig.mesh_shape``) is not ported yet: it
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -42,9 +54,12 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import analytical
 from repro_torch.core import context as ctx_mod
 from repro_torch.core import predictor as pred_mod
+from repro_torch.core import sampler as sampler_mod
 from repro_torch.core import standardize as std_mod
+from repro_torch.core.analytical import PredictionReport
 from repro_torch.core.engine_config import EngineConfig
 from repro_torch.core.rt_cache import RTCache, RTCacheStats
 from repro_torch.device import DeviceLike, resolve_device
@@ -54,8 +69,6 @@ from repro_torch.obs import SPAN_SECONDS_TOTAL, Observability
 # EngineConfig fields outside this port's slice -> the ROADMAP item that
 # ports them (the check is "field differs from its default")
 _UNPORTED = {
-    "sampling": "port queue item 4, sampling",
-    "faults": "port queue item 5, serving + fault injection",
     "mesh_shape": "port queue item 6, mesh / multi-GPU",
 }
 
@@ -86,6 +99,21 @@ class SimResult:
     func_seconds: float               # functional sim + tokenize
     predict_seconds: float            # batched predictor inference (share)
     oracle_seconds: Optional[float]   # O3 oracle wall time
+    # --- PredictionReport fields (analytical-ML fusion path) ---
+    # Full-prediction runs: every clip is model-predicted and there is
+    # no interval.  Under EngineConfig.sampling, predicted_cycles is the
+    # stratified estimate, cycles_ci its 95% bootstrap interval, and
+    # clip_provenance marks model (True) vs analytical-residual (False)
+    # per clip.
+    cycles_ci: Optional[Tuple[float, float]] = None
+    clips_predicted: Optional[int] = None
+    clips_extrapolated: int = 0
+    clip_provenance: Optional[np.ndarray] = dataclasses.field(
+        default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self.clips_predicted is None:
+            self.clips_predicted = self.n_clips
 
     @property
     def capsim_seconds(self) -> float:
@@ -104,6 +132,17 @@ class SimResult:
         return abs(self.predicted_cycles - self.oracle_cycles) \
             / self.oracle_cycles
 
+    @property
+    def prediction_report(self) -> PredictionReport:
+        """The result's fused-prediction view as one typed object."""
+        ci = (self.cycles_ci if self.cycles_ci is not None
+              else (self.predicted_cycles, self.predicted_cycles))
+        return PredictionReport(
+            total_cycles=self.predicted_cycles, cycles_ci=ci,
+            clips_predicted=self.clips_predicted,
+            clips_extrapolated=self.clips_extrapolated,
+            clip_provenance=self.clip_provenance)
+
 
 def bucket_sizes(batch_size: int) -> Tuple[int, ...]:
     """Descending pad targets for the final partial batch: the full batch
@@ -118,8 +157,10 @@ def bucket_sizes(batch_size: int) -> Tuple[int, ...]:
 
 # stage span name per FrontendStats field
 _FE_SPANS = {"interpret_seconds": "engine.interpret",
+             "slice_seconds": "engine.slice",
              "tokenize_seconds": "engine.tokenize",
-             "context_seconds": "engine.context"}
+             "context_seconds": "engine.context",
+             "analytical_seconds": "engine.analytical"}
 
 
 class FrontendStats:
@@ -153,12 +194,20 @@ class FrontendStats:
         return self._delta("interpret_seconds")
 
     @property
+    def slice_seconds(self) -> float:
+        return self._delta("slice_seconds")
+
+    @property
     def tokenize_seconds(self) -> float:
         return self._delta("tokenize_seconds")
 
     @property
     def context_seconds(self) -> float:
         return self._delta("context_seconds")
+
+    @property
+    def analytical_seconds(self) -> float:
+        return self._delta("analytical_seconds")
 
     @property
     def n_instructions(self) -> int:
@@ -170,8 +219,19 @@ class FrontendStats:
 
     @property
     def frontend_seconds(self) -> float:
-        return (self.interpret_seconds + self.tokenize_seconds
-                + self.context_seconds)
+        return (self.interpret_seconds + self.slice_seconds
+                + self.tokenize_seconds + self.context_seconds
+                + self.analytical_seconds)
+
+    def as_dict(self) -> Dict[str, float]:
+        return {"interpret_seconds": self.interpret_seconds,
+                "slice_seconds": self.slice_seconds,
+                "tokenize_seconds": self.tokenize_seconds,
+                "context_seconds": self.context_seconds,
+                "analytical_seconds": self.analytical_seconds,
+                "frontend_seconds": self.frontend_seconds,
+                "n_instructions": self.n_instructions,
+                "n_clips": self.n_clips}
 
 
 class PredictorStats:
@@ -240,10 +300,17 @@ class BatchedPredictor:
     context rows on the host and runs ``forward_cached_fused`` over a
     serving plan rebuilt whenever the cache's ``version`` changes.
     Without a cache, batches carry token tensors and run ``forward``.
+
+    ``fault_injector`` (built from ``config.faults`` when not given) is
+    consulted before every dispatch (``slow_flush``, ``device_error``)
+    and at every retire (``nan_output``).  Every buffer is the instance's
+    own: two backends share only the read-only parameters and the RT
+    cache, whose rows never change once written.
     """
 
     def __init__(self, params, cfg, *, config: Optional[EngineConfig] = None,
                  rt_cache: Optional[RTCache] = None,
+                 fault_injector=None,
                  obs: Optional[Observability] = None,
                  device: DeviceLike = "cuda"):
         config = config or EngineConfig()
@@ -279,6 +346,11 @@ class BatchedPredictor:
             ("instance",),
             buckets=(0.25, 0.5, 0.75, 0.9, 0.99, 1.0)).labels(
                 instance=self.instance)
+        if fault_injector is None and config.faults:
+            # deferred import: repro_torch.serving imports this module
+            from repro_torch.serving.faults import FaultInjector
+            fault_injector = FaultInjector.from_config(config)
+        self._faults = fault_injector
         self.params = params
         self.cfg = pred_mod.inference_config(cfg, config.precision)
         self.batch_size = config.batch_size
@@ -387,6 +459,10 @@ class BatchedPredictor:
             self._dispatch_inner(tok, ctx, mask, n_real)
 
     def _dispatch_inner(self, tok, ctx, mask, n_real: int) -> None:
+        if self._faults is not None:
+            # chaos layer: may stall (slow_flush) or raise (device_error)
+            # where a real device failure would surface
+            self._faults.on_dispatch()
         dev = self.device
         clip_mask = torch.as_tensor(mask, device=dev)
         if self._fused:
@@ -433,7 +509,12 @@ class BatchedPredictor:
     def _retire(self) -> None:
         with self.obs.span("predict.retire", instance=self.instance):
             out, n_real = self._pending.popleft()
-            self._retired.append(out[:n_real].cpu().numpy())  # blocks
+            out = out[:n_real].cpu().numpy()                  # blocks
+            if self._faults is not None:
+                # nan_output chaos: the retired batch comes back
+                # non-finite; the service's guard must catch it
+                out = self._faults.corrupt_output(out)
+            self._retired.append(out)
             self._c_predicted.inc(n_real)
 
     def drain(self) -> np.ndarray:
@@ -520,6 +601,26 @@ class MulticoreSimResult:
     def n_instructions(self) -> int:
         return sum(r.n_instructions for r in self.cores)
 
+    # --- PredictionReport aggregates (analytical-ML fusion path) ---
+
+    @property
+    def cycles_ci(self) -> Optional[Tuple[float, float]]:
+        """Across-core CI: summed per-core bounds (conservative: the
+        per-core draws are independent, so the true interval is
+        narrower).  None unless every core ran the fusion path."""
+        if any(r.cycles_ci is None for r in self.cores):
+            return None
+        return (sum(r.cycles_ci[0] for r in self.cores),
+                sum(r.cycles_ci[1] for r in self.cores))
+
+    @property
+    def clips_predicted(self) -> int:
+        return sum(r.clips_predicted for r in self.cores)
+
+    @property
+    def clips_extrapolated(self) -> int:
+        return sum(r.clips_extrapolated for r in self.cores)
+
 
 class SimulationEngine:
     """Queue of benchmarks -> functional sims -> one shared clip pool ->
@@ -528,7 +629,9 @@ class SimulationEngine:
     Every knob arrives through one ``EngineConfig``; ``device`` (default
     ``"cuda"``) is where the parameters, the RT table and every batch
     live.  Without a card the caller must pass ``device="cpu"``, which
-    runs the kernels' plain versions.
+    runs the kernels' plain versions.  ``config.sampling`` switches runs
+    to the analytical-ML fusion path (``sampling=None`` keeps the full
+    path bitwise).
     """
 
     def __init__(self, params, cfg, vocab: std_mod.Vocab,
@@ -567,6 +670,14 @@ class SimulationEngine:
         self.with_oracle = config.with_oracle
         self.timing_params = (timing_params if timing_params is not None
                               else timing.TimingParams())
+        # one fault injector per engine (None without config.faults): the
+        # cache and every per-run BatchedPredictor share its RNG stream,
+        # so a chaos run's injection schedule is one deterministic
+        # sequence across the whole stack
+        self._faults = None
+        if config.faults:
+            from repro_torch.serving.faults import FaultInjector
+            self._faults = FaultInjector.from_config(config)
         # one cache per engine: params are pinned at construction, so the
         # table never goes stale; new programs just append unseen rows.
         # With rt_store_dir the cache loads (or later persists) the table
@@ -575,6 +686,7 @@ class SimulationEngine:
                                   device=self.device,
                                   store_dir=config.rt_store_dir,
                                   store_extra=vocab.signature(),
+                                  fault_injector=self._faults,
                                   obs=self.obs)
                           if config.rt_cache else None)
         self._queue: List[progen.Benchmark] = []
@@ -598,13 +710,25 @@ class SimulationEngine:
         for name in names:
             self.submit(progen.build_benchmark(name))
 
+    def _new_predictor(self) -> BatchedPredictor:
+        return BatchedPredictor(self.params, self.cfg, config=self.config,
+                                rt_cache=self._rt_cache,
+                                fault_injector=self._faults, obs=self.obs,
+                                device=self.device)
+
     def _feed_trace(self, trace, token_table, static_ids,
                     pred: BatchedPredictor, job: _Job,
-                    core_id: Optional[int] = None) -> int:
+                    core_id: Optional[int] = None,
+                    sink: Optional[list] = None) -> int:
         """Tokenize + context one interval trace and enqueue its clips,
         the shared interval body of the single-core and multicore paths
         (``core_id=None`` keeps the single-core context layout bit for
-        bit).  Returns the clip count enqueued."""
+        bit).  Returns the clip count enqueued.
+
+        With ``sink`` (the fusion path) nothing reaches the predictor
+        yet: the clip arrays land in the sink with their analytical
+        feature rows, and the caller feeds only the stratified sample
+        once the job's trace is complete."""
         n = len(trace)
         job.n_intervals += 1
         job.n_instructions += n
@@ -627,17 +751,59 @@ class SimulationEngine:
 
         job.n_clips += n_clips
         self._c_fe_clips.inc(n_clips)
-        if static_ids is not None:
+        if sink is not None:
+            with self.obs.span("engine.analytical",
+                               instance=self.instance):
+                feats = analytical.clip_features(trace, self.l_min,
+                                                 self.timing_params)
+            if feats.shape[0] != n_clips:
+                raise RuntimeError("analytical windows must mirror the "
+                                   "clip partition")
+            sink.append((tok, ctx, mask, feats))
+        elif static_ids is not None:
             pred.add_indexed(tok, ctx, mask)
         else:
             pred.add(tok, ctx, mask)
         return n_clips
 
+    def _feed_sample(self, pred: BatchedPredictor, sink: list,
+                     job_key: int):
+        """Stratify one job's collected clips, select the sample, and
+        feed only those rows to the predictor, in clip order (the device
+        works on this job's sample while the next job's functional sim
+        runs).  Returns the job's fusion plan ``(features, strata,
+        sampled)`` for ``fuse_predictions`` after the drain."""
+        scfg = self.config.sampling
+        if sink:
+            tok, ctx, mask, feats = (np.concatenate([s[i] for s in sink])
+                                     for i in range(4))
+        else:
+            feats = np.zeros((0, analytical.N_FEATURES), np.float64)
+        strata = analytical.stratify(feats, scfg.strata)
+        sampled, _ = sampler_mod.stratified_sample(
+            strata, scfg.fraction, scfg.min_clips_per_stratum,
+            scfg.seed, key=job_key)
+        if sampled.shape[0]:
+            if self._rt_cache is not None:
+                pred.add_indexed(tok[sampled], ctx[sampled], mask[sampled])
+            else:
+                pred.add(tok[sampled], ctx[sampled], mask[sampled])
+        return feats, strata, sampled
+
+    def _fuse(self, feats, strata, sampled, preds, key: int
+              ) -> PredictionReport:
+        scfg = self.config.sampling
+        return analytical.fuse_predictions(
+            feats, strata, sampled, preds,
+            bootstrap_resamples=scfg.bootstrap_resamples, seed=scfg.seed,
+            key=key)
+
     def _functional(self, bench: progen.Benchmark, pred: BatchedPredictor,
-                    job: _Job) -> None:
+                    job: _Job, sink: Optional[list] = None) -> None:
         """Columnar functional sim + slice + tokenize one benchmark,
         feeding clips straight into the (asynchronously consuming)
-        predictor."""
+        predictor; with ``sink`` the clips collect there instead (fusion
+        path)."""
         cprog = bench.compiled()
         token_table = cprog.token_table(self.vocab, self.l_token)
         static_ids = None
@@ -659,7 +825,8 @@ class SimulationEngine:
                     snapshot_every=self.l_min)
             if not len(trace):
                 break
-            self._feed_trace(trace, token_table, static_ids, pred, job)
+            self._feed_trace(trace, token_table, static_ids, pred, job,
+                             sink=sink)
             if self.with_oracle:
                 with self.obs.span("engine.oracle",
                                    instance=self.instance) as osp:
@@ -670,60 +837,97 @@ class SimulationEngine:
     def run(self, benches: Optional[Sequence[progen.Benchmark]] = None
             ) -> List[SimResult]:
         """Drain the queue (plus ``benches``) and return one ``SimResult``
-        per benchmark, in submission order."""
-        jobs = [_Job(b) for b in self._queue]
+        per benchmark, in submission order.
+
+        Under ``config.sampling`` (the fusion path) each benchmark's clips
+        collect with their analytical features until its trace is
+        complete, only its stratified sample is fed (``_feed_sample``),
+        and after the drain ``fuse_predictions`` extrapolates the rest
+        with a bootstrap CI.  At ``fraction=1.0`` every clip is fed in
+        the unsampled order and the total is the same ``float(sum())``
+        over the same rows, so it is bitwise the unsampled run's."""
+        jobs = [_Job(b, name=b.name) for b in self._queue]
         self._queue = []
         if benches is not None:
-            jobs.extend(_Job(b) for b in benches)
+            jobs.extend(_Job(b, name=b.name) for b in benches)
+        sampling = self.config.sampling is not None
         self.frontend_stats = FrontendStats(self.obs, self.instance)
-        pred = BatchedPredictor(self.params, self.cfg, config=self.config,
-                                rt_cache=self._rt_cache, obs=self.obs,
-                                device=self.device)
+        pred = self._new_predictor()
         rt_stats = (self._rt_cache.stats if self._rt_cache is not None
                     else RTCacheStats())
+        plans = []                    # (features, strata, sampled) per job
         offset = 0
-        for job in jobs:
-            job.offset = offset
+        for j, job in enumerate(jobs):
+            sink = [] if sampling else None
             d0 = pred.stats.dispatch_seconds
             b0 = rt_stats.build_seconds
             with self.obs.span("engine.job", instance=self.instance,
-                               args={"bench": job.bench.name}) as jsp:
-                self._functional(job.bench, pred, job)
+                               args={"bench": job.name}) as jsp:
+                self._functional(job.bench, pred, job, sink=sink)
+                if sampling:
+                    plans.append(self._feed_sample(pred, sink, j))
             # dispatch (and any blocking retire) and the RT-cache build
             # overlap the functional window; subtract both so device
             # predict time isn't counted twice
             job.func_seconds = (jsp.seconds - job.oracle_seconds
                                 - (pred.stats.dispatch_seconds - d0)
                                 - (rt_stats.build_seconds - b0))
-            offset = job.offset + job.n_clips
+            job.offset = offset
+            offset += int(plans[j][2].shape[0]) if sampling else job.n_clips
+        preds = self._drain(pred, rt_stats, offset)
+
+        results = []
+        for j, job in enumerate(jobs):
+            if sampling:
+                feats, strata, sampled = plans[j]
+                n_fed = int(sampled.shape[0])
+                rep = self._fuse(feats, strata, sampled,
+                                 preds[job.offset:job.offset + n_fed], j)
+            else:
+                n_fed, rep = job.n_clips, None
+                job.predicted_cycles = float(
+                    preds[job.offset:job.offset + n_fed].sum())
+            results.append(self._result(job, pred, n_fed / max(offset, 1),
+                                        rep))
+        return results
+
+    def _drain(self, pred: BatchedPredictor, rt_stats, n_fed: int
+               ) -> np.ndarray:
+        """Retire every batch, persist the RT store, keep the run's stats,
+        and check that exactly the ``n_fed`` clips came back."""
         preds = pred.drain()
         if self._rt_cache is not None:
             self._rt_cache.persist()          # no-op without a store_dir
         self.last_stats = pred.stats
         self.last_rt_stats = (rt_stats.freeze()
                               if self._rt_cache is not None else None)
-        if not preds.shape[0] == offset == pred.stats.n_predicted:
-            raise RuntimeError("clip accounting mismatch between pool and "
-                               "predictions")
+        if not preds.shape[0] == n_fed == pred.stats.n_predicted:
+            raise RuntimeError("clip accounting mismatch between the fed "
+                               "clips and the predictions")
+        return preds
 
-        results = []
-        total_clips = max(offset, 1)
-        for job in jobs:
-            mine = preds[job.offset:job.offset + job.n_clips]
-            results.append(SimResult(
-                name=job.bench.name,
-                n_intervals=job.n_intervals,
-                n_instructions=job.n_instructions,
-                n_clips=job.n_clips,
-                predicted_cycles=float(mine.sum()),
-                oracle_cycles=job.oracle_cycles if self.with_oracle
-                else None,
-                func_seconds=job.func_seconds,
-                predict_seconds=pred.stats.predict_seconds
-                * job.n_clips / total_clips,
-                oracle_seconds=job.oracle_seconds if self.with_oracle
-                else None))
-        return results
+    def _result(self, job: _Job, pred: BatchedPredictor, share: float,
+                rep: Optional[PredictionReport] = None) -> SimResult:
+        """One job's ``SimResult``: ``share`` of the run's predict time,
+        and the fusion report's fields when the job ran sampled."""
+        fused = {}
+        if rep is not None:
+            job.predicted_cycles = rep.total_cycles
+            fused = dict(cycles_ci=rep.cycles_ci,
+                         clips_predicted=rep.clips_predicted,
+                         clips_extrapolated=rep.clips_extrapolated,
+                         clip_provenance=rep.clip_provenance)
+        return SimResult(
+            name=job.name,
+            n_intervals=job.n_intervals,
+            n_instructions=job.n_instructions,
+            n_clips=job.n_clips,
+            predicted_cycles=job.predicted_cycles,
+            oracle_cycles=job.oracle_cycles if self.with_oracle else None,
+            func_seconds=job.func_seconds,
+            predict_seconds=pred.stats.predict_seconds * share,
+            oracle_seconds=job.oracle_seconds if self.with_oracle else None,
+            **fused)
 
     def simulate(self, bench: progen.Benchmark) -> SimResult:
         """Single-benchmark convenience path (``capsim_simulate``)."""
@@ -748,6 +952,13 @@ class SimulationEngine:
         (``context_tokens_from_matrix(..., core_id=c)``); the oracle is
         ``timing.total_cycles_multicore`` over the recorded commit
         interleave.
+
+        Under ``config.sampling`` each core's clips (all checkpoints)
+        collect in a per-core sink, the per-core stratified samples feed
+        the pool in core order once the benchmark's trace is complete,
+        and each (benchmark, core) job fuses on its own; the job key
+        counts the flattened jobs, so every core draws independently but
+        reproducibly.
         """
         if self.config.peer_channels:
             raise NotImplementedError(
@@ -758,14 +969,15 @@ class SimulationEngine:
             quantum = (self.config.quantum
                        if self.config.quantum is not None
                        else multicore.DEFAULT_QUANTUM)
+        sampling = self.config.sampling is not None
         self.frontend_stats = FrontendStats(self.obs, self.instance)
-        pred = BatchedPredictor(self.params, self.cfg, config=self.config,
-                                rt_cache=self._rt_cache, obs=self.obs,
-                                device=self.device)
+        pred = self._new_predictor()
         rt_stats = (self._rt_cache.stats if self._rt_cache is not None
                     else RTCacheStats())
         all_jobs: List[List[_Job]] = []
-        segments: List[Tuple[_Job, int]] = []
+        segments: List[Tuple[_Job, int]] = []   # unsampled demux
+        plans = []                 # sampled: (job, features, strata, sampled)
+        offset = 0
         for mb in mbenches:
             cprogs = mb.compiled()
             token_tables = [cp.token_table(self.vocab, self.l_token)
@@ -783,6 +995,7 @@ class SimulationEngine:
             jobs = [_Job(bench=mb, name=f"{mb.name}#c{c}")
                     for c in range(mb.n_cores)]
             all_jobs.append(jobs)
+            sinks = [[] if sampling else None for _ in range(mb.n_cores)]
             states = mb.fresh_states()
             d0 = pred.stats.dispatch_seconds
             b0 = rt_stats.build_seconds
@@ -810,8 +1023,9 @@ class SimulationEngine:
                             trace, token_tables[c],
                             static_ids[c] if static_ids is not None
                             else None,
-                            pred, jobs[c], core_id=c)
-                        segments.append((jobs[c], n_clips))
+                            pred, jobs[c], core_id=c, sink=sinks[c])
+                        if not sampling:
+                            segments.append((jobs[c], n_clips))
                     if self.with_oracle:
                         with self.obs.span("engine.oracle",
                                            instance=self.instance) as osp:
@@ -823,6 +1037,12 @@ class SimulationEngine:
                         for c, cyc in enumerate(totals):
                             jobs[c].oracle_cycles += cyc
                             jobs[c].oracle_seconds += dt / mb.n_cores
+                if sampling:
+                    for c, job in enumerate(jobs):
+                        plan = self._feed_sample(pred, sinks[c], len(plans))
+                        job.offset = offset
+                        offset += int(plan[2].shape[0])
+                        plans.append((job, *plan))
             mb_seconds = (jsp.seconds - oracle_s
                           - (pred.stats.dispatch_seconds - d0)
                           - (rt_stats.build_seconds - b0))
@@ -830,37 +1050,29 @@ class SimulationEngine:
             for job in jobs:
                 job.func_seconds = mb_seconds * (job.n_clips / mb_clips)
 
-        preds = pred.drain()
-        if self._rt_cache is not None:
-            self._rt_cache.persist()          # no-op without a store_dir
-        self.last_stats = pred.stats
-        self.last_rt_stats = (rt_stats.freeze()
-                              if self._rt_cache is not None else None)
-        total = sum(n for _, n in segments)
-        if not preds.shape[0] == total == pred.stats.n_predicted:
-            raise RuntimeError("clip accounting mismatch between shards "
-                               "and predictions")
-        off = 0
-        for job, n in segments:
-            job.predicted_cycles += float(preds[off:off + n].sum())
-            off += n
+        reports = {}               # id(job) -> (PredictionReport, n fed)
+        if sampling:
+            preds = self._drain(pred, rt_stats, offset)
+            for k, (job, feats, strata, sampled) in enumerate(plans):
+                n = int(sampled.shape[0])
+                reports[id(job)] = (self._fuse(
+                    feats, strata, sampled,
+                    preds[job.offset:job.offset + n], k), n)
+        else:
+            offset = sum(n for _, n in segments)
+            preds = self._drain(pred, rt_stats, offset)
+            off = 0
+            for job, n in segments:
+                job.predicted_cycles += float(preds[off:off + n].sum())
+                off += n
 
         results = []
-        total_clips = max(total, 1)
         for mb, jobs in zip(mbenches, all_jobs):
-            cores = [SimResult(
-                name=job.name,
-                n_intervals=job.n_intervals,
-                n_instructions=job.n_instructions,
-                n_clips=job.n_clips,
-                predicted_cycles=job.predicted_cycles,
-                oracle_cycles=job.oracle_cycles if self.with_oracle
-                else None,
-                func_seconds=job.func_seconds,
-                predict_seconds=pred.stats.predict_seconds
-                * (job.n_clips / total_clips),
-                oracle_seconds=job.oracle_seconds if self.with_oracle
-                else None) for job in jobs]
+            cores = []
+            for job in jobs:
+                rep, n_fed = reports.get(id(job), (None, job.n_clips))
+                cores.append(self._result(job, pred,
+                                          n_fed / max(offset, 1), rep))
             results.append(MulticoreSimResult(
                 name=mb.name, n_cores=mb.n_cores, cores=cores))
         return results

@@ -137,12 +137,18 @@ def _sinusoidal(n: int, e: int, dtype, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 
-def instruction_encoder(params, clip_tokens, cfg):
-    """clip_tokens: (B, L_clip, L_token) int -> RT vectors (B, L_clip, E).
-    The (B, L_clip) axes fold into one batch: every instruction encodes
-    independently (Eq 7)."""
-    B, L, T = clip_tokens.shape
-    flat = clip_tokens.reshape(B * L, T)
+# On the card the instruction encoder runs its rows in passes of exactly
+# ENCODE_CHUNK instructions (the last one padded with all-<PAD> rows).
+# cuBLAS picks its GEMM kernel, and so its summation order, by the row
+# count: the FFN's down-projection of a 32-row RT-cache encode pass and of
+# a 32768-row monolithic batch differ in the last bits (ROADMAP C2,
+# ``tools/c2_probe.py``).  With one pass size, an instruction's RT vector
+# is the same bits whichever path and batch encode it.
+ENCODE_CHUNK = 4096
+
+
+def _encode_rows(params, flat, cfg):
+    """(N, L_token) int rows -> (N, E): the 4 encoder layers, <REP> slot."""
     mask = (flat != 0).float()                           # <PAD> == 0
     x = params["embed"][flat].to(torch_dtype(cfg.dtype))
     inst = params["inst"]
@@ -151,7 +157,24 @@ def instruction_encoder(params, clip_tokens, cfg):
         h = rms_norm(x, p["norm1"])
         x = x + _mha(p, h, h, cfg, kv_mask=mask)
         x = x + _ffn(p, rms_norm(x, p["norm2"]), cfg)
-    return x[:, 0, :].reshape(B, L, cfg.d_model)         # <REP> slot (Eq 8)
+    return x[:, 0, :]                                    # <REP> slot (Eq 8)
+
+
+def instruction_encoder(params, clip_tokens, cfg):
+    """clip_tokens: (B, L_clip, L_token) int -> RT vectors (B, L_clip, E).
+    The (B, L_clip) axes fold into one batch: every instruction encodes
+    independently (Eq 7), on the card in passes of ``ENCODE_CHUNK``."""
+    B, L, T = clip_tokens.shape
+    flat = clip_tokens.reshape(B * L, T)
+    if flat.device.type != "cuda":
+        return _encode_rows(params, flat, cfg).reshape(B, L, cfg.d_model)
+    n = flat.shape[0]
+    pad = -n % ENCODE_CHUNK
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad, T)])
+    rt = torch.cat([_encode_rows(params, flat[i:i + ENCODE_CHUNK], cfg)
+                    for i in range(0, flat.shape[0], ENCODE_CHUNK)])
+    return rt[:n].reshape(B, L, cfg.d_model)
 
 
 def block_encoder(params, rt, ctx, clip_mask, cfg):

@@ -27,14 +27,26 @@ bitwise-equal tables, as in the reference, within one framework and
 device.  A fresh cache with a matching key adopts the stored table byte
 for byte instead of re-encoding; any key component changing lands on
 another store path; a corrupt or truncated store warns and falls back to
-the cold encode.  The reference's fault-injection hooks (a corrupt read
-inside the load's ``try``, a crash at ``ckpt.save``'s ``pre_publish``)
-come with the serving layer's fault injector, which is not ported yet.
+the cold encode.  The serving layer's fault injector, where one is given,
+corrupts a store read inside the load's ``try`` (``corrupt_rt_read``: warn
+and cold-encode) and crashes a persist at ``ckpt.save``'s ``pre_publish``,
+after the files are written and before the atomic publish
+(``crash_persist``: the previous generation stays the store's).
+
+Threads.  The serving layer runs flushes on worker threads, and a flush
+its watchdog abandoned may still run beside the retry on a sibling rung
+that shares this cache.  ``ensure_rows``, ``persist`` and the store load
+hold one lock, so two threads never hand out the same row id or persist
+a half-grown table.  The ids a caller holds are all below the row count
+it saw, and those rows are never written again: a reader gathers from the
+table it read from ``table``, a newer tensor holds every older row, and
+the write and the gather are ordered on the one CUDA stream both use.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import threading
 import warnings
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -188,12 +200,15 @@ class RTCache:
     ``forward_cached`` gathers from.  Capacity doubles when full (a new
     tensor); ``version`` increments on every write.  With ``store_dir``
     the cache first adopts the table persisted under its content key, if
-    any, and ``persist`` writes it back.
+    any, and ``persist`` writes it back.  ``fault_injector`` (a
+    ``serving.faults.FaultInjector`` or None) may corrupt the store read
+    and crash the persist on those real code paths.
     """
 
     def __init__(self, params, cfg, l_token: Optional[int] = None, *,
                  capacity: int = 4096, device: DeviceLike = "cuda",
                  store_dir: Optional[str] = None, store_extra: str = "",
+                 fault_injector=None,
                  obs: Optional[Observability] = None):
         self.device = resolve_device(device)
         self.params = params
@@ -222,6 +237,8 @@ class RTCache:
             "capsim_rt_rows_loaded",
             "Rows adopted from the persistent store (0 after a failed "
             "load).", ("instance",)).labels(instance=self.instance)
+        self._faults = fault_injector
+        self._lock = threading.RLock()
         self._index: Dict[bytes, int] = {}
         self._table: Optional[torch.Tensor] = None
         self._capacity = capacity
@@ -254,7 +271,7 @@ class RTCache:
         """rows: (k, L_token) int32 standardized rows -> (k,) int32 global
         RT row ids; unseen rows are encoded in one padded pass.  ``keys``
         (the rows' ``tobytes()``) skips re-hashing."""
-        with self.obs.span("rt.build", instance=self.instance):
+        with self._lock, self.obs.span("rt.build", instance=self.instance):
             rows = np.ascontiguousarray(rows, dtype=np.int32)
             if self.l_token is None:
                 self.l_token = rows.shape[1]
@@ -298,7 +315,12 @@ class RTCache:
         ids = self.ensure_rows(uniq)
         return ids[inv].reshape(n, L).astype(np.int32)
 
+    @torch.inference_mode()
     def _flush(self, rows: np.ndarray, pending: Dict[bytes, int]) -> None:
+        # the table is written only here and at the store load, both in
+        # inference mode, so it is one inference tensor whichever thread
+        # (a service's flush thread or the caller's) grows it; every
+        # other use of it only reads
         k = rows.shape[0]
         bucket = encode_bucket(k)
         if bucket != k:
@@ -335,7 +357,8 @@ class RTCache:
         the expected invalidation path (silent clean rebuild); a store
         that matches the key but fails validation (truncated file, wrong
         shapes, non-finite values) warns and cold-encodes."""
-        with self.obs.span("rt.store_load", instance=self.instance):
+        with self._lock, torch.inference_mode(), self.obs.span(
+                "rt.store_load", instance=self.instance):
             self._load_store_inner(self._store_path)
 
     def _load_store_inner(self, path: Path) -> None:
@@ -353,6 +376,12 @@ class RTCache:
                 return
             state = ckpt.restore({"rows": None, "table": None}, step,
                                  str(path), device="cpu")
+            if self._faults is not None:
+                # corrupt_rt_read chaos: a read that returned garbage;
+                # raising inside this try runs the real warn + cold-encode
+                # fallback below
+                self._faults.maybe_raise(
+                    "corrupt_rt_read", "injected corrupt RT-store read")
             rows = state["rows"].numpy()
             table = state["table"]
             if rows.shape != (n, lt) or tuple(table.shape) != (n, e):
@@ -399,6 +428,10 @@ class RTCache:
         cache, or when nothing grew since the last load/persist.  Rows
         are reconstructed from the index keys, so the persisted mapping
         is exactly what ``ensure_rows`` would serve."""
+        with self._lock:
+            return self._persist()
+
+    def _persist(self) -> Optional[Path]:
         if (self._store_path is None or self._n == 0
                 or self._n == self._persisted_rows):
             return None
@@ -412,6 +445,9 @@ class RTCache:
                 "l_token": int(self.l_token),
                 "d_model": int(table.shape[1])}
         out = ckpt.save({"rows": rows, "table": table}, 0,
-                        str(self._store_path), metadata=meta)
+                        str(self._store_path), metadata=meta,
+                        pre_publish=(self._faults.crash_hook()
+                                     if self._faults is not None
+                                     else None))
         self._persisted_rows = self._n
         return out

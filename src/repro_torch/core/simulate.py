@@ -8,7 +8,9 @@ in device batches, and sum.  ``capsim_simulate`` is the single-benchmark
 wrapper over ``repro_torch.core.engine.SimulationEngine``, and
 ``capsim_simulate_multicore`` the one-benchmark wrapper over its
 ``run_multicore``; use the engine directly when simulating more than one
-benchmark.
+benchmark.  With ``config.sampling`` both return the engine's sampled
+result: a stratified estimate with its 95% bootstrap CI and each clip's
+provenance (``SimResult.prediction_report``).
 """
 from __future__ import annotations
 

@@ -5,8 +5,11 @@ a plain C interface, ``build/repro_torch/lib<name>.so`` under the
 checkout, and is loaded with ``ctypes``.  Nothing is built while a module
 is imported: ``load`` builds a stale library at first use, and ``build``
 starts one ``nvcc`` per source, all at once, for callers that want every
-kernel up front (``chip_smoke.py``).  A library is stale when it is
-missing or older than any source under ``csrc/``.
+kernel up front (``chip_smoke.py``, ``SimulationService.start``).  A
+library is stale when it is missing or older than any source under
+``csrc/``.  Building and loading hold one process-wide lock: the serving
+layer's flush threads may meet a stale library at once, and only the
+first of them runs ``nvcc``.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Counter, Dict, Iterable, Optional, Tuple
@@ -27,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()       # builds and loads, across threads
+_COUNT_LOCK = threading.Lock()  # the wrappers' launch counts
 
 
 def library_path(name: str) -> Path:
@@ -58,6 +64,11 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[str, float]]:
     log (``-Xptxas -v``: registers, shared memory and spills per kernel)
     and its seconds of ``nvcc``; raises ``RuntimeError`` with the log if a
     build fails."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, Tuple[str, float]]:
     names = [n for n in names if _stale(n)]
     if not names:
         return {}
@@ -98,12 +109,22 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for kernel source ``name``, built if stale."""
     lib = _LOADED.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        lib.capsim_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.capsim_cuda_error_string.restype = ctypes.c_char_p
-        _LOADED[name] = lib
+        with _LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                lib.capsim_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.capsim_cuda_error_string.restype = ctypes.c_char_p
+                _LOADED[name] = lib
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches`` count, under a lock: the
+    serving layer launches kernels from several threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -192,7 +192,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             1.0 / math.sqrt(D), stream)
     check_aligned(rc, q, k, v, "flash_attention")
     build.check(lib, rc, "flash_attention")
-    flash_attention.launches += 1
+    build.count_launch(flash_attention)
     return o if o.shape[3] == D else o[..., :D].contiguous()
 
 

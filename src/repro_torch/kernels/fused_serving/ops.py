@@ -72,7 +72,7 @@ def weighted_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = fn(*launch_args(q, k, v, kv_weight, o), 1.0 / math.sqrt(D), stream)
     check_aligned(rc, q, k, v, "weighted_attention")
     build.check(lib, rc, "weighted_attention")
-    weighted_attention.launches += 1
+    build.count_launch(weighted_attention)
     return o if o.shape[3] == D else o[..., :D].contiguous()
 
 

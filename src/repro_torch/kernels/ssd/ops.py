@@ -150,7 +150,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
             B.stride(0), B.stride(1), C.stride(0), C.stride(1),
             y.stride(0), y.stride(1), workspace.data_ptr(), stream)
     build.check(lib, rc, f"ssd_scan (head_dim {P}, d_state {N}, chunk {q})")
-    ssd_scan.launches += 1
+    build.count_launch(ssd_scan)
     return y, state
 
 

@@ -7,10 +7,17 @@ random parameters, and prints per-benchmark predictions, clip throughput
 and the RT-cache build; ``--multicore N`` serves the multi-threaded
 variants of the suite at N cores each (per-core and summed predictions),
 and ``--rt-store-dir DIR`` loads the RT table from a persistent store
-there, and persists it after the run.  ``--arch mamba2-780m`` runs the LM zoo's
-prefill + greedy decode loop (``generate``) on the smoke config, as the
-reference does.  ``--device`` defaults to ``cuda``; ``--device cpu`` runs
-the kernels' plain versions.
+there, and persists it after the run.  ``--subsample FRACTION`` predicts
+only a stratified sample of each benchmark's clips and prints each total
+with its 95% bootstrap CI.  ``--service`` serves the suite's clips as
+requests through the fault-tolerant ``SimulationService`` (deadlines,
+watchdog, degradation ladder; ``--faults`` injects chaos on the real
+path).  ``--metrics-port`` serves Prometheus text at ``/metrics``,
+``--trace-out`` writes a Chrome/Perfetto trace and ``--flight-dir`` keeps
+the service's demotion postmortems.  ``--arch mamba2-780m`` runs the LM
+zoo's prefill + greedy decode loop (``generate``) on the smoke config, as
+the reference does.  ``--device`` defaults to ``cuda``; ``--device cpu``
+runs the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -21,27 +28,78 @@ import time
 import torch
 
 
-def serve_capsim(args) -> None:
-    from repro_torch.configs.capsim import config
-    from repro_torch.core import predictor
-    from repro_torch.core import standardize as std_mod
-    from repro_torch.core.engine import SimulationEngine
-    from repro_torch.core.engine_config import EngineConfig
-    from repro_torch.device import resolve_device
-    from repro_torch.isa import multicore, progen
+def parse_faults(spec):
+    """``kind=rate,kind=rate`` -> dict for ``EngineConfig.faults``
+    (validated there against the known chaos kinds)."""
+    faults = {}
+    for part in filter(None, (spec or "").split(",")):
+        kind, _, rate = part.partition("=")
+        faults[kind.strip()] = float(rate)
+    return faults
 
-    device = resolve_device(args.device)
-    engine_config = EngineConfig(
+
+def _build_engine_config(args):
+    """The flags as one ``EngineConfig``."""
+    from repro_torch.core.engine_config import (EngineConfig,
+                                                ObservabilityConfig,
+                                                SamplingConfig)
+    kw = dict(
         interval_size=args.interval_size, warmup=0, max_checkpoints=1,
         l_min=100, batch_size=args.batch_size, with_oracle=False,
         rt_cache=not args.no_rt_cache, precision=args.precision,
         multicore=args.multicore, rt_store_dir=args.rt_store_dir,
         fused_serving=args.fused_serving)
+    if args.faults:
+        kw["faults"] = parse_faults(args.faults)
+        kw["fault_seed"] = args.fault_seed
+    if args.subsample is not None:
+        kw["sampling"] = SamplingConfig(
+            fraction=args.subsample, strata=args.strata,
+            seed=args.sample_seed,
+            min_clips_per_stratum=args.min_clips_per_stratum,
+            bootstrap_resamples=args.bootstrap_resamples)
+    if args.trace_out or args.flight_dir:
+        kw["observability"] = ObservabilityConfig(
+            trace=bool(args.trace_out), flight_dir=args.flight_dir)
+    return EngineConfig(**kw)
+
+
+def _start_metrics(args):
+    """Start the /metrics exporter when --metrics-port is given.
+    Returns the server (or None); the caller shuts it down."""
+    if args.metrics_port is None:
+        return None
+    from repro_torch.obs.exporter import serve_metrics
+    server = serve_metrics(port=args.metrics_port)
+    print(f"metrics: http://{server.server_address[0]}:"
+          f"{server.server_address[1]}/metrics")
+    return server
+
+
+def _dump_trace(args, obs) -> None:
+    """Write the Chrome/Perfetto trace when --trace-out is given."""
+    if args.trace_out and obs.tracer.enabled:
+        obs.tracer.dump(args.trace_out)
+        print(f"trace: {args.trace_out} "
+              f"({len(obs.tracer.spans())} spans; open at ui.perfetto.dev)")
+
+
+def serve_capsim(args) -> None:
+    from repro_torch.configs.capsim import config
+    from repro_torch.core import predictor
+    from repro_torch.core import standardize as std_mod
+    from repro_torch.core.engine import SimulationEngine
+    from repro_torch.device import resolve_device
+    from repro_torch.isa import multicore, progen
+
+    device = resolve_device(args.device)
+    engine_config = _build_engine_config(args)
     vocab = std_mod.build_vocab()
     cfg = config().replace(dtype="float32")
     params = predictor.init_params(cfg, seed=0, device=device)
     engine = SimulationEngine.from_config(params, cfg, vocab, engine_config,
                                           device=device)
+    metrics_server = _start_metrics(args)
     if args.multicore > 0:
         # (benchmark, core) shards through the same pooled predictor;
         # per-core results demuxed, per-benchmark summed
@@ -50,9 +108,13 @@ def serve_capsim(args) -> None:
         mresults = engine.run_multicore(mbenches)
         wall = time.time() - t0
         for mr in mresults:
-            print(f"  {mr.name:16s} x{mr.n_cores} cores "
-                  f"clips={mr.n_clips:5d} "
-                  f"predicted={mr.predicted_cycles:12.0f} core-cycles")
+            line = (f"  {mr.name:16s} x{mr.n_cores} cores "
+                    f"clips={mr.n_clips:5d} "
+                    f"predicted={mr.predicted_cycles:12.0f} core-cycles")
+            if mr.cycles_ci is not None:
+                lo, hi = mr.cycles_ci
+                line += f"  [{lo:.0f}, {hi:.0f}] 95% CI"
+            print(line)
             for cr in mr.cores:
                 print(f"    {cr.name:16s} clips={cr.n_clips:5d} "
                       f"predicted={cr.predicted_cycles:12.0f} cycles")
@@ -64,8 +126,14 @@ def serve_capsim(args) -> None:
         results = engine.run()
         wall = time.time() - t0
         for r in results:
-            print(f"  {r.name:16s} clips={r.n_clips:5d} "
-                  f"predicted={r.predicted_cycles:12.0f} cycles")
+            line = (f"  {r.name:16s} clips={r.n_clips:5d} "
+                    f"predicted={r.predicted_cycles:12.0f} cycles")
+            if r.cycles_ci is not None:
+                lo, hi = r.cycles_ci
+                line += (f"  [{lo:.0f}, {hi:.0f}] 95% CI "
+                         f"({r.clips_predicted} predicted + "
+                         f"{r.clips_extrapolated} extrapolated)")
+            print(line)
         served = f"{len(results)} benchmarks"
     stats = engine.last_stats
     print(f"served {served} on {device} "
@@ -80,6 +148,81 @@ def serve_capsim(args) -> None:
         if rt.n_rows_loaded:
             print(f"rt-store: {rt.n_rows_loaded} rows loaded in "
                   f"{rt.store_load_seconds:.2f}s (cold encode skipped)")
+    _dump_trace(args, engine.obs)
+    if metrics_server is not None:
+        metrics_server.shutdown()
+
+
+def serve_service(args) -> None:
+    """Run the fault-tolerant ``SimulationService`` over the synthetic
+    suite: the clips of the first ``--n-benchmarks`` programs split into
+    ``--n-requests`` requests with per-request deadlines; admission may
+    shed (typed ``overloaded``), and ``--faults`` exercises the
+    degradation ladder on live traffic."""
+    from repro_torch.configs.capsim import config
+    from repro_torch.core import predictor
+    from repro_torch.core import standardize as std_mod
+    from repro_torch.data.dataset import BuildConfig, build_dataset
+    from repro_torch.device import resolve_device
+    from repro_torch.isa import progen
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.service import ServiceSLA, SimulationService
+
+    device = resolve_device(args.device)
+    # the service owns precision/fusion (the degradation ladder): the
+    # base config only contributes the structural axes
+    engine_config = _build_engine_config(args).replace(
+        precision=None, fused_serving=False)
+    vocab = std_mod.build_vocab()
+    cfg = config().replace(dtype="float32")
+    params = predictor.init_params(cfg, seed=0, device=device)
+
+    names = list(progen.TABLE_II)[: args.n_benchmarks]
+    bcfg = BuildConfig(interval_size=engine_config.interval_size, warmup=0,
+                       max_checkpoints=1, l_min=100,
+                       l_clip=engine_config.l_clip,
+                       l_token=engine_config.l_token)
+    ds = build_dataset(names, bcfg, vocab)
+    sla = ServiceSLA(default_deadline_s=args.deadline_s,
+                     watchdog_s=args.watchdog_s)
+
+    metrics_server = _start_metrics(args)
+    t0 = time.time()
+    with SimulationService(params, cfg, engine_config, sla=sla,
+                           device=device) as svc:
+        tickets = []
+        per_req = max(1, len(ds) // max(args.n_requests, 1))
+        for i in range(args.n_requests):
+            lo = (i * per_req) % len(ds)
+            hi = min(lo + per_req, len(ds))
+            tickets.append(svc.submit(Request(
+                i, ds.clip_tokens[lo:hi], ds.context_tokens[lo:hi],
+                ds.clip_mask[lo:hi])))
+        results = [t.result(timeout=600) for t in tickets]
+        stats = svc.stats()
+    wall = time.time() - t0
+
+    for r in results:
+        extra = f" [{r.error}]" if r.error else ""
+        print(f"  req {r.request_id:3d} {r.status:17s} "
+              f"tier={r.tier or '-':10s} clips={r.n_clips:5d} "
+              f"latency={r.latency_seconds:6.2f}s{extra}")
+    n_clips = sum(r.n_clips for r in results if r.ok)
+    print(f"service on {device}: {stats['statuses']} "
+          f"tier={stats['current_tier']} in {wall:.1f}s = "
+          f"{n_clips / max(wall, 1e-9):.0f} clips/s")
+    if stats["faults_fired"]:
+        print(f"faults fired: {stats['faults_fired']}")
+    for name, ts in stats["tiers"].items():
+        hits = {k: v for k, v in ts.items() if v and k != "name"}
+        if hits:
+            print(f"  tier {name}: {hits}")
+    _dump_trace(args, svc.obs)
+    if svc.obs.flight is not None and svc.obs.flight.postmortems:
+        print(f"postmortems: {len(svc.obs.flight.postmortems)} written "
+              f"to {args.flight_dir}")
+    if metrics_server is not None:
+        metrics_server.shutdown()
 
 
 @dataclasses.dataclass
@@ -181,8 +324,60 @@ def main() -> None:
                          "load-or-rebuild the (row -> RT vector) table "
                          "keyed on (params, config, vocab, framework and "
                          "device), persisted after each run")
+    ap.add_argument("--subsample", type=float, default=None,
+                    metavar="FRACTION",
+                    help="analytical-ML fusion: predict only a "
+                         "stratified FRACTION of each benchmark's clips "
+                         "and extrapolate the rest from analytical "
+                         "features with a bootstrap CI (default: full "
+                         "prediction)")
+    ap.add_argument("--strata", type=int, default=4,
+                    help="--subsample: quantile strata over the "
+                         "analytical cycle estimate")
+    ap.add_argument("--min-clips-per-stratum", type=int, default=2,
+                    help="--subsample: floor of sampled clips per "
+                         "non-empty stratum")
+    ap.add_argument("--bootstrap-resamples", type=int, default=200,
+                    help="--subsample: bootstrap resamples behind the "
+                         "95%% CI (0 disables)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="--subsample: sampling + bootstrap seed")
+    ap.add_argument("--service", action="store_true",
+                    help="serve through the fault-tolerant "
+                         "SimulationService (bounded queue, deadlines, "
+                         "watchdog, graceful degradation) instead of the "
+                         "batch SimulationEngine")
+    ap.add_argument("--n-requests", type=int, default=8,
+                    help="--service: number of requests to split the "
+                         "suite's clips across")
+    ap.add_argument("--deadline-s", type=float, default=120.0,
+                    help="--service: per-request deadline (SLA)")
+    ap.add_argument("--watchdog-s", type=float, default=60.0,
+                    help="--service: abort any single flush after this "
+                         "many seconds and retry a tier down")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    metavar="PORT",
+                    help="serve Prometheus text at "
+                         "http://127.0.0.1:PORT/metrics for the run's "
+                         "duration (0 = ephemeral port, printed)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable span tracing and write a Chrome/"
+                         "Perfetto trace-event JSON at exit (open at "
+                         "ui.perfetto.dev)")
+    ap.add_argument("--flight-dir", default=None, metavar="DIR",
+                    help="enable the degradation flight recorder: every "
+                         "service demotion dumps a postmortem JSON "
+                         "(events + recent spans + metrics) into DIR")
+    ap.add_argument("--faults", default=None, metavar="KIND=RATE,...",
+                    help="chaos injection on the real serving path, e.g. "
+                         "'nan_output=0.1,device_error=0.05' (kinds: "
+                         "device_error nan_output slow_flush "
+                         "corrupt_rt_read crash_persist)")
+    ap.add_argument("--fault-seed", type=int, default=0)
     args = ap.parse_args()
-    if args.arch == "capsim":
+    if args.arch == "capsim" and args.service:
+        serve_service(args)
+    elif args.arch == "capsim":
         serve_capsim(args)
     else:
         serve_lm(args)

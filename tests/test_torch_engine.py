@@ -198,9 +198,7 @@ def test_rt_cache_pad_row_growth_and_index_clips(params):
     assert cache.stats.n_encode_passes == 1                  # all cached
 
 
-@pytest.mark.parametrize("field,value", [
-    ("mesh_shape", (2,)), ("sampling", {"fraction": 0.5}),
-    ("faults", {"device_error": 0.1})])
+@pytest.mark.parametrize("field,value", [("mesh_shape", (2,))])
 def test_unported_config_fields_raise(params, field, value):
     with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
         SimulationEngine(params, TCFG, TV,

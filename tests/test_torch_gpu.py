@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the engine (single-core and multicore, and its RT store's restart) and
-the Mamba2 LM on the card against the same code on the CPU.  Every test here is marked ``gpu`` and skips without a CUDA device;
+the engine (single-core and multicore, sampled, and its RT store's
+restart), the serving layer and the Mamba2 LM on the card against the
+same code on the CPU.  Every test here is marked ``gpu`` and skips without a CUDA device;
 the file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -23,7 +24,8 @@ from repro_torch.configs.capsim import config  # noqa: E402
 from repro_torch.core import predictor  # noqa: E402
 from repro_torch.core import standardize as std_mod  # noqa: E402
 from repro_torch.core.engine import SimulationEngine  # noqa: E402
-from repro_torch.core.engine_config import EngineConfig  # noqa: E402
+from repro_torch.core.engine_config import (EngineConfig,  # noqa: E402
+                                            SamplingConfig)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.fused_serving import ops as wa_ops  # noqa: E402
 from repro_torch.isa import multicore  # noqa: E402
@@ -348,3 +350,106 @@ def test_mamba2_on_card_matches_cpu():
                 / cpu.logits.abs().max())
     assert rel <= 1e-4, rel
     assert torch.equal(card.tokens.cpu(), cpu.tokens)
+
+
+def test_sampled_engine_on_card_matches_cpu():
+    """EngineConfig.sampling on the card: the sample (host numpy) is the
+    CPU run's, the estimate and CI within 1e-4; fraction=1.0 bitwise the
+    unsampled card run, single-core and (one checkpoint) multicore."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = config().replace(d_model=32, num_heads=2, head_dim=16, d_ff=64,
+                           dtype="float32")
+    params = predictor.init_params(cfg, seed=0, device="cpu")
+    vocab = std_mod.build_vocab()
+    ec = EngineConfig(interval_size=2_000, warmup=200, max_checkpoints=3,
+                      l_min=32, l_clip=32, batch_size=16, precision="fp32")
+    sampled = ec.replace(sampling=SamplingConfig(
+        fraction=0.25, strata=3, bootstrap_resamples=30))
+    runs = {}
+    for key, config_, device in (("cpu", sampled, "cpu"),
+                                 ("cuda", sampled, "cuda"),
+                                 ("full", ec, "cuda"),
+                                 ("one", ec.replace(sampling=SamplingConfig(
+                                     fraction=1.0)), "cuda")):
+        eng = SimulationEngine(params, cfg, vocab, config_, device=device)
+        eng.submit_names(["503.bwaves", "541.leela"])
+        runs[key] = eng.run()
+    for a, b in zip(runs["cpu"], runs["cuda"], strict=True):
+        assert np.array_equal(a.clip_provenance, b.clip_provenance)
+        assert 0 < b.clips_predicted < b.n_clips
+        for x, y in zip((a.predicted_cycles, *a.cycles_ci),
+                        (b.predicted_cycles, *b.cycles_ci)):
+            assert abs(y - x) / abs(x) < 1e-4
+    for a, b in zip(runs["full"], runs["one"], strict=True):
+        assert b.predicted_cycles == a.predicted_cycles      # bitwise
+    mc = _multicore_engine_config().replace(max_checkpoints=1)
+    mbs = [multicore.build_multicore_benchmark("mt.mix", 2)]
+    full = SimulationEngine(params, cfg, vocab, mc,
+                            device="cuda").run_multicore(mbs)[0]
+    one = SimulationEngine(params, cfg, vocab, mc.replace(
+        sampling=SamplingConfig(fraction=1.0)), device="cuda"
+        ).run_multicore(mbs)[0]
+    assert [c.predicted_cycles for c in one.cores] == \
+        [c.predicted_cycles for c in full.cores]
+
+
+def test_rt_path_is_bitwise_the_monolithic_path_on_card():
+    """C2 on the card: the RT cache's encode pass and a monolithic batch
+    run the instruction encoder in passes of the same size, so the RT
+    path's clip times are the monolithic path's bit for bit."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core.rt_cache import RTCache
+    cfg = config().replace(dtype="float32")
+    params = predictor.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.RandomState(0)
+    tok = rng.randint(1, 300, (40, 128, 16)).astype(np.int32)
+    tok[:, :, 9:] = 0                       # <PAD> tails, as real rows
+    tok[5, 60:] = 0                         # a short clip
+    mask = (tok[:, :, 0] != 0).astype(np.float32)
+    ctx = rng.randint(0, 300, (40, cfg.context_tokens)).astype(np.int32)
+    batch = {"context_tokens": torch.as_tensor(ctx, device="cuda"),
+             "clip_mask": torch.as_tensor(mask, device="cuda")}
+    mono = predictor.forward(params, {**batch, "clip_tokens":
+                                      torch.as_tensor(tok, device="cuda")},
+                             cfg)
+    cache = RTCache(params, cfg, 16, device="cuda")
+    cache.ensure_rows(tok[:3].reshape(-1, 16))       # an earlier, small pass
+    idx = cache.index_clips(tok)
+    rt = predictor.forward_cached(params, cache.table, {
+        **batch, "rt_idx": torch.as_tensor(idx, device="cuda")}, cfg)
+    assert cache.stats.n_encode_passes == 2
+    assert torch.equal(rt, mono)
+
+
+def test_service_on_card():
+    """SimulationService on the card at small width: a healthy burst is
+    ok at the top rung, and each rung's spot check against the monolithic
+    fp32 reference is within its gate (rt bitwise)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.serving import Request, ServiceSLA, SimulationService
+    from repro_torch.serving.service import _QueuedRequest
+    cfg = config().replace(d_model=32, num_heads=2, head_dim=16, d_ff=64,
+                           dtype="float32")
+    params = predictor.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(1)
+
+    def req(i, n=6):
+        tok = rng.randint(0, 300, (n, 128, 16)).astype(np.int32)
+        ctx = rng.randint(0, 300, (n, cfg.context_tokens)).astype(np.int32)
+        return Request(i, tok, ctx, np.ones((n, 128), np.float32))
+    reqs = [req(i) for i in range(6)]
+    svc = SimulationService(params, cfg, EngineConfig(batch_size=8),
+                            sla=ServiceSLA(check_clips=6), device="cuda")
+    svc.prewarm(reqs[0])
+    with svc:
+        results = [t.result(timeout=120)
+                   for t in [svc.submit(r) for r in reqs]]
+    assert all(r.status == "ok" and r.tier == "fused_int8" for r in results)
+    qr = _QueuedRequest(req=reqs[2], ticket=None, arrival=0.0, deadline=0.0)
+    errs = {t.name: svc._spot_check(t, [qr]) for t in svc._tiers[:-1]}
+    assert errs["rt"] == 0.0
+    for name, err in errs.items():
+        assert err <= svc.sla.tier_tolerances[name], (name, err)

@@ -60,6 +60,7 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.core.rt_cache import RTCache
     from repro_torch.core.simulate import capsim_simulate_multicore
     from repro_torch.isa import multicore
+    from repro_torch.serving import PredictorEngine, SimulationService
     cfg = smoke_config()
     params = predictor.init_params(cfg, device="cpu")
     vocab = std_mod.build_vocab()
@@ -70,7 +71,9 @@ def test_entry_points_raise_without_a_card():
                   lambda: SimulationEngine(params, cfg,
                                            vocab).run_multicore([mb]),
                   lambda: capsim_simulate_multicore(mb, params, cfg,
-                                                    vocab)):
+                                                    vocab),
+                  lambda: PredictorEngine(params, cfg),
+                  lambda: SimulationService(params, cfg)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
 
