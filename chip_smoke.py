@@ -140,6 +140,38 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               a prefill of 2 x 300 tokens: the last row's logits card vs
               CPU within half of the port's bf16-vs-f32 gap (on the CPU),
               and each layer fed the CPU's input within 1e-3.
+ 12. dense    the LM zoo's dense decoders at full width in bfloat16 (their
+              own dtype), seeded random parameters, through ``generate``:
+              qwen3-4b (36 layers, d_model 2560, 32 query / 8 KV heads x
+              128, d_ff 9728 SwiGLU, qk_norm, vocab 151936) on B=4
+              prompts of 4096 tokens, and olmo-1b (16 layers, d_model
+              2048, 16 heads x 128 with KV heads = heads, tied embeddings,
+              non-parametric LayerNorm, vocab 50304) on B=2 x 2048, each +
+              16 greedy decode steps; cut from prefill_32k in batch and
+              length only.  Every launch counter reset just before each
+              run and read just after: one causal flash launch per layer
+              (36 / 16), none of another kernel.  Reported: prefill
+              tokens/s, decode ms/step, peak memory, and under
+              ``torch.profiler`` the device-busy time, idle share and top
+              kernels of one prefill and one decode step.  Before it: the
+              head-dim-128 instantiations' registers and spills from the
+              build log, and causal flash at (1, 4096, 32, 128) and (1,
+              2048, 16, 128) against its plain version (2e-5 / 2e-2 max
+              abs).  After it, qwen3-4b at full width cut to 2 layers, B=2
+              x 300 tokens (a ragged last query and key tile): f32 card vs
+              CPU logits <= 1e-4 relative (prefill + 2 decode steps),
+              prefill(300) + one decode step == prefill(301)'s last row
+              <= 1e-4 relative; bf16 last-row logits with the flash
+              kernel within half of the port's CPU bf16-vs-f32 gap of the
+              same card run with the attention's plain version (card vs
+              CPU in bf16 is reported: cuBLAS's bf16 products part them);
+              then causal flash
+              timed at (4, 4096, 32, 128) and (2, 2048, 16, 128) in both
+              dtypes like phase 4 (SDPA with ``is_causal=True`` as the
+              library yardstick; the bound counts the causal pairs,
+              2·B·H·D·S·(S+1) FLOPs), beside the kernel's device time
+              without the mask (twice the work: the causal grid's
+              imbalance is what the causal time exceeds half of it by).
 
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (the
@@ -197,6 +229,17 @@ SERVICE_GATES = {"fused_int8": 0.05, "fused": 1e-3, "rt": 1e-6,
                  "monolithic": 1e-6}
 CHAOS_FAULTS = {"nan_output": 0.1, "device_error": 0.05, "slow_flush": 0.05}
 CHAOS_SEED = 1
+# the LM zoo's dense decoders at full width in bf16, their own dtype:
+# (arch, batch, prompt), cut from prefill_32k in batch and length only;
+# then greedy decode steps.  The card-vs-CPU checks: qwen3-4b at full
+# width cut to 2 layers, a prompt with a ragged last query and key tile
+DENSE_RUNS = (("qwen3-4b", 4, 4096), ("olmo-1b", 2, 2048))
+DENSE_DECODE = 16
+DENSE_GATE_LAYERS, DENSE_GATE_BATCH, DENSE_GATE_PROMPT = 2, 2, 300
+# causal flash attention at the dense prefills' shapes (label, B, S, H,
+# D): checked against the plain version at batch 1, timed at B
+FA_DENSE = (("qwen3_prefill", 4, 4096, 32, 128),
+            ("olmo_prefill", 2, 2048, 16, 128))
 
 
 def require(ok: bool, what: str) -> None:
@@ -270,13 +313,17 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     return sum(e.self_device_time_total for e in ours) / launches / 1e3
 
 
-def bound(B, Sq, Skv, H, D, dtype: str, aux: bool):
+def bound(B, Sq, Skv, H, D, dtype: str, aux: bool, causal: bool = False):
     """(ms, "bytes"|"operations"): q/k/v read once, o written once, the
-    per-key mask/weights read once; QK^T and PV at 2 FLOPs per MAC."""
+    per-key mask/weights read once; QK^T and PV at 2 FLOPs per MAC over
+    the (query, key) pairs the mask leaves live: all of them, or under a
+    causal mask (q aligned to the end of kv) Sq·(Skv-Sq) + Sq·(Sq+1)/2,
+    so 2·B·H·D·S·(S+1) FLOPs at Sq = Skv = S."""
     elem = 4 if dtype == "float32" else 2
     nbytes = (2 * B * Sq * H * D + 2 * B * Skv * H * D) * elem \
         + (4 * B * Skv if aux else 0)
-    flops = 4.0 * B * H * Sq * Skv * D
+    pairs = (Sq * (Skv - Sq) + Sq * (Sq + 1) / 2) if causal else Sq * Skv
+    flops = 4.0 * B * H * pairs * D
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -1830,6 +1877,278 @@ def check_mamba2_bf16(torch):
             f"{max(per_layer)} > 1e-3")
 
 
+# --------------------------------------------------------------------- #
+# the LM zoo's dense decoders
+# --------------------------------------------------------------------- #
+
+def print_d128_ptxas(build) -> None:
+    """Registers and spills of every head-dim-128 instantiation of the
+    attention kernels, from nvcc's ``-Xptxas -v`` log of the last build
+    (the causal dense prefill runs flash on D=128)."""
+    for lib in ("flash_attention", "weighted_attention"):
+        log = build.BUILD_DIR / f"{lib}.log"
+        if not log.is_file():
+            print(f"ptxas {lib}: no build log")
+            continue
+        name, seen = None, {}
+        for line in log.read_text().splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(_Z\w+)", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name:
+                seen.setdefault(name, {})["spills"] = m.group(1, 2)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                seen.setdefault(name, {})["registers"] = m.group(1)
+        for fn, info in sorted(seen.items()):
+            found = kernel_label(fn)
+            if found is None or not found[2] or found[2][0] != 128:
+                continue
+            stores, loads = info.get("spills", ("?", "?"))
+            print(f"ptxas {lib} {found[0]}: registers "
+                  f"{info.get('registers', '?')}, spill stores {stores} B, "
+                  f"spill loads {loads} B")
+
+
+def check_dense_flash(torch, fa_ops):
+    """Causal flash at the dense prefills' head dim and heads (batch 1),
+    kernel vs plain version in both dtypes.  Returns {dtype: max abs
+    err}."""
+    gen = torch.Generator().manual_seed(6)
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        tol = F32_TOL if dtype == "float32" else BF16_TOL
+        errs[dtype] = 0.0
+        for (label, _, S, H, D) in FA_DENSE:
+            q, k, v = make_qkv(torch, gen, 1, S, S, H, D, tdt)
+            out = fa_ops.flash_attention(q, k, v, causal=True)
+            ref = fa_ops.flash_attention_plain(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            print(f"kernel flash_attention {label:16s} {dtype:8s} B=1 "
+                  f"Sq=Skv={S} H={H} D={D} causal=True max_abs_err="
+                  f"{err:.3e}")
+            require(err <= tol, f"flash_attention {label} {dtype} err {err}")
+            errs[dtype] = max(errs[dtype], err)
+            del q, k, v, out, ref
+    return errs
+
+
+def time_dense_flash(torch, fa_ops, launches):
+    """Causal flash at the dense prefills' shapes, both dtypes: kernel
+    (events and profiler), plain version, SDPA with ``is_causal=True``
+    (a yardstick the port never calls) and the causal bound.  ``launches``
+    {label: flash launches per prefill on the dense path}."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(7)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        for (label, B, S, H, D) in FA_DENSE:
+            q, k, v = make_qkv(torch, gen, B, S, S, H, D, tdt)
+            qt, kt, vt = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+            row = {
+                "shape": label, "dtype": dtype,
+                "launches_per_prefill": launches[label],
+                "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(
+                    q, k, v, causal=True), iters=10),
+                "device_ms": device_ms(torch, lambda: fa_ops.flash_attention(
+                    q, k, v, causal=True), iters=5),
+                # the same shape without the mask: twice the work, so a
+                # causal time above half of it is the causal grid's
+                # imbalance
+                "full_device_ms": device_ms(torch, lambda:
+                                            fa_ops.flash_attention(q, k, v),
+                                            iters=5),
+                "plain_ms": cuda_ms(torch, lambda:
+                                    fa_ops.flash_attention_plain(
+                                        q, k, v, causal=True),
+                                    iters=3, warmup=1, rounds=2),
+                "library_ms": cuda_ms(torch, lambda:
+                                      F.scaled_dot_product_attention(
+                                          qt, kt, vt, is_causal=True),
+                                      iters=10),
+            }
+            row["bound_ms"], row["bound_by"] = bound(B, S, S, H, D, dtype,
+                                                     False, causal=True)
+            print(f"time flash_attention {label:16s} {dtype:8s} B={B} "
+                  f"S={S} H={H} D={D} causal kernel_ms={row['ms']:.4f} "
+                  f"device_ms={row['device_ms']:.4f} "
+                  f"(not causal {row['full_device_ms']:.4f}) "
+                  f"plain_ms={row['plain_ms']:.4f} "
+                  f"library_ms={row['library_ms']:.4f} (sdpa is_causal) "
+                  f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+                  f"bound_share={row['bound_ms'] / row['ms']:.3f} "
+                  f"launches_per_prefill={row['launches_per_prefill']}")
+            rows.append(row)
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_dense(torch, fa_ops, wa_ops, ssd_ops):
+    """Each of DENSE_RUNS at full width in bf16 through ``generate``,
+    every launch counter reset just before the run and read just after
+    (one causal flash launch per layer in the prefill, none in decode);
+    then one prefill and one decode step under the profiler.  Returns
+    ({label: flash launches per prefill}, total flash launches)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.specs import random_batch
+    from repro_torch.models import transformer as tfm
+
+    per_prefill, total = {}, 0
+    for (arch, B, S), (label, *_) in zip(DENSE_RUNS, FA_DENSE):
+        cfg = get_config(arch)
+        V = cfg.vocab_size
+        t0 = time.perf_counter()
+        params = tfm.init_params(cfg, seed=0, device="cuda")
+        n_params = sum(t.numel() for t in _leaves(params))
+        torch.cuda.synchronize()
+        print(f"dense {arch} config: layers={cfg.num_layers} d_model="
+              f"{cfg.d_model} heads={cfg.num_heads} kv_heads="
+              f"{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} "
+              f"{cfg.activation} qk_norm={cfg.qk_norm} tied="
+              f"{cfg.tie_embeddings} nonparametric_norm="
+              f"{cfg.nonparametric_norm} vocab={V} padded="
+              f"{tfm.padded_vocab(cfg)} {cfg.dtype} params={n_params} "
+              f"(init {time.perf_counter() - t0:.1f} s); batch {B} x {S} "
+              f"tokens + {DENSE_DECODE} decode steps (prefill_32k's 32 x "
+              f"32768 cut in batch and length only)")
+        batch = random_batch(cfg, ShapeConfig(f"prefill_{S}", S, B,
+                                              "prefill"), "prefill",
+                             seed=0, device="cuda")
+        # warm-up (cuBLAS handles, lazy modules), not counted
+        generate(params, cfg, {"tokens": batch["tokens"][:1, :256]}, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.flash_attention.launches = 0
+        wa_ops.weighted_attention.launches = 0
+        ssd_ops.ssd_scan.launches = 0
+        g = generate(params, cfg, batch, DENSE_DECODE)
+        n = fa_ops.flash_attention.launches
+        other = (wa_ops.weighted_attention.launches,
+                 ssd_ops.ssd_scan.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"dense {arch} launches: flash={n} (per prefill, expected "
+              f"{cfg.num_layers}) weighted={other[0]} ssd={other[1]}")
+        require(n == cfg.num_layers, f"dense {arch}: {n} flash launches, "
+                f"expected {cfg.num_layers} per prefill")
+        require(other == (0, 0), f"dense {arch}: launches of another "
+                f"kernel {other}")
+        per_prefill[label] = n
+        total += n
+        print(f"dense {arch} bfloat16: prefill {g.prefill_seconds:.4f} s = "
+              f"{B * S / g.prefill_seconds:.1f} tokens/s; decode "
+              f"{1e3 * g.decode_seconds / DENSE_DECODE:.3f} ms/step (batch "
+              f"{B}); peak memory {peak:.2f} GiB (parameters included); "
+              f"first tokens {g.tokens[0, :6].tolist()}")
+        require(bool(torch.isfinite(g.logits.float()).all()),
+                f"dense {arch}: non-finite logits")
+        require(tuple(g.logits.shape) == (B, DENSE_DECODE + 1,
+                                          tfm.padded_vocab(cfg)),
+                f"dense {arch}: logits shape {tuple(g.logits.shape)}")
+        require(int(g.tokens.max()) < V,
+                f"dense {arch}: decoded a padded vocab column")
+        (logits, cache), *prof = device_profile(
+            torch, lambda: tfm.prefill_step(params, batch, cfg))
+        print_profile(f"dense {arch} bfloat16 prefill", *prof)
+        del logits
+        cache = tfm.place_caches(cfg, cache, S + 1)
+        _, *prof = device_profile(torch, lambda: tfm.decode_step(
+            params, {"tokens": g.tokens[:, :1]}, cfg, cache, S))
+        print_profile(f"dense {arch} bfloat16 decode step", *prof)
+        del params, cache, g, batch, prof
+        torch.cuda.empty_cache()
+    return per_prefill, total
+
+
+def check_dense_cpu(torch, fa_ops):
+    """qwen3-4b at full width cut to DENSE_GATE_LAYERS layers, the same
+    seeded parameters on the card and through the port's CPU path, a
+    prompt of DENSE_GATE_BATCH x DENSE_GATE_PROMPT tokens: f32 (TF32 off)
+    prefill + 2 decode steps, logits card vs CPU <= 1e-4 relative;
+    prefill(S) + one decode step == prefill(S + 1)'s last row on the
+    card, <= 1e-4 relative.  bf16: the last row's logits with the flash
+    kernel within half of the port's CPU bf16-vs-f32 gap of the same card
+    run with the attention's plain version on the card.  The card's bf16
+    against the CPU's is reported beside it: cuBLAS's bf16 products
+    alone (tensor-core accumulation, ~1e-4 from an f32-accumulated
+    product where the CPU's are ~3e-5) part the two paths by 0.64 of
+    the gap at 2 layers, the flash kernel in or out
+    (``tools/dense_bf16_probe.py``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("qwen3-4b").replace(num_layers=DENSE_GATE_LAYERS)
+    f32 = cfg.replace(dtype="float32", param_dtype="float32")
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    p32 = tfm.init_params(f32, seed=1, device="cpu")
+    p32_card = _to(p32, "cuda")
+    tok = torch.randint(0, V, (DENSE_GATE_BATCH, DENSE_GATE_PROMPT + 1),
+                        generator=torch.Generator().manual_seed(3))
+    prompt = tok[:, :DENSE_GATE_PROMPT]
+    card = generate(p32_card, f32, {"tokens": prompt}, 2, device="cuda")
+    cpu = generate(p32, f32, {"tokens": prompt}, 2, device="cpu")
+    rel = live_rel(card.logits.cpu(), cpu.logits, V)
+    print(f"dense card vs CPU (qwen3-4b, {cfg.num_layers} layers at full "
+          f"width, f32, B={DENSE_GATE_BATCH} x {DENSE_GATE_PROMPT} tokens "
+          f"+ 2 decode steps): logits rel {rel:.3e}, tokens equal "
+          f"{torch.equal(card.tokens.cpu(), cpu.tokens)}")
+    require(rel <= 1e-4, f"dense card vs CPU rel {rel}")
+
+    long, _ = tfm.prefill_step(p32_card, {"tokens": tok.cuda()}, f32)
+    _, cache = tfm.prefill_step(p32_card, {"tokens": prompt.cuda()}, f32)
+    cache = tfm.place_caches(f32, cache, DENSE_GATE_PROMPT + 1)
+    step, _ = tfm.decode_step(p32_card, {"tokens": tok[:, -1:].cuda()}, f32,
+                              cache, DENSE_GATE_PROMPT)
+    rel_pd = live_rel(step[:, 0], long[:, -1], V)
+    print(f"dense prefill({DENSE_GATE_PROMPT}) + decode vs prefill("
+          f"{DENSE_GATE_PROMPT + 1}) last row on the card: rel {rel_pd:.3e}")
+    require(rel_pd <= 1e-4, f"dense prefill vs decode rel {rel_pd}")
+    del p32_card, long, cache, step
+
+    p16 = cast_params(p32, tfm.model_specs(cfg), torch.bfloat16)
+    p16_card = _to(p16, "cuda")
+
+    def last(p, c, device):
+        logits, _ = tfm.prefill_step(p, {"tokens": prompt.to(device)}, c)
+        return logits[:, -1, :V].float().cpu()
+    card16 = last(p16_card, cfg, "cuda")
+    # the same card run with the attention's plain version on the card:
+    # the same cuBLAS products, only the flash kernel taken out
+    kernel = fa_ops.flash_attention
+    fa_ops.flash_attention = fa_ops.flash_attention_plain
+    try:
+        card16_plain = last(p16_card, cfg, "cuda")
+    finally:
+        fa_ops.flash_attention = kernel
+    cpu16, cpu32 = last(p16, cfg, "cpu"), last(p32, f32, "cpu")
+    gap = rel_norm(cpu16, cpu32)
+    d_cpu = rel_norm(card16, cpu16)
+    d_plain = rel_norm(card16_plain, cpu16)
+    d_kernel = rel_norm(card16, card16_plain)
+    print(f"dense bf16 gate (qwen3-4b, {cfg.num_layers} layers at full "
+          f"width, B={DENSE_GATE_BATCH} x {DENSE_GATE_PROMPT} tokens, "
+          f"{time.perf_counter() - t0:.1f} s): the port's bf16 vs f32 gap "
+          f"on the CPU {gap:.3e}; last-row logits card (flash kernel) vs "
+          f"card (the attention's plain version, the same cuBLAS products) "
+          f"{d_kernel:.3e} (gate: below half the gap); card vs CPU "
+          f"{d_cpu:.3e} and with the plain attention on the card "
+          f"{d_plain:.3e} (reported, not enforced: cuBLAS's bf16 products "
+          f"part the card from the CPU, tools/dense_bf16_probe.py); card "
+          f"bf16 vs CPU f32 {rel_norm(card16, cpu32):.3e}")
+    require(d_kernel < 0.5 * gap, f"dense bf16 flash kernel vs its plain "
+            f"version on the card {d_kernel} >= half of the bf16 vs f32 gap "
+            f"{gap}")
+
+
 def device_profile(torch, fn, top: int = 5):
     """Run ``fn`` once under ``torch.profiler``.  Returns (its result, wall
     s, device busy s = the sum of the kernels' device times, the port's
@@ -1894,6 +2213,12 @@ def main() -> int:
     from repro_torch.kernels.ssd import ops as ssd_ops
 
     t_start = time.perf_counter()
+    phase_s = {}                        # phase -> seconds, in order
+
+    def phase(name: str) -> None:
+        """Close phase ``name`` at now (it began where the last ended)."""
+        phase_s[name] = time.perf_counter() - t_start - sum(
+            phase_s.values())
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
@@ -1916,13 +2241,16 @@ def main() -> int:
               f"{min(regs)}-{max(regs)}, {len(spills)} with spills, nvcc "
               f"{seconds:.1f} s")
     sass_pipes(torch, build, fa_ops, ssd_ops)
+    phase("device+build")
 
     errs = check_kernels(torch, fa_ops, wa_ops)
     errs["ssd"] = check_ssd(torch, ssd_ops)
     rows = time_kernels(torch, fa_ops, wa_ops)
     rows["ssd"] = time_ssd(torch, ssd_ops)
     check_gates(rows)
+    phase("kernels+timing")
     launches = check_engine(torch, fa_ops, wa_ops)
+    phase("engine")
     mc_launches, seen_u = check_multicore(torch, fa_ops, wa_ops)
     for name, n in mc_launches.items():
         launches[name] += n
@@ -1931,24 +2259,37 @@ def main() -> int:
     for dtype, err in mc_errs.items():
         errs["weighted_attention"][dtype] = max(
             errs["weighted_attention"][dtype], err)
+    phase("multicore")
     check_rt_store(torch)
-    t0 = time.perf_counter()
+    phase("rt-store")
     for name, n in check_sampling(torch, fa_ops, wa_ops).items():
         launches[name] += n
-    t1 = time.perf_counter()
+    phase("sampling")
     svc_launches, svc_u = check_service(torch, fa_ops, wa_ops)
     for name, n in svc_launches.items():
         launches[name] += n
-    print(f"phases: sampling {t1 - t0:.1f} s, service "
-          f"{time.perf_counter() - t1:.1f} s")
     svc_rows, svc_errs = fused_weighted_shapes(torch, wa_ops, svc_u, 360,
                                                "svc", seed=5)
     rows["weighted_attention"] += svc_rows
     for dtype, err in svc_errs.items():
         errs["weighted_attention"][dtype] = max(
             errs["weighted_attention"][dtype], err)
+    phase("service")
     launches["ssd"] = check_mamba2(torch, fa_ops, wa_ops, ssd_ops)
+    phase("mamba2")
     check_mamba2_bf16(torch)
+    phase("mamba2 bf16 gate")
+    print_d128_ptxas(build)
+    for dtype, err in check_dense_flash(torch, fa_ops).items():
+        errs["flash_attention"][dtype] = max(
+            errs["flash_attention"][dtype], err)
+    per_prefill, n = check_dense(torch, fa_ops, wa_ops, ssd_ops)
+    launches["flash_attention"] += n
+    check_dense_cpu(torch, fa_ops)
+    rows["flash_attention"] += time_dense_flash(torch, fa_ops, per_prefill)
+    phase("dense")
+    print("phases: " + ", ".join(f"{name} {sec:.1f} s"
+                                 for name, sec in phase_s.items()))
 
     sources = {"flash_attention": (
         "src/repro_torch/csrc/flash_attention.cu",

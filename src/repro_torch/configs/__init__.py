@@ -1,19 +1,21 @@
 """Architecture / shape configs of the port (``repro/configs/__init__.py``).
 
 The LM zoo's ``ArchConfig`` keeps the reference's layer-schedule helpers
-and the fields that the ported path (the Mamba2 mixer, the stack, the
-embedding and norms) and that schedule read.  The attention, MoE-routing,
-FFN-activation, frontend and shape-list fields come with the slice that
-ports their code.  Also left out: the implementation selectors
-(``attn_impl``, ``ssm_impl``: the port always calls its kernels'
-wrappers, which launch the CUDA kernel on a CUDA tensor and run the plain
-PyTorch version on a CPU tensor), the XLA execution knobs (``remat``,
-``scan_layers``, ``attn_chunk``) and the CAPSim predictor extras, whose
-config is ``configs/capsim.py``.
+and the fields that the ported paths read: the stack, the embedding and
+norms, the Mamba2 mixer, the attention mixer (heads, ``qk_norm``, RoPE)
+and the dense FFN's activation.  The MoE-routing, M-RoPE, sliding-window,
+frontend and shape-list fields come with the slice that ports their
+code.  Also left out: the implementation selectors (``attn_impl``,
+``ssm_impl``: the port always calls its kernels' wrappers, which launch
+the CUDA kernel on a CUDA tensor and run the plain PyTorch version on a
+CPU tensor), the XLA execution knobs (``remat``, ``scan_layers``,
+``attn_chunk``) and the CAPSim predictor extras, whose config is
+``configs/capsim.py``.
 
-``get_config``/``get_smoke_config`` resolve ``--arch`` names.  ``capsim``
-and ``mamba2-780m`` are ported; the other zoo names raise
-``NotImplementedError`` naming their ROADMAP port-queue item.
+``get_config``/``get_smoke_config`` resolve ``--arch`` names.  ``capsim``,
+``mamba2-780m`` and the dense decoders (``olmo-1b``, ``qwen3-4b``,
+``internlm2-20b``, ``nemotron-4-15b``) are ported; the other zoo names
+raise ``NotImplementedError`` naming their ROADMAP port-queue item.
 """
 from __future__ import annotations
 
@@ -42,10 +44,14 @@ LM_SHAPES = {
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
+    num_heads: int                   # query heads (0 for attention-free)
+    num_kv_heads: int
     d_ff: int
     vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // num_heads
 
     # --- MoE (only the layer schedule reads these) ---
     num_experts: int = 0
@@ -61,7 +67,12 @@ class ArchConfig:
     attn_every: int = 0              # hybrid: attention on layers with (i % attn_every == attn_offset)
     attn_offset: int = 0
 
-    # --- norm / embedding ---
+    # --- attention features ---
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+
+    # --- FFN / norm features ---
+    activation: str = "swiglu"       # swiglu | squared_relu | gelu
     nonparametric_norm: bool = False # olmo: LN without learnable params
     tie_embeddings: bool = False
 
@@ -71,6 +82,8 @@ class ArchConfig:
     pattern_len: int = 1             # layers per super-block (jamba: 8)
 
     def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
         if self.num_layers % self.pattern_len != 0:
             raise ValueError(
                 f"{self.name}: num_layers={self.num_layers} not divisible by "
@@ -109,20 +122,22 @@ class ArchConfig:
 # Registry
 # --------------------------------------------------------------------------- #
 
-_PORTED = {"capsim": "capsim", "mamba2-780m": "mamba2_780m"}
-# zoo names whose path (attention mixer, dense/MoE FFN, frontends) waits
-# for ROADMAP port-queue item 1
-_NOT_PORTED = ("jamba-1.5-large-398b", "nemotron-4-15b", "qwen3-4b",
-               "internlm2-20b", "olmo-1b", "kimi-k2-1t-a32b",
-               "llama4-maverick-400b-a17b", "qwen2-vl-2b", "musicgen-large")
-ARCH_NAMES = tuple(_PORTED) + _NOT_PORTED
+_PORTED = {"capsim": "capsim", "mamba2-780m": "mamba2_780m",
+           "nemotron-4-15b": "nemotron_4_15b", "qwen3-4b": "qwen3_4b",
+           "internlm2-20b": "internlm2_20b", "olmo-1b": "olmo_1b"}
+# zoo names whose path waits for ROADMAP port-queue item 1: 1b the MoE FFN
+# and the hybrid schedule, 1c the modality frontends and codebooks
+_NOT_PORTED = {"jamba-1.5-large-398b": "1b", "kimi-k2-1t-a32b": "1b",
+               "llama4-maverick-400b-a17b": "1b", "qwen2-vl-2b": "1c",
+               "musicgen-large": "1c"}
+ARCH_NAMES = tuple(_PORTED) + tuple(_NOT_PORTED)
 
 
 def _module(name: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"--arch {name}: its attention mixer / FFN path is not ported "
-            "yet (ROADMAP port queue item 1, the rest of the LM zoo)")
+            f"--arch {name}: its path is not ported yet (ROADMAP port "
+            f"queue item {_NOT_PORTED[name]}, the rest of the LM zoo)")
     if name not in _PORTED:
         raise KeyError(f"unknown arch {name!r}; known: {list(ARCH_NAMES)}")
     return importlib.import_module(f"repro_torch.configs.{_PORTED[name]}")

@@ -10,8 +10,12 @@ from repro_torch.configs import ArchConfig
 def config() -> ArchConfig:
     return ArchConfig(
         name="mamba2-780m",
+        family="ssm",
         num_layers=48,
         d_model=1536,
+        num_heads=0,
+        num_kv_heads=0,
+        head_dim=0,
         d_ff=0,
         vocab_size=50280,
         ssm_state=128,

@@ -26,6 +26,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
+KEY_TILE = 64                   # keys per tile of the kernels (BK)
 HEAD_DIMS = (16, 32, 64, 128)
 PADDED_HEAD_DIMS = {112: 128}   # head dim -> the instantiation it pads to
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -37,17 +38,32 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 def softmax_pv_plain(s: torch.Tensor, valid: torch.Tensor, weight,
                      v: torch.Tensor, out_dtype: torch.dtype
                      ) -> torch.Tensor:
-    """Shared tail of the plain versions, in the kernels' order: f32 max
-    shift over the live scores, exp, weight after the shift, p rounded to
-    the value dtype for the PV product, one division, zeros where the
-    normalizer is 0.  s/valid: (B, H, Sq, Skv); weight (B, Skv) or None."""
-    s = s.masked_fill(~valid, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m).masked_fill(~valid, 0.0)
-    if weight is not None:
-        p = p * weight.float()[:, None, None, :]
-    den = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
+    """Shared tail of the plain versions, in the kernels' order: keys in
+    tiles of ``KEY_TILE``, in key order; per tile the running f32 row max
+    over the live scores, exp against it, the weight after the shift, l
+    summing the f32 p, the accumulator and l rescaled by exp(m_old -
+    m_new), and p rounded to the value dtype for the PV product; one
+    division at the end, zeros where the normalizer is 0.  The rounding
+    of p against the running max (not the row's final max) is the
+    kernels' own: in bf16 it moves a model's logits by about as much as
+    bf16 itself does.  s/valid: (B, H, Sq, Skv); weight (B, Skv) or
+    None."""
+    B, H, Sq, Skv = s.shape
+    m = torch.full((B, H, Sq, 1), NEG_INF, device=s.device)
+    den = torch.zeros(B, H, Sq, 1, device=s.device)
+    o = torch.zeros(B, H, Sq, v.shape[-1], device=s.device)
+    for k0 in range(0, Skv, KEY_TILE):
+        ok = valid[..., k0:k0 + KEY_TILE]
+        st = s[..., k0:k0 + KEY_TILE].masked_fill(~ok, NEG_INF)
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new).masked_fill(~ok, 0.0)
+        if weight is not None:
+            p = p * weight[:, None, None, k0:k0 + KEY_TILE].float()
+        den = den * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                                     v[:, k0:k0 + KEY_TILE].float())
+        m = m_new
     o = o / torch.where(den == 0.0, torch.ones_like(den), den)
     return o.transpose(1, 2).to(out_dtype)
 

@@ -14,10 +14,11 @@ requests through the fault-tolerant ``SimulationService`` (deadlines,
 watchdog, degradation ladder; ``--faults`` injects chaos on the real
 path).  ``--metrics-port`` serves Prometheus text at ``/metrics``,
 ``--trace-out`` writes a Chrome/Perfetto trace and ``--flight-dir`` keeps
-the service's demotion postmortems.  ``--arch mamba2-780m`` runs the LM
-zoo's prefill + greedy decode loop (``generate``) on the smoke config, as
-the reference does.  ``--device`` defaults to ``cuda``; ``--device cpu``
-runs the kernels' plain versions.
+the service's demotion postmortems.  ``--arch mamba2-780m`` and the dense
+decoders (``olmo-1b``, ``qwen3-4b``, ``internlm2-20b``,
+``nemotron-4-15b``) run the LM zoo's prefill + greedy decode loop
+(``generate``) on the smoke config, as the reference does.  ``--device``
+defaults to ``cuda``; ``--device cpu`` runs the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -248,8 +249,9 @@ def generate(params: dict, cfg, batch: dict, decode_steps: int,
              device="cuda") -> Generation:
     """Prefill ``batch['tokens']`` (B, S), then ``decode_steps`` greedy
     decode steps against the prefill's caches (the reference's
-    ``serve_lm`` loop).  An SSM cache does not grow with the sequence, so
-    the prefill caches are the decode caches as they are."""
+    ``serve_lm`` loop).  Attention caches are first placed into decode
+    caches of ``S + decode_steps`` positions; an SSM cache does not grow
+    with the sequence and is used as it is."""
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as tfm
 
@@ -260,6 +262,7 @@ def generate(params: dict, cfg, batch: dict, decode_steps: int,
     logits, caches = tfm.prefill_step(params, {"tokens": tokens}, cfg)
     last = [logits[:, -1].clone()]       # frees the (B, S, V) logits
     del logits
+    caches = tfm.place_caches(cfg, caches, S + decode_steps)
     out = [last[-1].argmax(-1)]
     _sync(dev)
     t1 = time.perf_counter()
@@ -296,8 +299,9 @@ def serve_lm(args) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="capsim",
-                    help="capsim (the engine) or mamba2-780m (LM prefill + "
-                         "decode on the smoke config)")
+                    help="capsim (the engine), or mamba2-780m, olmo-1b, "
+                         "qwen3-4b, internlm2-20b or nemotron-4-15b (LM "
+                         "prefill + greedy decode on the smoke config)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")

@@ -1,7 +1,7 @@
-"""Shared building blocks: param specs, seeded init, norms, the numpy
-parameter bridge.
+"""Shared building blocks: param specs, seeded init, norms, activations,
+rotary embeddings, the numpy parameter bridge.
 
-Ports ``repro/models/layers.py:20-117``.  A ``ParamSpec`` tree describes
+Ports ``repro/models/layers.py:20-169``.  A ``ParamSpec`` tree describes
 the parameters; ``init_from_specs`` materializes it as a nested dict of
 tensors with the reference's shapes and init rule.  Dense weights keep
 the reference's ``(d_in, d_out)`` layout (not ``nn.Linear``'s
@@ -131,3 +131,58 @@ def norm_spec(cfg) -> dict:
     if cfg.nonparametric_norm:
         return {}
     return {"scale": ParamSpec((cfg.d_model,), std=0.0, dtype="float32")}
+
+
+def activation(h: torch.Tensor, kind: str) -> torch.Tensor:
+    """The FFN nonlinearity: squared ReLU, tanh-approximated GELU (as
+    ``jax.nn.gelu``'s default), or SiLU (also SwiGLU's gate)."""
+    if kind == "squared_relu":
+        r = torch.relu(h)
+        return r * r
+    if kind == "gelu":
+        return torch.nn.functional.gelu(h, approximate="tanh")
+    if kind in ("silu", "swiglu"):
+        return torch.nn.functional.silu(h)
+    raise ValueError(kind)
+
+
+# --------------------------------------------------------------------------- #
+# Rotary embeddings (standard + M-RoPE)
+# --------------------------------------------------------------------------- #
+
+def _rope_freqs(head_dim: int, theta: float,
+                device: Optional[torch.device] = None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """x: (B, S, H, D).  positions: (B, S) int, or (3, B, S) for M-RoPE.
+
+    Half-split rotation with f32 angles, cast back to x's dtype.  M-RoPE
+    (Qwen2-VL): the head_dim/2 frequency slots are split into sections
+    (t, h, w); section i rotates by position stream i.
+    """
+    B, S, H, D = x.shape
+    half = D // 2
+    freqs = _rope_freqs(D, theta, x.device)                # (half,)
+    if mrope_sections:
+        if sum(mrope_sections) != half:
+            raise ValueError(f"mrope_sections {mrope_sections} must sum to "
+                             f"head_dim/2 = {half}")
+        if positions.dim() != 3:
+            raise ValueError("M-RoPE needs (3, B, S) positions")
+        pos = torch.cat([positions[i][..., None].expand(B, S, sec)
+                         for i, sec in enumerate(mrope_sections)], dim=-1)
+        angle = pos.float() * freqs[None, None, :]           # (B, S, half)
+    else:
+        if positions.dim() == 3:
+            positions = positions[0]
+        angle = positions.float()[..., None] * freqs         # (B, S, half)
+    cos = torch.cos(angle)[:, :, None, :]
+    sin = torch.sin(angle)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)

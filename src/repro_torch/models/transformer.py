@@ -6,10 +6,14 @@ One model definition driven by ``ArchConfig``: the per-layer schedule
 ``cfg.pattern()`` gives each layer of a super-block its mixer and FFN, and
 the stack runs ``num_repeats`` super-blocks (a Python loop over the stacked
 layer parameters where the reference scans).  Ported so far: the SSM
-mixer (Mamba2) with no FFN.  The attention mixer and the dense / MoE FFN
-raise ``NotImplementedError`` (ROADMAP port queue item 1); the modality
-frontends and multi-codebook heads come with the configs that use them.
-``loss_fn`` is training (port queue item 7).
+mixer (Mamba2), the attention mixer (``models/attention.py``) and the
+dense FFN.  The MoE FFN raises ``NotImplementedError`` (ROADMAP port queue
+item 1b); the modality frontends and multi-codebook heads come with the
+configs that use them (item 1c).  ``loss_fn`` is training (item 7).
+
+Decode writes each attention layer's new key and value into the caches
+it is given, in place, and returns those caches; an SSM layer's new
+state is a new tensor.
 """
 from __future__ import annotations
 
@@ -19,32 +23,43 @@ from typing import Optional
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as ssm_mod
-from repro_torch.models.layers import (ParamSpec, dense_spec,
+from repro_torch.models.layers import (ParamSpec, activation, dense_spec,
                                        init_from_specs, norm, norm_spec,
                                        specs_with_leading_stack, torch_dtype)
 
 NEG_LOGIT = -1e30
-_NOT_PORTED = "is not ported yet (ROADMAP port queue item 1, the LM zoo)"
 
 
 def _check_ported(cfg) -> None:
-    for mixer, ffn in cfg.pattern():
-        if mixer != "ssm":
-            raise NotImplementedError(f"{cfg.name}: the attention mixer "
-                                      + _NOT_PORTED)
-        if ffn != "none":
-            raise NotImplementedError(f"{cfg.name}: the {ffn} FFN "
-                                      + _NOT_PORTED)
+    for _, ffn in cfg.pattern():
+        if ffn == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: the moe FFN is not ported yet (ROADMAP port "
+                "queue item 1b, the LM zoo's MoE and hybrid models)")
 
 
 # --------------------------------------------------------------------------- #
 # Param specs
 # --------------------------------------------------------------------------- #
 
-def _block_specs(cfg) -> dict:
-    """One ported block: pre-norm and the SSM mixer, no FFN."""
-    return {"norm1": norm_spec(cfg), "mixer": ssm_mod.ssm_specs(cfg)}
+def _ffn_specs(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.activation == "swiglu":
+        return {"w_gate": dense_spec(d, f), "w_up": dense_spec(d, f),
+                "w_down": dense_spec(f, d)}
+    return {"w_up": dense_spec(d, f), "w_down": dense_spec(f, d)}
+
+
+def _block_specs(cfg, mixer: str, ffn: str) -> dict:
+    specs = {"norm1": norm_spec(cfg)}
+    specs["mixer"] = (attn_mod.attn_specs(cfg) if mixer == "attn"
+                      else ssm_mod.ssm_specs(cfg))
+    if ffn == "dense":
+        specs["norm2"] = norm_spec(cfg)
+        specs["ffn"] = _ffn_specs(cfg)
+    return specs
 
 
 def padded_vocab(cfg) -> int:
@@ -60,8 +75,9 @@ def model_specs(cfg) -> dict:
     d, V = cfg.d_model, padded_vocab(cfg)
     specs: dict = {"embed": ParamSpec((V, d), std=1.0 / math.sqrt(d))}
     specs["blocks"] = {
-        f"i{j}": specs_with_leading_stack(_block_specs(cfg), cfg.num_repeats)
-        for j in range(len(cfg.pattern()))}
+        f"i{j}": specs_with_leading_stack(_block_specs(cfg, mixer, ffn),
+                                          cfg.num_repeats)
+        for j, (mixer, ffn) in enumerate(cfg.pattern())}
     specs["final_norm"] = norm_spec(cfg)
     if not cfg.tie_embeddings:
         specs["unembed"] = dense_spec(d, V)
@@ -69,19 +85,21 @@ def model_specs(cfg) -> dict:
 
 
 def cache_specs(cfg, batch: int, max_seq: int) -> dict:
-    """Stacked per-layer decode caches (leading num_repeats dim).  An SSM
-    cache does not grow with the sequence, so max_seq is not read."""
+    """Stacked per-layer decode caches (leading num_repeats dim): the
+    attention KV cache (B, max_seq, KV, Dh), or the SSM cache, which does
+    not grow with the sequence."""
     _check_ported(cfg)
     return {f"i{j}": specs_with_leading_stack(
-        ssm_mod.init_ssm_cache_specs(cfg, batch), cfg.num_repeats)
-        for j in range(len(cfg.pattern()))}
+        attn_mod.init_cache_specs(cfg, batch, max_seq) if mixer == "attn"
+        else ssm_mod.init_ssm_cache_specs(cfg, batch), cfg.num_repeats)
+        for j, (mixer, _) in enumerate(cfg.pattern())}
 
 
 def init_params(cfg, seed: int = 0, device: DeviceLike = "cuda") -> dict:
-    """Seeded random parameters by the reference's spec rule (zeros, ones
-    for ``A_log``/``D``, normal·std), drawn on the CPU from a
-    ``torch.Generator`` so a seed gives the same parameters on every
-    device (not the reference's numbers)."""
+    """Seeded random parameters by the reference's spec rule (zeros for
+    the norm scales, ones for ``A_log``/``D``, normal·std), drawn on the
+    CPU from a ``torch.Generator`` so a seed gives the same parameters on
+    every device (not the reference's numbers)."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return init_from_specs(model_specs(cfg), gen, cfg.param_dtype, dev)
@@ -100,6 +118,27 @@ def init_cache(cfg, batch: int, max_seq: int, dtype: Optional[str] = None,
     return zeros(cache_specs(cfg, batch, max_seq))
 
 
+def place_caches(cfg, caches: dict, max_seq: int) -> dict:
+    """A prefill's caches as decode caches of ``max_seq`` positions: each
+    attention layer's (R, B, S, KV, Dh) k/v copied to positions [0, S) of
+    a zero cache (the reference's ``serve_lm`` placement); SSM caches as
+    they are."""
+    out = dict(caches)
+    for j, (mixer, _) in enumerate(cfg.pattern()):
+        if mixer != "attn":
+            continue
+        out[f"i{j}"] = {}
+        for name, src in caches[f"i{j}"].items():
+            R, B, S = src.shape[:3]
+            if S > max_seq:
+                raise ValueError(f"a prefill of {S} tokens does not fit "
+                                 f"{max_seq} cache positions")
+            dst = src.new_zeros((R, B, max_seq) + tuple(src.shape[3:]))
+            dst[:, :, :S] = src
+            out[f"i{j}"][name] = dst
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Forward
 # --------------------------------------------------------------------------- #
@@ -108,10 +147,30 @@ def _embed_tokens(params, tokens, cfg):
     return params["embed"][tokens].to(torch_dtype(cfg.dtype))
 
 
-def _block_forward(bparams, x, cfg, mode, cache):
+def _block_forward(bparams, x, cfg, mode, cache, positions=None,
+                   cache_pos=None, kind=None):
+    """One layer: pre-norm mixer and residual, then (dense FFN) pre-norm
+    FFN and residual.  ``kind`` is its (mixer, ffn), by default the
+    schedule's first; ``positions`` and ``cache_pos`` feed attention."""
+    mixer, ffn = kind or cfg.pattern()[0]
     h = norm(x, bparams["norm1"], cfg)
-    y, new_cache = ssm_mod.ssm_forward(bparams["mixer"], h, cfg, mode, cache)
-    return x + y, new_cache
+    if mixer == "attn":
+        y, new_cache = attn_mod.attention_forward(
+            bparams["mixer"], h, positions, cfg, mode, cache, cache_pos)
+    else:
+        y, new_cache = ssm_mod.ssm_forward(bparams["mixer"], h, cfg, mode,
+                                           cache)
+    x = x + y
+    if ffn == "dense":
+        h = norm(x, bparams["norm2"], cfg)
+        p = bparams["ffn"]
+        up = h @ p["w_up"]
+        if cfg.activation == "swiglu":
+            a = activation(h @ p["w_gate"], "silu") * up
+        else:
+            a = activation(up, cfg.activation)
+        x = x + a @ p["w_down"]
+    return x, new_cache
 
 
 def _index(tree, r: int):
@@ -125,22 +184,29 @@ def _stack(trees: list):
             for k, v in trees[0].items()}
 
 
-def _stack_forward(params, x, cfg, mode: str, caches=None):
+def _stack_forward(params, x, cfg, mode: str, caches=None, positions=None,
+                   cache_pos=None):
     """Run the ``num_repeats`` super-blocks in order; returns (x, stacked
-    new caches or None)."""
+    new caches or None).  In decode an attention layer's cache is a view
+    of ``caches``, updated in place, so those stay as they are."""
+    pattern = cfg.pattern()
     per_repeat = []
     for r in range(cfg.num_repeats):
         bparams = _index(params["blocks"], r)
         bcaches = None if caches is None else _index(caches, r)
         new_caches = {}
-        for j in range(len(cfg.pattern())):
+        for j, kind in enumerate(pattern):
             cache_j = None if bcaches is None else bcaches[f"i{j}"]
-            x, nc = _block_forward(bparams[f"i{j}"], x, cfg, mode, cache_j)
+            x, nc = _block_forward(bparams[f"i{j}"], x, cfg, mode, cache_j,
+                                   positions, cache_pos, kind)
             new_caches[f"i{j}"] = nc
         per_repeat.append(new_caches)
     if mode == "train":
         return x, None
-    return x, _stack(per_repeat)
+    return x, {f"i{j}": caches[f"i{j}"]
+               if mode == "decode" and mixer == "attn"
+               else _stack([c[f"i{j}"] for c in per_repeat])
+               for j, (mixer, _) in enumerate(pattern)}
 
 
 def _logits(params, x, cfg):
@@ -154,12 +220,21 @@ def _logits(params, x, cfg):
 
 def forward(params, batch, cfg, mode: str, caches=None, cache_pos=None):
     """Returns (logits, new_caches).  batch: {'tokens': (B, S) int}.
-    ``cache_pos`` (the decode position) is the reference's signature; the
-    SSM cache does not read it.  The reference's auxiliary MoE losses are
-    zero without MoE and are not returned."""
+    Positions are ``arange(S)`` for train/prefill and ``cache_pos`` (the
+    decode position, an int) for decode; the SSM cache does not read
+    them.  The reference's auxiliary MoE losses are zero without MoE and
+    are not returned."""
     _check_ported(cfg)
-    x = _embed_tokens(params, batch["tokens"], cfg)
-    x, new_caches = _stack_forward(params, x, cfg, mode, caches)
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, tokens, cfg)
+    B, S = tokens.shape
+    if mode == "decode":
+        positions = torch.full((B, 1), int(cache_pos), dtype=torch.long,
+                               device=tokens.device)
+    else:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x, new_caches = _stack_forward(params, x, cfg, mode, caches, positions,
+                                   cache_pos)
     x = norm(x, params["final_norm"], cfg)
     return _logits(params, x, cfg), new_caches
 

@@ -1,7 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, and
 the engine (single-core and multicore, sampled, and its RT store's
-restart), the serving layer and the Mamba2 LM on the card against the
-same code on the CPU.  Every test here is marked ``gpu`` and skips without a CUDA device;
+restart), the serving layer, the Mamba2 LM and the dense decoders on the
+card against the same code on the CPU.  Every test here is marked ``gpu`` and skips without a CUDA device;
 the file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -453,3 +453,53 @@ def test_service_on_card():
     assert errs["rt"] == 0.0
     for name, err in errs.items():
         assert err <= svc.sla.tier_tolerances[name], (name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_flash_head_dim_128_matches_plain(dtype):
+    """The dense prefill's route: causal flash at head dim 128 over KV
+    heads repeated to the query heads (GQA, G = 4), at lengths that end
+    inside a 16-row query block and a 64-key tile, and at 1024."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    rng = np.random.RandomState(12)
+    before = fa_ops.flash_attention.launches
+    for B, S, H, KV in ((2, 300, 8, 2), (1, 1024, 8, 8)):
+        q = _cuda(rng.randn(B, S, H, 128), tdt)
+        k, v = (_cuda(rng.randn(B, S, KV, 128), tdt).repeat_interleave(
+            H // KV, dim=2) for _ in range(2))
+        out = fa_ops.flash_attention(q, k, v, causal=True)
+        ref = fa_ops.flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        assert err < TOL[dtype], (B, S, H, err)
+    assert fa_ops.flash_attention.launches == before + 2
+
+
+def test_dense_on_card_matches_cpu():
+    """qwen3-4b at full width cut to 2 layers, f32 (TF32 off): the same
+    seeded parameters on both devices, a prompt of 2 x 300 tokens + 2
+    greedy decode steps (one causal flash launch per layer in the
+    prefill); logits <= 1e-4 relative, the same tokens."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-4b").replace(num_layers=2, dtype="float32",
+                                         param_dtype="float32")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(8)          # the CPU side at full width
+    try:
+        params = tfm.init_params(cfg, seed=0, device="cpu")
+        on_card = tfm.init_params(cfg, seed=0, device="cuda")
+        tok = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (2, 300)))
+        before = fa_ops.flash_attention.launches
+        card = generate(on_card, cfg, {"tokens": tok}, 2, device="cuda")
+        assert fa_ops.flash_attention.launches == before + cfg.num_layers
+        cpu = generate(params, cfg, {"tokens": tok}, 2, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    rel = float((card.logits.cpu() - cpu.logits).abs().max()
+                / cpu.logits.abs().max())
+    assert rel <= 1e-4, rel
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)

@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module, and
 ``chip_smoke.py``, loads neither JAX nor anything of the ``repro``
 package, and the entry points refuse to fall back to the CPU."""
+import argparse
 import subprocess
 import sys
 from pathlib import Path
@@ -53,6 +54,7 @@ def test_port_sources_name_no_reference_import():
 def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
+    from repro_torch.configs import ShapeConfig, get_smoke_config
     from repro_torch.configs.capsim import smoke_config
     from repro_torch.core import predictor
     from repro_torch.core import standardize as std_mod
@@ -60,6 +62,9 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.core.rt_cache import RTCache
     from repro_torch.core.simulate import capsim_simulate_multicore
     from repro_torch.isa import multicore
+    from repro_torch.launch import serve
+    from repro_torch.launch.specs import random_batch
+    from repro_torch.models import transformer as tfm
     from repro_torch.serving import PredictorEngine, SimulationService
     cfg = smoke_config()
     params = predictor.init_params(cfg, device="cpu")
@@ -76,6 +81,21 @@ def test_entry_points_raise_without_a_card():
                   lambda: SimulationService(params, cfg)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
+    # the LM zoo's dense decoders
+    for arch in ("olmo-1b", "qwen3-4b", "internlm2-20b", "nemotron-4-15b"):
+        lm = get_smoke_config(arch)
+        lm_params = tfm.init_params(lm, device="cpu")
+        batch = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
+        for call in (lambda: tfm.init_params(lm),
+                     lambda: tfm.init_cache(lm, 1, 8),
+                     lambda: serve.generate(lm_params, lm, batch, 1),
+                     lambda: random_batch(lm, ShapeConfig("p", 4, 1,
+                                                          "prefill"),
+                                          "prefill"),
+                     lambda: serve.serve_lm(argparse.Namespace(
+                         arch=arch, device="cuda", decode_steps=1))):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -295,25 +295,32 @@ def test_service_nan_demotes_then_repromotes(params):
 def test_service_watchdog_aborts_stuck_flush(params):
     """A flush stuck on every rung ends in a typed failure, each attempt
     cut by the watchdog long before the stall ends; once the fault stops
-    the service serves again without a restart.  The stall outlasts every
-    attempt (6 x 0.8 s), and the abandoned threads are joined at the end:
-    a thread killed inside a torch call at exit aborts the process."""
-    slow = 6.0
+    the service serves again without a restart.  The clock starts at
+    submit and is bounded by the watchdog's own arithmetic: at most
+    rungs + 2 attempts (the service's cap) of ``watchdog_s`` each, plus
+    MARGIN for the backend rebuilt between attempts on a loaded host.
+    The stall (30 s, as the reference's test) outlasts that bound, and
+    the abandoned threads are joined at the end: a thread killed inside
+    a torch call at exit aborts the process."""
+    slow, watchdog_s, margin = 30.0, 0.8, 15.0
     inj = FaultInjector({"slow_flush": 1.0}, slow_seconds=slow)
-    t0 = time.time()
-    svc = _service(params, _sla(watchdog_s=0.8, check_every=0),
+    svc = _service(params, _sla(watchdog_s=watchdog_s, check_every=0),
                    fault_injector=inj)
     with svc:
+        max_attempts = len(svc.tier_stats) + 2
+        bound = max_attempts * watchdog_s + margin
+        assert bound < slow
+        t0 = time.monotonic()
         res = svc.submit(_req(0, n=1)).result(timeout=120)
         assert res.status == "failed"
         assert "watchdog" in res.error
-        assert time.time() - t0 < slow
+        assert time.monotonic() - t0 < bound
         trips = sum(t.watchdog_trips for t in svc.tier_stats)
         assert trips >= len(svc.tier_stats)       # every rung, then capped
         assert svc.snapshot().abandoned_flush_threads_total == trips
         inj.set_enabled(False)
         assert svc.submit(_req(1, n=1)).result(timeout=600).ok
-    assert svc.join_abandoned(timeout=60) == 0
+    assert svc.join_abandoned(timeout=slow + 60) == 0
     assert svc.snapshot().abandoned_flush_threads == 0
 
 

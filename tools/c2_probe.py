@@ -22,6 +22,14 @@ batch it prints:
     the unique rows encoded in one pass of that many rows (whether one
     chunking for both passes makes them agree bitwise).
 
+Then C2's other half: whether a clip's prediction depends on the bucket
+its batch was padded to.  The same 8 clips of each benchmark, padded with
+the engine's zero rows (``BatchedPredictor.drain``) to buckets of 8, 32,
+64, 128 and 256, through ``forward_cached`` (unfused) and
+``forward_cached_fused`` at fp32 and bf16: per rung, the largest per-clip
+relative difference from the bucket-8 batch (the service's spot-check
+measure), and whether every bucket is bitwise bucket 8.
+
 Needs the card and the CUDA toolkit (the kernels build at first use).
 """
 from __future__ import annotations
@@ -172,7 +180,62 @@ def main() -> int:
             d = float((r[inv_t] - m).abs().max())
             same.append(f"chunks of {n} rows: {d:.2e}")
         print("  both passes in chunks of n rows: " + ", ".join(same))
+        bucket_rungs(params, cfg, tok, ctx, mask)
     return 0
+
+
+BUCKETS = (8, 32, 64, 128, 256)
+
+
+def bucket_rungs(params, cfg, tok, ctx, mask, n: int = 8) -> dict:
+    """The first ``n`` clips padded with zero rows to each bucket, at
+    fp32 and bf16, unfused and fused.  Prints and returns {(precision,
+    fused): max per-clip rel difference from bucket ``n`` over the
+    buckets}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import predictor as pm
+    from repro_torch.core import standardize as std_mod
+    from repro_torch.core.rt_cache import RTCache
+
+    worst = {}
+    for precision in ("fp32", "bf16"):
+        rcfg = pm.inference_config(cfg, precision)
+        cache = RTCache(params, rcfg, 16, device="cuda")
+        idx = cache.index_clips(tok[:n])
+        plan = pm.serving_plan(params, cache.table, rcfg)
+        for fused in (False, True):
+            preds = {}
+            for b in BUCKETS:
+                def pad(a):
+                    return np.concatenate(
+                        [a, np.zeros((b - n,) + a.shape[1:], a.dtype)])
+                dev = {"rt_idx": torch.as_tensor(pad(idx), device="cuda"),
+                       "clip_mask": torch.as_tensor(pad(mask[:n]),
+                                                    device="cuda")}
+                if fused:
+                    uniq, counts = std_mod.dedupe_context_tokens(
+                        pad(ctx[:n]))
+                    dev["ctx_uniq"] = torch.as_tensor(uniq, device="cuda")
+                    dev["ctx_count"] = torch.as_tensor(counts,
+                                                       device="cuda")
+                    out = pm.forward_cached_fused(params, plan, dev, rcfg)
+                else:
+                    dev["context_tokens"] = torch.as_tensor(
+                        pad(ctx[:n]), device="cuda")
+                    out = pm.forward_cached(params, cache.table, dev, rcfg)
+                preds[b] = out[:n].float()
+            ref = preds[BUCKETS[0]]
+            rels = {b: float(((p - ref).abs() / ref.abs().clamp(min=1.0))
+                             .max()) for b, p in preds.items()}
+            bitwise = all(torch.equal(p, ref) for p in preds.values())
+            worst[(precision, fused)] = max(rels.values())
+            print(f"  c2 buckets {precision} {'fused' if fused else 'unfused'}"
+                  f": per-clip rel vs bucket {BUCKETS[0]}: " + ", ".join(
+                      f"{b} {r:.3e}" for b, r in rels.items())
+                  + f"; all bitwise {bitwise}")
+    return worst
 
 
 if __name__ == "__main__":
