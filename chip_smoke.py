@@ -172,6 +172,41 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               2·B·H·D·S·(S+1) FLOPs), beside the kernel's device time
               without the mask (twice the work: the causal grid's
               imbalance is what the causal time exceeds half of it by).
+ 13. moe      the LM zoo's MoE and hybrid models at full width in bf16
+              through ``generate``, B=4 x 4096 tokens + 16 greedy decode
+              steps, cut from prefill_32k in batch and length only:
+              llama4-maverick's super-block (a dense layer, then 128
+              experts top-1), kimi-k2's layer (384 experts top-8, head dim
+              112) and jamba's super-block (7 SSM + 1 attention layer, 4
+              MoE FFNs, 4 of its 16 experts).  Each model is initialized
+              on the card (its seconds printed) and freed before the next.
+              Every launch counter reset just before each run and read
+              just after: one causal flash launch per attention layer and
+              one SSD launch per SSM layer (2/0, 1/0, 1/7), no weighted
+              attention.  Reported: prefill tokens/s, decode ms/step beside
+              the HBM time of the weights a step reads (the dense (E, cap,
+              d) buffer runs every expert), peak memory, each MoE layer's
+              tokens per expert (min, max) and dropped share, and the
+              profiler's device-busy time, idle share and top kernels of
+              one prefill and one decode step.  Before it: causal flash at
+              (1, 4096, 40 / 64 / 64, 128 / 112 / 128) and the SSD scan at
+              (1, 4096, 256, 64, 128) against their plain versions
+              (phase 3's tolerances).  After it, f32 card vs CPU (B=2 x
+              300 + 2 decode steps): llama4's super-block at full width
+              with 8 experts, and jamba's at widths cut by 8 with its 16
+              experts; every routing flip must be a near tie (the two
+              experts' CPU router scores within 1e-5 relative), logits
+              <= 1e-4 relative over the batch entries without one; on the
+              card, llama4's prefill(300) + one decode step ==
+              prefill(301)'s last row <= 1e-4 over the entries that
+              neither prefill dropped a token of, or whose last token
+              prefill(301) kept (the MoE layer is the super-block's last
+              op, so a drop changes only its own row); bf16 card vs CPU and
+              kernel vs plain of both models reported with their flips,
+              not enforced (a flipped top-1 choice replaces a token's
+              whole FFN output).
+              Then causal flash and the SSD scan timed at the path shapes
+              in bf16 like phase 4 (SDPA ``is_causal`` beside flash).
 
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (the
@@ -180,6 +215,7 @@ attention entries also carry their main shape's bfloat16 numbers as
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -240,6 +276,33 @@ DENSE_GATE_LAYERS, DENSE_GATE_BATCH, DENSE_GATE_PROMPT = 2, 2, 300
 # D): checked against the plain version at batch 1, timed at B
 FA_DENSE = (("qwen3_prefill", 4, 4096, 32, 128),
             ("olmo_prefill", 2, 2048, 16, 128))
+# the LM zoo's MoE and hybrid models at full width in bf16, cut from
+# prefill_32k in batch and length only: (arch, layers, experts (None:
+# the config's), flash label, SSD label); llama4-maverick's super-block
+# (a dense layer, then an MoE layer of 128 experts, top-1), kimi-k2's
+# layer (384 experts, top-8) and jamba's super-block (7 SSM + 1
+# attention layer, 4 MoE FFNs) with 4 of its 16 experts: 16 would hold
+# 77 GB in one super-block.  Then greedy decode steps
+MOE_RUNS = (("llama4-maverick-400b-a17b", 2, None, "llama4_prefill", None),
+            ("kimi-k2-1t-a32b", 1, None, "kimi_prefill", None),
+            ("jamba-1.5-large-398b", 8, 4, "jamba_prefill", "jamba_ssd"))
+MOE_BATCH, MOE_PROMPT, MOE_DECODE = 4, 4096, 16
+# the card-vs-CPU checks in f32: B x prompt (+ 2 decode steps); a routing
+# flip passes only as a near tie (the two experts' CPU router scores
+# within FLIP_REL relative); jamba's widths cut by 8 (32 SSD heads of 64,
+# 8 heads x 128 over 1 KV head), its 16 experts kept
+MOE_GATE_BATCH, MOE_GATE_PROMPT = 2, 300
+FLIP_REL = 1e-5
+JAMBA_CUT = dict(d_model=1024, num_heads=8, num_kv_heads=1, head_dim=128,
+                 d_ff=3072)
+# causal flash at the MoE prefills' attention shapes (label, B, S, H, D;
+# kimi-k2's head dim 112 runs zero-padded on D=128) and the SSD scan at
+# jamba's (label, Bt, S, H, P, N, chunk): checked against the plain
+# versions at batch 1, timed at B
+FA_MOE = (("llama4_prefill", 4, 4096, 40, 128),
+          ("kimi_prefill", 4, 4096, 64, 112),
+          ("jamba_prefill", 4, 4096, 64, 128))
+SSD_JAMBA = ("jamba_ssd", 4, 4096, 256, 64, 128, 256)
 
 
 def require(ok: bool, what: str) -> None:
@@ -1832,14 +1895,22 @@ def check_mamba2_bf16(torch):
     chunk).  Gated as the CPU test gates the port against JAX: the last
     row's logits on the card lie within half of the port's own bf16-vs-
     f32 gap (on the CPU) of the CPU's, and each layer fed the CPU's input
-    stays within 1e-3 (relative norm) of the CPU's output."""
+    stays within 1e-3 (relative norm) of the CPU's output.  The
+    parameters are the ones the gate was set on (C4): drawn from a CPU
+    generator in sorted key order (``layers.init_from_specs``, the LM
+    zoo's init before its counter hash).  On the counter hash's draw of
+    the same seed layer 0 reads 1.028e-3, 0.990e-3 of it with the SSD
+    scan's plain version on the card (``tools/mamba2_bf16_probe.py
+    --init hash``): cuBLAS's bf16 products, not the kernel."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import init_from_specs
 
     cfg = get_config("mamba2-780m").replace(num_layers=MAMBA2_GATE_LAYERS)
     f32 = cfg.replace(dtype="float32", param_dtype="float32")
     V = cfg.vocab_size
-    p32 = tfm.init_params(f32, seed=2, device="cpu")
+    p32 = init_from_specs(tfm.model_specs(f32), torch.Generator().manual_seed(
+        2), "float32", torch.device("cpu"))
     p16 = cast_params(p32, tfm.model_specs(cfg), torch.bfloat16)
     p16_card, p32_card = _to(p16, "cuda"), _to(p32, "cuda")
     tok = torch.randint(0, V, (MAMBA2_GATE_BATCH, MAMBA2_GATE_PROMPT),
@@ -1857,9 +1928,9 @@ def check_mamba2_bf16(torch):
     x = tfm._embed_tokens(p16, tok, cfg)
     per_layer = []
     for r in range(cfg.num_layers):
-        y_cpu, _ = tfm._block_forward(tfm._index(p16["blocks"], r)["i0"], x,
+        y_cpu, *_ = tfm._block_forward(tfm._index(p16["blocks"], r)["i0"], x,
                                       cfg, "prefill", None)
-        y_card, _ = tfm._block_forward(
+        y_card, *_ = tfm._block_forward(
             tfm._index(p16_card["blocks"], r)["i0"], x.cuda(), cfg,
             "prefill", None)
         per_layer.append(rel_norm(y_card.cpu(), y_cpu))
@@ -2149,6 +2220,426 @@ def check_dense_cpu(torch, fa_ops):
             f"{gap}")
 
 
+# --------------------------------------------------------------------- #
+# the LM zoo's MoE and hybrid models
+# --------------------------------------------------------------------- #
+
+@contextlib.contextmanager
+def record_routing(moe_mod):
+    """Route every MoE call a second time, just before it runs, and keep
+    ((B, S), Routing) in call order."""
+    seen, run = [], moe_mod.moe_forward
+
+    def recorded(params, x, cfg):
+        seen.append((tuple(x.shape[:2]), moe_mod.route(
+            params["router"], x.reshape(-1, x.shape[-1]),
+            cfg.experts_per_token, cfg.capacity_factor)))
+        return run(params, x, cfg)
+    moe_mod.moe_forward = recorded
+    try:
+        yield seen
+    finally:
+        moe_mod.moe_forward = run
+
+
+def moe_cfg(get_config, arch, layers, experts=None, **kw):
+    cfg = get_config(arch).replace(num_layers=layers, **kw)
+    return cfg.replace(num_experts=experts) if experts else cfg
+
+
+def card_qkv(torch, gen, B, S, H, D, dtype):
+    """q, k, v of (B, S, H, D), drawn on the card."""
+    return [torch.randn(B, S, H, D, generator=gen, device="cuda",
+                        dtype=dtype) for _ in range(3)]
+
+
+def check_moe_kernels(torch, fa_ops, ssd_ops):
+    """Causal flash at the MoE models' attention shapes and the SSD scan
+    at jamba's (batch 1), kernel vs plain version in both dtypes.
+    Returns {kernel: {dtype: max abs err}}."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    errs = {"flash_attention": {}, "ssd": {}}
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        tol = F32_TOL if dtype == "float32" else BF16_TOL
+        errs["flash_attention"][dtype] = 0.0
+        for (label, _, S, H, D) in FA_MOE:
+            q, k, v = card_qkv(torch, gen, 1, S, H, D, tdt)
+            out = fa_ops.flash_attention(q, k, v, causal=True)
+            ref = fa_ops.flash_attention_plain(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            print(f"kernel flash_attention {label:16s} {dtype:8s} B=1 "
+                  f"Sq=Skv={S} H={H} D={D} causal=True max_abs_err="
+                  f"{err:.3e}")
+            require(err <= tol, f"flash_attention {label} {dtype} err {err}")
+            errs["flash_attention"][dtype] = max(
+                errs["flash_attention"][dtype], err)
+            del q, k, v, out, ref
+        label, _, S, H, P, N, q = SSD_JAMBA
+        args = ssd_inputs(torch, torch.Generator().manual_seed(9), 1, S, H,
+                          P, N, tdt)
+        y, st = ssd_ops.ssd_scan(*args, chunk=q)
+        yp, sp = ssd_ops.ssd_scan_plain(*args, chunk=q)
+        torch.cuda.synchronize()
+        ey, es = rel_err(y, yp), rel_err(st, sp)
+        abs_err = float(max((y.float() - yp.float()).abs().max(),
+                            (st - sp).abs().max()))
+        print(f"kernel ssd {label:16s} {dtype:8s} Bt=1 S={S} H={H} P={P} "
+              f"N={N} chunk={q} rel_err_y={ey:.3e} rel_err_state={es:.3e} "
+              f"max_abs_err={abs_err:.3e}")
+        require(ey <= SSD_TOL[dtype] and es <= SSD_STATE_TOL[dtype],
+                f"ssd {label} {dtype}: rel err y {ey} state {es}")
+        errs["ssd"][dtype] = abs_err
+        del args, y, st, yp, sp
+    torch.cuda.empty_cache()
+    return errs
+
+
+def time_moe_kernels(torch, fa_ops, ssd_ops, launches):
+    """Causal flash at the MoE models' prefill shapes and the SSD scan at
+    jamba's, bf16 (their dtype): kernel (events and profiler), plain
+    version, SDPA ``is_causal`` for flash, the bounds.  ``launches``
+    {label: launches per prefill on the MoE path}."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows = {"flash_attention": [], "ssd": []}
+    dtype = "bfloat16"
+    for (label, B, S, H, D) in FA_MOE:
+        q, k, v = card_qkv(torch, gen, B, S, H, D, torch.bfloat16)
+        qt, kt, vt = [x.transpose(1, 2) for x in (q, k, v)]
+        row = {
+            "shape": label, "dtype": dtype,
+            "launches_per_prefill": launches[label],
+            "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(
+                q, k, v, causal=True), iters=10),
+            "device_ms": device_ms(torch, lambda: fa_ops.flash_attention(
+                q, k, v, causal=True), iters=5),
+            "plain_ms": cuda_ms(torch, lambda: fa_ops.flash_attention_plain(
+                q, k, v, causal=True), iters=3, warmup=1, rounds=2),
+            "library_ms": cuda_ms(torch, lambda:
+                                  F.scaled_dot_product_attention(
+                                      qt, kt, vt, is_causal=True), iters=10),
+        }
+        row["bound_ms"], row["bound_by"] = bound(B, S, S, H, D, dtype, False,
+                                                 causal=True)
+        print(f"time flash_attention {label:16s} {dtype:8s} B={B} S={S} "
+              f"H={H} D={D} causal kernel_ms={row['ms']:.4f} device_ms="
+              f"{row['device_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} (sdpa is_causal) "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+              f"bound_share={row['bound_ms'] / row['ms']:.3f} "
+              f"launches_per_prefill={row['launches_per_prefill']}")
+        rows["flash_attention"].append(row)
+        del q, k, v, qt, kt, vt
+    label, Bt, S, H, P, N, q = SSD_JAMBA
+    args = ssd_inputs(torch, torch.Generator().manual_seed(11), Bt, S, H, P,
+                      N, torch.bfloat16)
+    row = {"shape": label, "dtype": dtype,
+           "launches_per_prefill": launches[label],
+           "ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan(*args, chunk=q),
+                         iters=10, warmup=2),
+           "plain_ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan_plain(
+               *args, chunk=q), iters=3, warmup=1, rounds=1),
+           "library_ms": None}
+    parts = device_breakdown(torch, lambda: ssd_ops.ssd_scan(*args, chunk=q))
+    row["device_ms"] = sum(parts.values())
+    row["bound_ms"], row["bound_by"] = ssd_bound(Bt, S, H, P, N, q, dtype)
+    print(f"time ssd {label:16s} {dtype:8s} Bt={Bt} S={S} H={H} P={P} N={N} "
+          f"kernel_ms={row['ms']:.4f} device_ms={row['device_ms']:.4f} "
+          f"plain_ms={row['plain_ms']:.4f} library_ms=none bound_ms="
+          f"{row['bound_ms']:.4f} ({row['bound_by']}) bound_share="
+          f"{row['bound_ms'] / row['ms']:.4f} launches_per_prefill="
+          f"{row['launches_per_prefill']}; device ms per kernel: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+    rows["ssd"].append(row)
+    del args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def routing_stats(what: str, calls, n_exp: int) -> None:
+    """Per MoE call: tokens per expert (min, max: routed (token, slot)
+    pairs, before the capacity) and the dropped share of the pairs."""
+    for i, ((B, S), r) in enumerate(calls):
+        counts = r.idx.reshape(-1).bincount(minlength=n_exp)
+        print(f"{what} moe layer {i}: {B * S} tokens x top-"
+              f"{r.idx.shape[1]} over {n_exp} experts, capacity {r.cap}; "
+              f"tokens per expert min {int(counts.min())} max "
+              f"{int(counts.max())}; dropped share "
+              f"{float((~r.keep).float().mean()):.4f}")
+
+
+def check_moe(torch, fa_ops, wa_ops, ssd_ops):
+    """Each of MOE_RUNS at full width in bf16 through ``generate``, every
+    launch counter reset just before the run and read just after (one
+    causal flash launch per attention layer and one SSD launch per SSM
+    layer in the prefill, none in decode); then its routing over one more
+    prefill, and one prefill and one decode step under the profiler.
+    Returns ({label: launches per prefill}, {kernel: total launches})."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.specs import random_batch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+
+    per_prefill, total = {}, {"flash_attention": 0, "ssd": 0}
+    for arch, layers, experts, label, ssd_label in MOE_RUNS:
+        cfg = moe_cfg(get_config, arch, layers, experts)
+        V, E = cfg.vocab_size, cfg.num_experts
+        mixers = [m for m, _ in cfg.pattern()] * cfg.num_repeats
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tfm.init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        leaves = list(_leaves(params))
+        n_params = sum(t.numel() for t in leaves)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        expert_bytes = sum(
+            t.numel() * t.element_size()
+            for blk in params["blocks"].values() if "router" in
+            blk.get("ffn", {}) for n, t in blk["ffn"].items() if n != "router")
+        print(f"moe {arch} config: layers={cfg.num_layers} pattern="
+              f"{'/'.join(f'{m}+{f}' for m, f in cfg.pattern())} d_model="
+              f"{cfg.d_model} heads={cfg.num_heads} kv_heads="
+              f"{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} "
+              f"experts={E} (config {get_config(arch).num_experts}) top-"
+              f"{cfg.experts_per_token} capacity_factor="
+              f"{cfg.capacity_factor} vocab={V} padded="
+              f"{tfm.padded_vocab(cfg)} {cfg.dtype} params={n_params} "
+              f"({nbytes / 1e9:.2f} GB, experts {expert_bytes / 1e9:.2f} GB; "
+              f"init {t_init:.2f} s on the card); batch {MOE_BATCH} x "
+              f"{MOE_PROMPT} tokens + {MOE_DECODE} decode steps "
+              "(prefill_32k's 32 x 32768 cut in batch and length only)")
+        batch = random_batch(cfg, ShapeConfig(f"prefill_{MOE_PROMPT}",
+                                              MOE_PROMPT, MOE_BATCH,
+                                              "prefill"), "prefill",
+                             seed=0, device="cuda")
+        # warm-up (cuBLAS handles, lazy modules), not counted
+        generate(params, cfg, {"tokens": batch["tokens"][:1, :256]}, 1)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.flash_attention.launches = 0
+        wa_ops.weighted_attention.launches = 0
+        ssd_ops.ssd_scan.launches = 0
+        g = generate(params, cfg, batch, MOE_DECODE)
+        n = (fa_ops.flash_attention.launches, ssd_ops.ssd_scan.launches,
+             wa_ops.weighted_attention.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expect = (mixers.count("attn"), mixers.count("ssm"), 0)
+        print(f"moe {arch} launches: flash={n[0]} ssd={n[1]} weighted="
+              f"{n[2]} (per prefill, expected {expect})")
+        require(n == expect, f"moe {arch}: launches (flash, ssd, weighted) "
+                f"{n}, expected {expect}")
+        per_prefill[label] = n[0]
+        if ssd_label:
+            per_prefill[ssd_label] = n[1]
+        total["flash_attention"] += n[0]
+        total["ssd"] += n[1]
+        step_ms = 1e3 * g.decode_seconds / MOE_DECODE
+        print(f"moe {arch} bfloat16: prefill {g.prefill_seconds:.4f} s = "
+              f"{MOE_BATCH * MOE_PROMPT / g.prefill_seconds:.1f} tokens/s; "
+              f"decode {step_ms:.3f} ms/step (batch {MOE_BATCH}); peak "
+              f"memory {peak:.2f} GiB (parameters included); a decode step "
+              f"reads every expert (the dense (E, cap, d) buffer): "
+              f"{1e3 * expert_bytes / HBM_BYTES_PER_S:.3f} ms of HBM time for "
+              f"the experts, {1e3 * nbytes / HBM_BYTES_PER_S:.3f} ms for all "
+              f"weights at 3.35 TB/s; first tokens {g.tokens[0, :6].tolist()}")
+        require(bool(torch.isfinite(g.logits.float()).all()),
+                f"moe {arch}: non-finite logits")
+        require(tuple(g.logits.shape) == (MOE_BATCH, MOE_DECODE + 1,
+                                          tfm.padded_vocab(cfg)),
+                f"moe {arch}: logits shape {tuple(g.logits.shape)}")
+        require(int(g.tokens.max()) < V,
+                f"moe {arch}: decoded a padded vocab column")
+        with record_routing(moe_mod) as calls:
+            logits, _ = tfm.prefill_step(params, batch, cfg)
+        del logits
+        routing_stats(f"moe {arch} prefill", calls, E)
+        del calls
+        (logits, cache), *prof = device_profile(
+            torch, lambda: tfm.prefill_step(params, batch, cfg))
+        print_profile(f"moe {arch} bfloat16 prefill", *prof)
+        del logits
+        cache = tfm.place_caches(cfg, cache, MOE_PROMPT + 1)
+        _, *prof = device_profile(torch, lambda: tfm.decode_step(
+            params, {"tokens": g.tokens[:, :1]}, cfg, cache, MOE_PROMPT))
+        print_profile(f"moe {arch} bfloat16 decode step", *prof)
+        del params, cache, g, batch, prof
+        torch.cuda.empty_cache()
+    return per_prefill, total
+
+
+def routing_flips(what: str, card_calls, cpu_calls):
+    """The tokens whose top-k experts differ between the card's calls and
+    the CPU's.  Each differing slot must be a near tie on the CPU: its
+    two experts' router scores within FLIP_REL relative.  Returns (number
+    of flipped tokens, the batch entries that hold one)."""
+    flips, entries = 0, set()
+    require(len(card_calls) == len(cpu_calls), f"{what}: MoE calls differ")
+    for (shape, rc), (_, rp) in zip(card_calls, cpu_calls):
+        a, b = rc.idx.cpu(), rp.idx
+        diff = a != b
+        for t, j in diff.nonzero().tolist():
+            sa = float(rp.scores[t, a[t, j]])
+            sb = float(rp.scores[t, b[t, j]])
+            rel = abs(sa - sb) / max(abs(sa), abs(sb))
+            print(f"{what}: token {t} slot {j} expert {int(a[t, j])} on the "
+                  f"card, {int(b[t, j])} on the CPU; CPU scores {sa:.7g} / "
+                  f"{sb:.7g}, rel {rel:.3e}")
+            require(rel < FLIP_REL, f"{what}: a routing flip that is not a "
+                    f"near tie (rel {rel})")
+        flipped = diff.any(-1)
+        flips += int(flipped.sum())
+        entries |= set(flipped.reshape(shape).any(-1).nonzero()
+                       .flatten().tolist())
+    return flips, entries
+
+
+def dropped_entries(calls):
+    """Batch entries with a (token, slot) over capacity in any call."""
+    out = set()
+    for shape, r in calls:
+        out |= set((~r.keep).reshape(shape + (-1,)).any(-1).any(-1)
+                   .nonzero().flatten().cpu().tolist())
+    return out
+
+
+def moe_prefill_vs_decode(torch, tfm, moe_mod, p_card, cfg, tok, arch):
+    """On the card: prefill(S) + one decode step vs prefill(S + 1)'s last
+    row, <= 1e-4 relative.  The entries that neither prefill dropped a
+    token of compare; so does an entry whose last token prefill(S + 1)
+    kept when the model's one MoE layer is its last op: a drop there
+    changes only its own token's row, and the decode step drops
+    nothing."""
+    V, S = cfg.vocab_size, tok.shape[1] - 1
+    with record_routing(moe_mod) as long_calls:
+        long, _ = tfm.prefill_step(p_card, {"tokens": tok.cuda()}, cfg)
+    with record_routing(moe_mod) as short_calls:
+        _, cache = tfm.prefill_step(p_card, {"tokens": tok[:, :S].cuda()},
+                                    cfg)
+    cache = tfm.place_caches(cfg, cache, S + 1)
+    step, _ = tfm.decode_step(p_card, {"tokens": tok[:, -1:].cuda()}, cfg,
+                              cache, S)
+    require(cfg.pattern()[-1][1] == "moe" and len(long_calls) == 1,
+            f"moe prefill vs decode: {arch}'s MoE layer is not its last")
+    dropped = dropped_entries(long_calls) | dropped_entries(short_calls)
+    strict = [b for b in range(tok.shape[0]) if b not in dropped]
+    (shape, r), = long_calls
+    kept = r.keep.reshape(shape + (-1,))[:, -1].all(-1).tolist()
+    clean = [b for b in range(tok.shape[0]) if kept[b]]
+    n_long = int(sum((~r.keep).sum() for _, r in long_calls))
+    n_short = int(sum((~r.keep).sum() for _, r in short_calls))
+    print(f"moe prefill({S}) + decode vs prefill({S + 1}) on the card "
+          f"({arch}): dropped pairs {n_short} / {n_long}; entries without a "
+          f"drop {strict}, entries whose last token prefill({S + 1}) kept "
+          f"{clean}", end="")
+    require(bool(clean), "moe prefill vs decode: every entry's last token "
+            "dropped; nothing to compare")
+    rel_pd = live_rel(step[clean, 0], long[clean, -1], V)
+    rel_strict = (f"{live_rel(step[strict, 0], long[strict, -1], V):.3e}"
+                  if strict else "none")
+    print(f": rel {rel_pd:.3e} (over the entries without a drop: "
+          f"{rel_strict})")
+    require(rel_pd <= 1e-4, f"moe prefill vs decode rel {rel_pd}")
+
+
+def report_moe_bf16(torch, fa_ops, tfm, moe_mod, p_cpu, cfg, prompt, arch):
+    """bf16 last-row logits, reported and not enforced: card vs CPU, and
+    the flash kernel vs its plain version on the card, each with the
+    tokens the two runs routed otherwise."""
+    V = cfg.vocab_size
+    p16 = cast_params(p_cpu, tfm.model_specs(cfg), torch.bfloat16)
+    p16_card = _to(p16, "cuda")
+
+    def last(p, device):
+        with record_routing(moe_mod) as calls:
+            logits, _ = tfm.prefill_step(p, {"tokens": prompt.to(device)},
+                                         cfg)
+        return logits[:, -1, :V].float().cpu(), calls
+    card16, card_calls = last(p16_card, "cuda")
+    kernel = fa_ops.flash_attention
+    fa_ops.flash_attention = fa_ops.flash_attention_plain
+    try:
+        plain16, plain_calls = last(p16_card, "cuda")
+    finally:
+        fa_ops.flash_attention = kernel
+    cpu16, cpu_calls = last(p16, "cpu")
+
+    def routed_otherwise(a, b):
+        return sum(int((ra.idx.cpu() != rb.idx.cpu()).any(-1).sum())
+                   for (_, ra), (_, rb) in zip(a, b))
+    print(f"moe bf16 ({arch}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_experts} experts, B={prompt.shape[0]} x "
+          f"{prompt.shape[1]} tokens; reported, not enforced): last-row "
+          f"logits card vs CPU {rel_norm(card16, cpu16):.3e} (tokens routed "
+          f"otherwise {routed_otherwise(card_calls, cpu_calls)}); flash "
+          f"kernel vs its plain version on the card "
+          f"{rel_norm(card16, plain16):.3e} (routed otherwise "
+          f"{routed_otherwise(card_calls, plain_calls)})")
+
+
+def check_moe_cpu(torch, fa_ops):
+    """f32 (TF32 off), the same seeded parameters on the card and through
+    the port's CPU path (drawn on the card: the counter-hash init gives
+    the CPU's bits), B=MOE_GATE_BATCH x MOE_GATE_PROMPT + 2 decode
+    steps.  llama4-maverick at full width cut to its super-block with 8
+    experts, and jamba's super-block at widths cut by 8: every routing
+    flip between the card and the CPU must be a near tie, and logits
+    agree <= 1e-4 relative over the batch entries without a flip.  On the
+    card, llama4's prefill(S) + one decode step against prefill(S + 1)
+    (``moe_prefill_vs_decode``).  bf16, both models: card vs CPU and
+    flash kernel vs plain, reported with their flips."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+
+    gates = (("llama4-maverick-400b-a17b", moe_cfg(
+        get_config, "llama4-maverick-400b-a17b", 2, 8)),
+             ("jamba-1.5-large-398b", moe_cfg(
+                 get_config, "jamba-1.5-large-398b", 8, None, **JAMBA_CUT)))
+    for arch, cfg in gates:
+        t0 = time.perf_counter()
+        f32 = cfg.replace(dtype="float32", param_dtype="float32")
+        V = cfg.vocab_size
+        p_card = tfm.init_params(f32, seed=1, device="cuda")
+        p_cpu = _to(p_card, "cpu")
+        tok = torch.randint(0, V, (MOE_GATE_BATCH, MOE_GATE_PROMPT + 1),
+                            generator=torch.Generator().manual_seed(3))
+        prompt = tok[:, :MOE_GATE_PROMPT]
+        with record_routing(moe_mod) as card_calls:
+            card = generate(p_card, f32, {"tokens": prompt}, 2,
+                            device="cuda")
+        with record_routing(moe_mod) as cpu_calls:
+            cpu = generate(p_cpu, f32, {"tokens": prompt}, 2, device="cpu")
+        what = f"moe card vs CPU ({arch}, f32)"
+        flips, flipped = routing_flips(what, card_calls, cpu_calls)
+        keep = [b for b in range(MOE_GATE_BATCH) if b not in flipped]
+        require(bool(keep), f"{what}: every batch entry holds a flip")
+        rel = live_rel(card.logits.cpu()[keep], cpu.logits[keep], V)
+        print(f"{what}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.num_experts} experts top-{cfg.experts_per_token}, "
+              f"B={MOE_GATE_BATCH} x {MOE_GATE_PROMPT} tokens + 2 decode "
+              f"steps ({time.perf_counter() - t0:.1f} s): routing flips "
+              f"{flips} (entries {sorted(flipped)}); logits rel {rel:.3e} "
+              f"over entries {keep}; dropped (token, slot) pairs in the "
+              f"prefill {int(sum((~r.keep).sum() for _, r in card_calls))}; "
+              f"tokens equal {torch.equal(card.tokens.cpu(), cpu.tokens)}")
+        require(rel <= 1e-4, f"{what}: logits rel {rel}")
+        del card_calls, cpu_calls, card, cpu
+        if arch == "llama4-maverick-400b-a17b":
+            moe_prefill_vs_decode(torch, tfm, moe_mod, p_card, f32, tok,
+                                  arch)
+        del p_card
+        report_moe_bf16(torch, fa_ops, tfm, moe_mod, p_cpu, cfg, prompt,
+                        arch)
+        del p_cpu
+        torch.cuda.empty_cache()
+
+
 def device_profile(torch, fn, top: int = 5):
     """Run ``fn`` once under ``torch.profiler``.  Returns (its result, wall
     s, device busy s = the sum of the kernels' device times, the port's
@@ -2288,6 +2779,18 @@ def main() -> int:
     check_dense_cpu(torch, fa_ops)
     rows["flash_attention"] += time_dense_flash(torch, fa_ops, per_prefill)
     phase("dense")
+    for name, kernel_errs in check_moe_kernels(torch, fa_ops,
+                                               ssd_ops).items():
+        for dtype, err in kernel_errs.items():
+            errs[name][dtype] = max(errs[name][dtype], err)
+    per_prefill, moe_launches = check_moe(torch, fa_ops, wa_ops, ssd_ops)
+    for name, n in moe_launches.items():
+        launches[name] += n
+    check_moe_cpu(torch, fa_ops)
+    for name, moe_rows in time_moe_kernels(torch, fa_ops, ssd_ops,
+                                           per_prefill).items():
+        rows[name] += moe_rows
+    phase("moe")
     print("phases: " + ", ".join(f"{name} {sec:.1f} s"
                                  for name, sec in phase_s.items()))
 

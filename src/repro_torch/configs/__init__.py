@@ -2,20 +2,23 @@
 
 The LM zoo's ``ArchConfig`` keeps the reference's layer-schedule helpers
 and the fields that the ported paths read: the stack, the embedding and
-norms, the Mamba2 mixer, the attention mixer (heads, ``qk_norm``, RoPE)
-and the dense FFN's activation.  The MoE-routing, M-RoPE, sliding-window,
-frontend and shape-list fields come with the slice that ports their
-code.  Also left out: the implementation selectors (``attn_impl``,
-``ssm_impl``: the port always calls its kernels' wrappers, which launch
-the CUDA kernel on a CUDA tensor and run the plain PyTorch version on a
-CPU tensor), the XLA execution knobs (``remat``, ``scan_layers``,
-``attn_chunk``) and the CAPSim predictor extras, whose config is
-``configs/capsim.py``.
+norms, the Mamba2 mixer, the attention mixer (heads, ``qk_norm``, RoPE),
+the dense FFN's activation and the MoE FFN's routing (experts, top-k,
+capacity factor, the interleave).  The M-RoPE, sliding-window, frontend
+and shape-list fields come with the slice that ports their code.  Also
+left out: the implementation selectors (``attn_impl``, ``ssm_impl``: the
+port always calls its kernels' wrappers, which launch the CUDA kernel on
+a CUDA tensor and run the plain PyTorch version on a CPU tensor), the XLA
+execution knobs (``remat``, ``scan_layers``, ``attn_chunk``) and the
+CAPSim predictor extras, whose config is ``configs/capsim.py``.
 
 ``get_config``/``get_smoke_config`` resolve ``--arch`` names.  ``capsim``,
-``mamba2-780m`` and the dense decoders (``olmo-1b``, ``qwen3-4b``,
-``internlm2-20b``, ``nemotron-4-15b``) are ported; the other zoo names
-raise ``NotImplementedError`` naming their ROADMAP port-queue item.
+``mamba2-780m``, the dense decoders (``olmo-1b``, ``qwen3-4b``,
+``internlm2-20b``, ``nemotron-4-15b``) and the MoE and hybrid models
+(``kimi-k2-1t-a32b``, ``llama4-maverick-400b-a17b``,
+``jamba-1.5-large-398b``) are ported; ``qwen2-vl-2b`` and
+``musicgen-large`` raise ``NotImplementedError`` naming their ROADMAP
+port-queue item.
 """
 from __future__ import annotations
 
@@ -53,10 +56,12 @@ class ArchConfig:
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // num_heads
 
-    # --- MoE (only the layer schedule reads these) ---
+    # --- MoE ---
     num_experts: int = 0
+    experts_per_token: int = 0
     moe_every: int = 1               # MoE FFN on layers with (i % moe_every == moe_offset)
     moe_offset: int = 0
+    capacity_factor: float = 1.25
 
     # --- SSM / hybrid ---
     ssm_state: int = 0               # Mamba2 d_state (0 -> no ssm layers)
@@ -124,12 +129,13 @@ class ArchConfig:
 
 _PORTED = {"capsim": "capsim", "mamba2-780m": "mamba2_780m",
            "nemotron-4-15b": "nemotron_4_15b", "qwen3-4b": "qwen3_4b",
-           "internlm2-20b": "internlm2_20b", "olmo-1b": "olmo_1b"}
-# zoo names whose path waits for ROADMAP port-queue item 1: 1b the MoE FFN
-# and the hybrid schedule, 1c the modality frontends and codebooks
-_NOT_PORTED = {"jamba-1.5-large-398b": "1b", "kimi-k2-1t-a32b": "1b",
-               "llama4-maverick-400b-a17b": "1b", "qwen2-vl-2b": "1c",
-               "musicgen-large": "1c"}
+           "internlm2-20b": "internlm2_20b", "olmo-1b": "olmo_1b",
+           "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+           "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+           "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b"}
+# zoo names whose path waits for ROADMAP port-queue item 1c, the modality
+# frontends and codebooks
+_NOT_PORTED = {"qwen2-vl-2b": "1c", "musicgen-large": "1c"}
 ARCH_NAMES = tuple(_PORTED) + tuple(_NOT_PORTED)
 
 

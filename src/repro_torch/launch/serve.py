@@ -14,10 +14,12 @@ requests through the fault-tolerant ``SimulationService`` (deadlines,
 watchdog, degradation ladder; ``--faults`` injects chaos on the real
 path).  ``--metrics-port`` serves Prometheus text at ``/metrics``,
 ``--trace-out`` writes a Chrome/Perfetto trace and ``--flight-dir`` keeps
-the service's demotion postmortems.  ``--arch mamba2-780m`` and the dense
+the service's demotion postmortems.  ``--arch mamba2-780m``, the dense
 decoders (``olmo-1b``, ``qwen3-4b``, ``internlm2-20b``,
-``nemotron-4-15b``) run the LM zoo's prefill + greedy decode loop
-(``generate``) on the smoke config, as the reference does.  ``--device``
+``nemotron-4-15b``) and the MoE and hybrid models (``kimi-k2-1t-a32b``,
+``llama4-maverick-400b-a17b``, ``jamba-1.5-large-398b``) run the LM zoo's
+prefill + greedy decode loop (``generate``) on the smoke config, as the
+reference does.  ``--device``
 defaults to ``cuda``; ``--device cpu`` runs the kernels' plain versions.
 """
 from __future__ import annotations
@@ -251,7 +253,9 @@ def generate(params: dict, cfg, batch: dict, decode_steps: int,
     decode steps against the prefill's caches (the reference's
     ``serve_lm`` loop).  Attention caches are first placed into decode
     caches of ``S + decode_steps`` positions; an SSM cache does not grow
-    with the sequence and is used as it is."""
+    with the sequence and is used as it is (a hybrid holds both).  An MoE
+    layer's capacity counts the tokens of each call: the prefill's B·S,
+    then each decode step's B."""
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as tfm
 
@@ -300,8 +304,10 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="capsim",
                     help="capsim (the engine), or mamba2-780m, olmo-1b, "
-                         "qwen3-4b, internlm2-20b or nemotron-4-15b (LM "
-                         "prefill + greedy decode on the smoke config)")
+                         "qwen3-4b, internlm2-20b, nemotron-4-15b, "
+                         "kimi-k2-1t-a32b, llama4-maverick-400b-a17b or "
+                         "jamba-1.5-large-398b (LM prefill + greedy decode "
+                         "on the smoke config)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")

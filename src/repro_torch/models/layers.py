@@ -5,12 +5,15 @@ Ports ``repro/models/layers.py:20-169``.  A ``ParamSpec`` tree describes
 the parameters; ``init_from_specs`` materializes it as a nested dict of
 tensors with the reference's shapes and init rule.  Dense weights keep
 the reference's ``(d_in, d_out)`` layout (not ``nn.Linear``'s
-``(out, in)``), so ``params_from_numpy``/``params_to_numpy`` move a
+``(out, in)``), whether drawn by ``init_from_specs`` (a generator on the
+CPU: the CAPSim predictor) or ``init_from_seed`` (a counter hash on the
+device: the LM zoo), so ``params_from_numpy``/``params_to_numpy`` move a
 parameter tree between the packages unchanged.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Optional, Tuple
 
@@ -68,6 +71,77 @@ def init_from_specs(specs, generator: torch.Generator, param_dtype: str,
         return w.to(device=device, dtype=dt)
     return {k: init_from_specs(specs[k], generator, param_dtype, device)
             for k in sorted(specs)}
+
+
+# a 64-bit counter hash (splitmix64's finalizer) in int64 tensor ops:
+# multiplication wraps, and each right shift is masked to a logical one
+_GOLDEN, _MIX1, _MIX2 = (c - (1 << 64) for c in (
+    0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB))
+_NORMAL_BITS = 16
+_CHUNK = 1 << 24
+
+
+def _normal_quantiles(device: torch.device) -> torch.Tensor:
+    """The 2^16 standard-normal quantiles at (j + 0.5) / 2^16, f32
+    (|z| <= 4.32)."""
+    n = 1 << _NORMAL_BITS
+    u = (torch.arange(n, dtype=torch.float64) + 0.5) / n
+    return torch.special.ndtri(u).float().to(device)
+
+
+def _leaf_key(seed: int, path: str) -> int:
+    digest = hashlib.blake2b(f"{seed}/{path}".encode(), digest_size=8)
+    return int.from_bytes(digest.digest(), "little", signed=True)
+
+
+def _seeded_normal(out: torch.Tensor, key: int, std: float,
+                   table: torch.Tensor) -> None:
+    """Fill ``out`` with normal·std: element i takes the quantile that the
+    top 16 bits of hash(i, key) pick, times std in f32, cast to out's
+    dtype.  Integer ops, a gather and one f32 product are exact on every
+    device, so the CPU and the card give the same bits."""
+    flat = out.view(-1)
+    z = torch.empty(min(_CHUNK, flat.numel()), dtype=torch.int64,
+                    device=out.device)
+    tmp = torch.empty_like(z)
+    for lo in range(0, flat.numel(), _CHUNK):
+        hi = min(lo + _CHUNK, flat.numel())
+        zc, tc = z[:hi - lo], tmp[:hi - lo]
+        torch.arange(lo, hi, out=zc)
+        zc.mul_(_GOLDEN).add_(key)
+        for shift, mul in ((30, _MIX1), (27, _MIX2), (31, None)):
+            torch.bitwise_right_shift(zc, shift, out=tc)
+            zc.bitwise_xor_(tc.bitwise_and_((1 << (64 - shift)) - 1))
+            if mul is not None:
+                zc.mul_(mul)
+        zc.bitwise_right_shift_(64 - _NORMAL_BITS)
+        zc.bitwise_and_((1 << _NORMAL_BITS) - 1)
+        flat[lo:hi] = table[zc].mul_(std)
+
+
+def init_from_seed(specs, seed: int, param_dtype: str,
+                   device: torch.device):
+    """Materialize a spec tree on ``device`` by the rule of
+    ``init_from_specs``, with normal·std drawn by a counter hash of
+    (seed, the leaf's path, the element's index) instead of a generator:
+    every element is drawn on the device on its own, and a seed gives the
+    same bits on every device.  Each draw is one of 2^16 normal quantiles
+    (|z| <= 4.32), finer than a bfloat16 parameter resolves.  The LM zoo's
+    init (``transformer.init_params``)."""
+    table = _normal_quantiles(device)
+
+    def build(s, path: str):
+        if not isinstance(s, ParamSpec):
+            return {k: build(s[k], f"{path}/{k}") for k in sorted(s)}
+        dt = torch_dtype(s.dtype or param_dtype)
+        if s.std == 0.0:
+            return torch.zeros(s.shape, dtype=dt, device=device)
+        if s.std < 0:
+            return torch.ones(s.shape, dtype=dt, device=device)
+        out = torch.empty(s.shape, dtype=dt, device=device)
+        _seeded_normal(out, _leaf_key(seed, path), s.std, table)
+        return out
+    return build(specs, "")
 
 
 def params_from_numpy(tree, device: DeviceLike = "cuda") -> dict:

@@ -5,11 +5,12 @@ pass in its three modes, and the prefill/decode steps.
 One model definition driven by ``ArchConfig``: the per-layer schedule
 ``cfg.pattern()`` gives each layer of a super-block its mixer and FFN, and
 the stack runs ``num_repeats`` super-blocks (a Python loop over the stacked
-layer parameters where the reference scans).  Ported so far: the SSM
-mixer (Mamba2), the attention mixer (``models/attention.py``) and the
-dense FFN.  The MoE FFN raises ``NotImplementedError`` (ROADMAP port queue
-item 1b); the modality frontends and multi-codebook heads come with the
-configs that use them (item 1c).  ``loss_fn`` is training (item 7).
+layer parameters where the reference scans).  Ported: the SSM mixer
+(Mamba2), the attention mixer (``models/attention.py``), the dense FFN
+and the top-k MoE FFN (``models/moe.py``), in any schedule the config
+gives (jamba's super-block mixes all four).  The modality frontends and
+multi-codebook heads come with the configs that use them (ROADMAP port
+queue item 1c).  ``loss_fn`` is training (item 7).
 
 Decode writes each attention layer's new key and value into the caches
 it is given, in place, and returns those caches; an SSM layer's new
@@ -25,19 +26,12 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as ssm_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamSpec, activation, dense_spec,
-                                       init_from_specs, norm, norm_spec,
+                                       init_from_seed, norm, norm_spec,
                                        specs_with_leading_stack, torch_dtype)
 
 NEG_LOGIT = -1e30
-
-
-def _check_ported(cfg) -> None:
-    for _, ffn in cfg.pattern():
-        if ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: the moe FFN is not ported yet (ROADMAP port "
-                "queue item 1b, the LM zoo's MoE and hybrid models)")
 
 
 # --------------------------------------------------------------------------- #
@@ -59,6 +53,9 @@ def _block_specs(cfg, mixer: str, ffn: str) -> dict:
     if ffn == "dense":
         specs["norm2"] = norm_spec(cfg)
         specs["ffn"] = _ffn_specs(cfg)
+    elif ffn == "moe":
+        specs["norm2"] = norm_spec(cfg)
+        specs["ffn"] = moe_mod.moe_specs(cfg)
     return specs
 
 
@@ -71,7 +68,6 @@ def padded_vocab(cfg) -> int:
 
 
 def model_specs(cfg) -> dict:
-    _check_ported(cfg)
     d, V = cfg.d_model, padded_vocab(cfg)
     specs: dict = {"embed": ParamSpec((V, d), std=1.0 / math.sqrt(d))}
     specs["blocks"] = {
@@ -88,7 +84,6 @@ def cache_specs(cfg, batch: int, max_seq: int) -> dict:
     """Stacked per-layer decode caches (leading num_repeats dim): the
     attention KV cache (B, max_seq, KV, Dh), or the SSM cache, which does
     not grow with the sequence."""
-    _check_ported(cfg)
     return {f"i{j}": specs_with_leading_stack(
         attn_mod.init_cache_specs(cfg, batch, max_seq) if mixer == "attn"
         else ssm_mod.init_ssm_cache_specs(cfg, batch), cfg.num_repeats)
@@ -97,12 +92,11 @@ def cache_specs(cfg, batch: int, max_seq: int) -> dict:
 
 def init_params(cfg, seed: int = 0, device: DeviceLike = "cuda") -> dict:
     """Seeded random parameters by the reference's spec rule (zeros for
-    the norm scales, ones for ``A_log``/``D``, normal·std), drawn on the
-    CPU from a ``torch.Generator`` so a seed gives the same parameters on
-    every device (not the reference's numbers)."""
-    dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
-    return init_from_specs(model_specs(cfg), gen, cfg.param_dtype, dev)
+    the norm scales, ones for ``A_log``/``D``, normal·std), drawn on
+    ``device`` by ``layers.init_from_seed``: a seed gives the same
+    parameters on every device (not the reference's numbers)."""
+    return init_from_seed(model_specs(cfg), seed, cfg.param_dtype,
+                          resolve_device(device))
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype: Optional[str] = None,
@@ -121,8 +115,8 @@ def init_cache(cfg, batch: int, max_seq: int, dtype: Optional[str] = None,
 def place_caches(cfg, caches: dict, max_seq: int) -> dict:
     """A prefill's caches as decode caches of ``max_seq`` positions: each
     attention layer's (R, B, S, KV, Dh) k/v copied to positions [0, S) of
-    a zero cache (the reference's ``serve_lm`` placement); SSM caches as
-    they are."""
+    a zero cache (the reference's ``serve_lm`` placement); SSM caches (a
+    hybrid's too) as they are."""
     out = dict(caches)
     for j, (mixer, _) in enumerate(cfg.pattern()):
         if mixer != "attn":
@@ -149,9 +143,11 @@ def _embed_tokens(params, tokens, cfg):
 
 def _block_forward(bparams, x, cfg, mode, cache, positions=None,
                    cache_pos=None, kind=None):
-    """One layer: pre-norm mixer and residual, then (dense FFN) pre-norm
-    FFN and residual.  ``kind`` is its (mixer, ffn), by default the
-    schedule's first; ``positions`` and ``cache_pos`` feed attention."""
+    """One layer: pre-norm mixer and residual, then (dense or MoE FFN)
+    pre-norm FFN and residual.  ``kind`` is its (mixer, ffn), by default
+    the schedule's first; ``positions`` and ``cache_pos`` feed attention.
+    Returns (x, new cache, lb, z): the MoE FFN's auxiliary losses, f32
+    zeros for another layer."""
     mixer, ffn = kind or cfg.pattern()[0]
     h = norm(x, bparams["norm1"], cfg)
     if mixer == "attn":
@@ -161,7 +157,12 @@ def _block_forward(bparams, x, cfg, mode, cache, positions=None,
         y, new_cache = ssm_mod.ssm_forward(bparams["mixer"], h, cfg, mode,
                                            cache)
     x = x + y
-    if ffn == "dense":
+    lb = z = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == "moe":
+        y, lb, z = moe_mod.moe_forward(bparams["ffn"],
+                                       norm(x, bparams["norm2"], cfg), cfg)
+        x = x + y
+    elif ffn == "dense":
         h = norm(x, bparams["norm2"], cfg)
         p = bparams["ffn"]
         up = h @ p["w_up"]
@@ -170,7 +171,7 @@ def _block_forward(bparams, x, cfg, mode, cache, positions=None,
         else:
             a = activation(up, cfg.activation)
         x = x + a @ p["w_down"]
-    return x, new_cache
+    return x, new_cache, lb, z
 
 
 def _index(tree, r: int):
@@ -187,26 +188,31 @@ def _stack(trees: list):
 def _stack_forward(params, x, cfg, mode: str, caches=None, positions=None,
                    cache_pos=None):
     """Run the ``num_repeats`` super-blocks in order; returns (x, stacked
-    new caches or None).  In decode an attention layer's cache is a view
-    of ``caches``, updated in place, so those stay as they are."""
+    new caches or None, lb, z), the MoE losses summed over the layers in
+    order.  In decode an attention layer's cache is a view of ``caches``,
+    updated in place, so those stay as they are."""
     pattern = cfg.pattern()
     per_repeat = []
+    lb_sum = z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.num_repeats):
         bparams = _index(params["blocks"], r)
         bcaches = None if caches is None else _index(caches, r)
         new_caches = {}
         for j, kind in enumerate(pattern):
             cache_j = None if bcaches is None else bcaches[f"i{j}"]
-            x, nc = _block_forward(bparams[f"i{j}"], x, cfg, mode, cache_j,
-                                   positions, cache_pos, kind)
+            x, nc, lb, z = _block_forward(bparams[f"i{j}"], x, cfg, mode,
+                                          cache_j, positions, cache_pos,
+                                          kind)
             new_caches[f"i{j}"] = nc
+            lb_sum = lb_sum + lb
+            z_sum = z_sum + z
         per_repeat.append(new_caches)
     if mode == "train":
-        return x, None
+        return x, None, lb_sum, z_sum
     return x, {f"i{j}": caches[f"i{j}"]
                if mode == "decode" and mixer == "attn"
                else _stack([c[f"i{j}"] for c in per_repeat])
-               for j, (mixer, _) in enumerate(pattern)}
+               for j, (mixer, _) in enumerate(pattern)}, lb_sum, z_sum
 
 
 def _logits(params, x, cfg):
@@ -219,12 +225,12 @@ def _logits(params, x, cfg):
 
 
 def forward(params, batch, cfg, mode: str, caches=None, cache_pos=None):
-    """Returns (logits, new_caches).  batch: {'tokens': (B, S) int}.
+    """Returns (logits, new_caches, lb_loss, z_loss), as the reference:
+    the MoE layers' load-balance and router z losses summed over the
+    layers (f32 zeros without MoE).  batch: {'tokens': (B, S) int}.
     Positions are ``arange(S)`` for train/prefill and ``cache_pos`` (the
     decode position, an int) for decode; the SSM cache does not read
-    them.  The reference's auxiliary MoE losses are zero without MoE and
-    are not returned."""
-    _check_ported(cfg)
+    them."""
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
     B, S = tokens.shape
@@ -233,15 +239,20 @@ def forward(params, batch, cfg, mode: str, caches=None, cache_pos=None):
                                device=tokens.device)
     else:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x, new_caches = _stack_forward(params, x, cfg, mode, caches, positions,
-                                   cache_pos)
+    x, new_caches, lb, z = _stack_forward(params, x, cfg, mode, caches,
+                                          positions, cache_pos)
     x = norm(x, params["final_norm"], cfg)
-    return _logits(params, x, cfg), new_caches
+    return _logits(params, x, cfg), new_caches, lb, z
 
 
 def prefill_step(params, batch, cfg):
-    return forward(params, batch, cfg, "prefill")
+    """(logits, caches), as the reference's."""
+    logits, caches, _, _ = forward(params, batch, cfg, "prefill")
+    return logits, caches
 
 
 def decode_step(params, batch, cfg, caches, cache_pos):
-    return forward(params, batch, cfg, "decode", caches, cache_pos)
+    """(logits, caches), as the reference's."""
+    logits, caches, _, _ = forward(params, batch, cfg, "decode", caches,
+                                   cache_pos)
+    return logits, caches

@@ -1,8 +1,9 @@
 """The port on the card: each CUDA kernel against its plain version, and
 the engine (single-core and multicore, sampled, and its RT store's
-restart), the serving layer, the Mamba2 LM and the dense decoders on the
-card against the same code on the CPU.  Every test here is marked ``gpu`` and skips without a CUDA device;
-the file imports no JAX, so it runs on a machine that has only PyTorch:
+restart), the serving layer, the Mamba2 LM, the dense decoders and the
+MoE and hybrid models on the card against the same code on the CPU.
+Every test here is marked ``gpu`` and skips without a CUDA device; the
+file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -499,6 +500,48 @@ def test_dense_on_card_matches_cpu():
         cpu = generate(params, cfg, {"tokens": tok}, 2, device="cpu")
     finally:
         torch.set_num_threads(threads)
+    rel = float((card.logits.cpu() - cpu.logits).abs().max()
+                / cpu.logits.abs().max())
+    assert rel <= 1e-4, rel
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", v
+
+
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "kimi-k2-1t-a32b", "jamba-1.5-large-398b"])
+def test_moe_on_card_matches_cpu(arch):
+    """The MoE and hybrid smoke models, f32 (TF32 off): one seed gives
+    the same parameters on the card as on the CPU, bit for bit (bf16
+    too); prefill over 40 tokens + 3 greedy decode steps (one causal
+    flash launch per attention layer and one SSD launch per SSM layer in
+    the prefill; jamba's hybrid caches placed); logits <= 1e-4 relative,
+    the same tokens."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    for c in (cfg, cfg.replace(dtype="bfloat16", param_dtype="bfloat16")):
+        cpu_init = dict(_leaves(tfm.init_params(c, seed=0, device="cpu")))
+        card_init = dict(_leaves(tfm.init_params(c, seed=0, device="cuda")))
+        assert cpu_init.keys() == card_init.keys()
+        for name, a in cpu_init.items():          # one seed, one init
+            assert torch.equal(a, card_init[name].cpu()), name
+    params = tfm.init_params(cfg, seed=0, device="cpu")
+    on_card = tfm.init_params(cfg, seed=0, device="cuda")
+    tok = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 40)))
+    mixers = [m for m, _ in cfg.pattern()] * cfg.num_repeats
+    before = (fa_ops.flash_attention.launches, ssd_ops.ssd_scan.launches)
+    card = generate(on_card, cfg, {"tokens": tok}, 3, device="cuda")
+    assert fa_ops.flash_attention.launches == before[0] + mixers.count("attn")
+    assert ssd_ops.ssd_scan.launches == before[1] + mixers.count("ssm")
+    cpu = generate(params, cfg, {"tokens": tok}, 3, device="cpu")
     rel = float((card.logits.cpu() - cpu.logits).abs().max()
                 / cpu.logits.abs().max())
     assert rel <= 1e-4, rel

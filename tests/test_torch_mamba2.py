@@ -90,10 +90,9 @@ def test_configs_match_the_reference():
     assert tcfgs.get_config("capsim").name == "capsim"
 
 
-@pytest.mark.parametrize("name", ["kimi-k2-1t-a32b",
-                                  "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("name", ["qwen2-vl-2b", "musicgen-large"])
 def test_unported_archs_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="port queue item 1"):
+    with pytest.raises(NotImplementedError, match="port queue item 1c"):
         tcfgs.get_config(name)
     with pytest.raises(KeyError):
         tcfgs.get_config("no-such-arch")
@@ -321,7 +320,7 @@ def test_bf16_logits_differ_from_jax_only_by_silu_rounding(monkeypatch):
     for r in range(L):
         bj = jax.tree.map(lambda a: a[r], jp["blocks"])["i0"]
         xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).bfloat16()
-        yt, _ = tt._block_forward(tt._index(tp["blocks"], r)["i0"], xt, tb,
+        yt, *_ = tt._block_forward(tt._index(tp["blocks"], r)["i0"], xt, tb,
                                   "prefill", None)
         xj = jt._block_forward(bj, xj, None, jb, "ssm", "none", "prefill",
                                None, None)[0]

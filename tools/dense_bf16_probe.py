@@ -153,9 +153,9 @@ def main() -> int:
         for r in range(cfg.num_layers):
             lp_r = tfm._index(p16["blocks"], r)["i0"]
             lp_c = tfm._index(p16c["blocks"], r)["i0"]
-            y_cpu, _ = tfm._block_forward(lp_r, x, cfg, "prefill", None,
+            y_cpu, *_ = tfm._block_forward(lp_r, x, cfg, "prefill", None,
                                           pos)
-            y_card, _ = tfm._block_forward(lp_c, x.cuda(), cfg, "prefill",
+            y_card, *_ = tfm._block_forward(lp_c, x.cuda(), cfg, "prefill",
                                            None, pos.cuda())
             per_layer.append(rel(y_card, y_cpu))
             x = y_cpu

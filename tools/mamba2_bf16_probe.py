@@ -2,10 +2,12 @@
 """Where bf16 Mamba2 on the card parts from the port's CPU bf16 path.
 
     python3 tools/mamba2_bf16_probe.py [--layers 12] [--batch 2] [--prompt 300]
+                                       [--init generator|hash]
 
 The model of ``chip_smoke.py``'s bf16 gate: ``mamba2-780m`` cut to
-``--layers`` layers at full width, seeded float32 parameters cast to
-bfloat16 as the chip smoke test casts them (norms, A_log, dt_bias and D
+``--layers`` layers at full width, seeded float32 parameters (drawn as
+the gate draws them, or with ``--init hash`` as ``transformer.init_params``
+draws them) cast to bfloat16 as the chip smoke test casts them (norms, A_log, dt_bias and D
 stay float32), one prefill of ``--batch`` x ``--prompt`` seeded tokens.
 Prints, for each layer fed the CPU's input, the relative norm of the
 card's output against the CPU's: with the SSD kernel, and with the SSD
@@ -34,6 +36,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.layers import init_from_specs  # noqa: E402
 
 
 def rel_norm(a, b) -> float:
@@ -115,6 +118,11 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt", type=int, default=300)
+    ap.add_argument("--init", choices=("generator", "hash"),
+                    default="generator",
+                    help="the gate's parameters (a CPU generator, "
+                         "layers.init_from_specs) or the LM zoo's counter-"
+                         "hash init (transformer.init_params)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("mamba2_bf16_probe: needs a CUDA device", file=sys.stderr)
@@ -130,7 +138,12 @@ def main() -> int:
                                             param_dtype="bfloat16")
     f32 = cfg.replace(dtype="float32", param_dtype="float32")
     V = cfg.vocab_size
-    p32 = tfm.init_params(f32, seed=2, device="cpu")
+    if args.init == "hash":
+        p32 = tfm.init_params(f32, seed=2, device="cpu")
+    else:
+        p32 = init_from_specs(tfm.model_specs(f32),
+                              torch.Generator().manual_seed(2), "float32",
+                              torch.device("cpu"))
     p16 = cast_params(p32, tfm.model_specs(cfg), torch.bfloat16)
     card = to(p16, "cuda")
     tok = torch.randint(0, V, (args.batch, args.prompt),
@@ -143,15 +156,15 @@ def main() -> int:
     for r in range(cfg.num_layers):
         bp_cpu = tfm._index(p16["blocks"], r)["i0"]
         bp_card = tfm._index(card["blocks"], r)["i0"]
-        y_cpu, _ = tfm._block_forward(bp_cpu, x, cfg, "prefill", None)
+        y_cpu, *_ = tfm._block_forward(bp_cpu, x, cfg, "prefill", None)
         with RecordSSD() as rec:
-            y_k, _ = tfm._block_forward(bp_card, x.cuda(), cfg, "prefill",
+            y_k, *_ = tfm._block_forward(bp_card, x.cuda(), cfg, "prefill",
                                         None)
         with PlainSSD():
-            y_p, _ = tfm._block_forward(bp_card, x.cuda(), cfg, "prefill",
+            y_p, *_ = tfm._block_forward(bp_card, x.cuda(), cfg, "prefill",
                                         None)
         with FullReduction():
-            y_f, _ = tfm._block_forward(bp_card, x.cuda(), cfg, "prefill",
+            y_f, *_ = tfm._block_forward(bp_card, x.cuda(), cfg, "prefill",
                                         None)
         yn, ym, sn, sm = rec.rows[0]
         print(f"{r:5d}  {rel_norm(y_k, y_cpu):18.3e}  "
