@@ -49,7 +49,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               calls it; none exists for the SSD scan), beside the least
               time the card could take (bytes at 3.35 TB/s, operations at
               67 TFLOP/s float32 or 989 TFLOP/s bfloat16, the larger); the
-              SSD scan's device time per launch of its four kernels.  Then
+              SSD scan's device time per launch of its four kernels, from a
+              capture (after a warm-up step it drops) that holds each of
+              them once per call (a capture that lost launches is taken
+              again, at most twice, then fails the run).  Then
               each timing gate of this slice, with its verdict: the SSD
               scan's (bf16 <= 2.0 ms, f32 <= 4.5 ms) and weighted
               attention's at U=128 in bf16 (<= 0.10 ms) fail the run; the
@@ -139,7 +142,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               parameters on the card and through the port's CPU bf16 path,
               a prefill of 2 x 300 tokens: the last row's logits card vs
               CPU within half of the port's bf16-vs-f32 gap (on the CPU),
-              and each layer fed the CPU's input within 1e-3.
+              and each layer fed the CPU's input within 1e-3 (C4, on the
+              generator draw it was set on).  Then the same model on the
+              LM zoo's own draw (``transformer.init_params``, C6): each
+              layer fed the CPU's input, the SSD kernel's output against
+              the SSD scan's plain version on the same card run within
+              half of the port's bf16-vs-f32 gap at that layer; card vs CPU
+              per layer reported beside it.
  12. dense    the LM zoo's dense decoders at full width in bfloat16 (their
               own dtype), seeded random parameters, through ``generate``:
               qwen3-4b (36 layers, d_model 2560, 32 query / 8 KV heads x
@@ -207,6 +216,34 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               whole FFN output).
               Then causal flash and the SSD scan timed at the path shapes
               in bf16 like phase 4 (SDPA ``is_causal`` beside flash).
+ 14. frontends the LM zoo's frontend and codebook models whole (every
+              layer) at full width in bf16 through ``generate`` on
+              ``random_batch``'s prefill batch, B=4 x 4096 positions + 16
+              greedy decode steps, cut from prefill_32k in batch and length
+              only: qwen2-vl-2b (28 layers, d_model 1536, 12 query / 2 KV
+              heads x 128, M-RoPE over (3, B, S) positions, 256 vision
+              frontend embeddings + 3840 tokens, vocab 151936) and
+              musicgen-large (48 layers, d_model 2048, 32 heads x 64, GELU,
+              64 audio frontend embeddings + 4032 positions of 4 codebook
+              tokens, (B, S, 4, 2048) logits, per-codebook greedy decode).
+              Every launch counter reset just before each run and read
+              just after: one causal flash launch per layer (28 / 48), none
+              of another kernel.  Reported: init seconds, prefill
+              positions/s, decode ms/step, peak memory, and the profiler's
+              device-busy time, idle share and top kernels of one prefill
+              and one decode step.  Before it: causal flash at (1, 4096,
+              12, 128) and (1, 4096, 32, 64) against its plain version
+              (2e-5 / 2e-2 max abs).  After it, each model at full width
+              cut to 2 layers, B=2 x 300 positions (the frontend's first;
+              qwen2-vl fed three different position streams): f32 card vs
+              CPU logits <= 1e-4 relative with the same tokens (prefill + 2
+              decode steps), prefill(300) + one decode step ==
+              prefill(301)'s last row <= 1e-4 relative; bf16 last-row
+              logits with the flash kernel within half of the port's CPU
+              bf16-vs-f32 gap of the same card run with the attention's
+              plain version (card vs CPU in bf16 reported).  Then causal
+              flash timed at (4, 4096, 12, 128) and (4, 4096, 32, 64) in
+              bf16 like phase 13.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (the
@@ -250,6 +287,8 @@ FLASH_DEVICE_BEFORE = {("block_self", "bfloat16"): 0.1335,
                        ("block_self", "float32"): 0.6397,
                        ("block_cross", "float32"): 0.2448}
 SSD_GATE = {"bfloat16": 2.0, "float32": 4.5}
+# the SSD scan's kernels: one call launches each once
+SSD_KERNELS = 4
 # the sampled simulation: the README's CLI settings; Table II gives the
 # first two single-core benchmarks >= 6 checkpoints and 502.gcc one
 SAMPLING = dict(fraction=0.08, strata=4, min_clips_per_stratum=2,
@@ -303,6 +342,20 @@ FA_MOE = (("llama4_prefill", 4, 4096, 40, 128),
           ("kimi_prefill", 4, 4096, 64, 112),
           ("jamba_prefill", 4, 4096, 64, 128))
 SSD_JAMBA = ("jamba_ssd", 4, 4096, 256, 64, 128, 256)
+# the LM zoo's frontend and codebook models, whole (every layer) at full
+# width in bf16, cut from prefill_32k in batch and length only: (arch,
+# batch, positions), the frontend's embeddings the first frontend_len of
+# them (qwen2-vl 256, musicgen 64); then greedy decode steps.  The
+# card-vs-CPU checks: each cut to 2 layers at full width in f32, B x
+# positions + 2 decode steps
+FRONTEND_RUNS = (("qwen2-vl-2b", 4, 4096), ("musicgen-large", 4, 4096))
+FRONTEND_DECODE = 16
+FRONTEND_GATE_LAYERS, FRONTEND_GATE_BATCH, FRONTEND_GATE_POSITIONS = 2, 2, 300
+# causal flash at their prefills' attention shapes (label, B, S, H, D):
+# qwen2-vl's 2 KV heads repeated to its 12 query heads, musicgen's head
+# dim 64; checked against the plain version at batch 1, timed at B
+FA_FRONTENDS = (("qwen2vl_prefill", 4, 4096, 12, 128),
+                ("musicgen_prefill", 4, 4096, 32, 64))
 
 
 def require(ok: bool, what: str) -> None:
@@ -909,31 +962,46 @@ def ssd_bound(Bt, S, H, P, N, q, dtype: str):
                                        else "operations")
 
 
-def device_breakdown(torch, fn, iters: int = 5):
-    """Device ms per call of each port kernel ``fn`` launches (names in
-    the ``capsim_*`` namespaces), from ``torch.profiler``."""
+def device_breakdown(torch, fn, kernels: int, iters: int = 5):
+    """Device ms per call of each of the ``kernels`` port kernels (names
+    in the ``capsim_*`` namespaces) that one call of ``fn`` launches once
+    each, from ``torch.profiler``.  A capture counts as whole only when
+    it holds each of them ``iters`` times: one that lost launches would
+    read low, so it is taken again, at most twice, and then refused.  The
+    first launches of a capture can reach the profiler late (the first
+    call's first two kernels went missing at the Mamba2 shape), so each
+    capture records ``iters`` calls after a warm-up step of as many,
+    whose events the profiler's schedule drops."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    # a capture that records no device event at all is the profiler's
-    # fault, not the kernels': take another, at most twice (as device_ms)
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
+        ready = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: ready.append(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        out, counts = {}, {}
+        for e in (ready[-1] if ready else []):
             if e.device_type == DeviceType.CUDA and "capsim" in e.key:
                 name = re.sub(r"\(capsim_ssd::Args.*", "", e.key)
-                out[name.replace("capsim_ssd::", "").replace("void ", "")] \
-                    = e.self_device_time_total / iters / 1e3
-        if out:
+                name = name.replace("capsim_ssd::", "").replace("void ", "")
+                out[name] = e.self_device_time_total / iters / 1e3
+                counts[name] = e.count
+        whole = len(counts) == kernels and all(
+            n == iters for n in counts.values())
+        if whole:
             break
-        print("device_breakdown: the profiler recorded no kernel of the "
-              "port; capturing again")
-    require(bool(out), "the profiler saw no kernel of the port")
+        print(f"device_breakdown: a partial capture ({len(counts)} of "
+              f"{kernels} kernels, launches {sorted(counts.values())} where "
+              f"each should read {iters}); capturing again")
+    require(whole, f"device_breakdown: no whole capture in 3 ({counts})")
     return out
 
 
@@ -950,8 +1018,8 @@ def time_ssd(torch, ssd_ops):
                "plain_ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan_plain(
                    *args, chunk=q), iters=3, warmup=1, rounds=1),
                "library_ms": None}
-        parts = device_breakdown(torch, lambda: ssd_ops.ssd_scan(*args,
-                                                                chunk=q))
+        parts = device_breakdown(torch, lambda: ssd_ops.ssd_scan(
+            *args, chunk=q), SSD_KERNELS)
         row["device_ms"] = sum(parts.values())
         row["bound_ms"], row["bound_by"] = ssd_bound(Bt, S, H, P, N, q,
                                                      dtype)
@@ -1948,6 +2016,64 @@ def check_mamba2_bf16(torch):
             f"{max(per_layer)} > 1e-3")
 
 
+def check_mamba2_bf16_zoo(torch, ssd_ops):
+    """The bf16 SSD kernel on the parameters the LM zoo runs (C6): the
+    same model, batch and prompt as ``check_mamba2_bf16``, drawn by
+    ``transformer.init_params`` (the counter hash of seed 2).  Each layer
+    is fed the CPU's bf16 input and run on the card twice, with the SSD
+    kernel and with the SSD scan's plain version in its place (the same
+    cuBLAS products); the two outputs must lie within half of the port's
+    bf16-vs-f32 gap at that layer (on the CPU, the f32 layer fed the
+    same input), as ``check_dense_cpu`` holds the flash kernel.  Card vs
+    CPU per layer, with the kernel and with the plain version, is printed
+    beside it (layer 0 read 1.028e-3 and 0.990e-3 on this draw): the C4
+    gate's 1e-3 holds the draw it was set on."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("mamba2-780m").replace(num_layers=MAMBA2_GATE_LAYERS)
+    f32 = cfg.replace(dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    p16_card = tfm.init_params(cfg, seed=2, device="cuda")
+    p16 = _to(p16_card, "cpu")
+    p32 = _to(tfm.init_params(f32, seed=2, device="cuda"), "cpu")
+    tok = torch.randint(0, cfg.vocab_size,
+                        (MAMBA2_GATE_BATCH, MAMBA2_GATE_PROMPT),
+                        generator=torch.Generator().manual_seed(2))
+
+    def layer(params, r, x, c):
+        y, *_ = tfm._block_forward(tfm._index(params["blocks"], r)["i0"], x,
+                                   c, "prefill", None)
+        return y.cpu()
+    x = tfm._embed_tokens(p16, tok, cfg)
+    rows = []
+    kernel = ssd_ops.ssd_scan
+    for r in range(cfg.num_layers):
+        y_card = layer(p16_card, r, x.cuda(), cfg)
+        ssd_ops.ssd_scan = ssd_ops.ssd_scan_plain
+        try:
+            y_plain = layer(p16_card, r, x.cuda(), cfg)
+        finally:
+            ssd_ops.ssd_scan = kernel
+        y_cpu = layer(p16, r, x, cfg)
+        gap = rel_norm(y_cpu, layer(p32, r, x.float(), f32))
+        rows.append((rel_norm(y_card, y_plain), gap,
+                     rel_norm(y_card, y_cpu), rel_norm(y_plain, y_cpu)))
+        x = y_cpu
+    print(f"mamba2 bf16 zoo-draw gate ({cfg.num_layers} layers at full "
+          f"width, transformer.init_params seed 2, B={MAMBA2_GATE_BATCH} x "
+          f"{MAMBA2_GATE_PROMPT} tokens, {time.perf_counter() - t0:.1f} s): "
+          "per layer fed the CPU's input, SSD kernel vs its plain version "
+          "on the card / the port's bf16-vs-f32 gap on the CPU; card vs "
+          "CPU with the kernel / with the plain version (reported): "
+          + ", ".join(f"{i}: {k:.2e}/{g:.2e}; {c:.3e}/{p:.3e}"
+                      for i, (k, g, c, p) in enumerate(rows)))
+    for i, (k, g, _, _) in enumerate(rows):
+        require(k < 0.5 * g, f"mamba2 bf16 zoo draw layer {i}: SSD kernel "
+                f"vs its plain version on the card {k} >= half of the bf16 "
+                f"vs f32 gap {g}")
+
+
 # --------------------------------------------------------------------- #
 # the LM zoo's dense decoders
 # --------------------------------------------------------------------- #
@@ -1982,31 +2108,6 @@ def print_d128_ptxas(build) -> None:
             print(f"ptxas {lib} {found[0]}: registers "
                   f"{info.get('registers', '?')}, spill stores {stores} B, "
                   f"spill loads {loads} B")
-
-
-def check_dense_flash(torch, fa_ops):
-    """Causal flash at the dense prefills' head dim and heads (batch 1),
-    kernel vs plain version in both dtypes.  Returns {dtype: max abs
-    err}."""
-    gen = torch.Generator().manual_seed(6)
-    errs = {}
-    for dtype in ("float32", "bfloat16"):
-        tdt = getattr(torch, dtype)
-        tol = F32_TOL if dtype == "float32" else BF16_TOL
-        errs[dtype] = 0.0
-        for (label, _, S, H, D) in FA_DENSE:
-            q, k, v = make_qkv(torch, gen, 1, S, S, H, D, tdt)
-            out = fa_ops.flash_attention(q, k, v, causal=True)
-            ref = fa_ops.flash_attention_plain(q, k, v, causal=True)
-            torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            print(f"kernel flash_attention {label:16s} {dtype:8s} B=1 "
-                  f"Sq=Skv={S} H={H} D={D} causal=True max_abs_err="
-                  f"{err:.3e}")
-            require(err <= tol, f"flash_attention {label} {dtype} err {err}")
-            errs[dtype] = max(errs[dtype], err)
-            del q, k, v, out, ref
-    return errs
 
 
 def time_dense_flash(torch, fa_ops, launches):
@@ -2253,17 +2354,17 @@ def card_qkv(torch, gen, B, S, H, D, dtype):
                         dtype=dtype) for _ in range(3)]
 
 
-def check_moe_kernels(torch, fa_ops, ssd_ops):
-    """Causal flash at the MoE models' attention shapes and the SSD scan
-    at jamba's (batch 1), kernel vs plain version in both dtypes.
-    Returns {kernel: {dtype: max abs err}}."""
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    errs = {"flash_attention": {}, "ssd": {}}
+def check_causal_flash(torch, fa_ops, shapes, seed: int):
+    """Causal flash at each (label, B, S, H, D) of ``shapes`` at batch 1,
+    q/k/v drawn on the card, kernel vs plain version in both dtypes
+    (phase 3's tolerances).  Returns {dtype: max abs err}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    errs = {}
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
         tol = F32_TOL if dtype == "float32" else BF16_TOL
-        errs["flash_attention"][dtype] = 0.0
-        for (label, _, S, H, D) in FA_MOE:
+        errs[dtype] = 0.0
+        for (label, _, S, H, D) in shapes:
             q, k, v = card_qkv(torch, gen, 1, S, H, D, tdt)
             out = fa_ops.flash_attention(q, k, v, causal=True)
             ref = fa_ops.flash_attention_plain(q, k, v, causal=True)
@@ -2273,9 +2374,20 @@ def check_moe_kernels(torch, fa_ops, ssd_ops):
                   f"Sq=Skv={S} H={H} D={D} causal=True max_abs_err="
                   f"{err:.3e}")
             require(err <= tol, f"flash_attention {label} {dtype} err {err}")
-            errs["flash_attention"][dtype] = max(
-                errs["flash_attention"][dtype], err)
+            errs[dtype] = max(errs[dtype], err)
             del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_moe_kernels(torch, fa_ops, ssd_ops):
+    """Causal flash at the MoE models' attention shapes and the SSD scan
+    at jamba's (batch 1), kernel vs plain version in both dtypes.
+    Returns {kernel: {dtype: max abs err}}."""
+    errs = {"flash_attention": check_causal_flash(torch, fa_ops, FA_MOE, 8),
+            "ssd": {}}
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
         label, _, S, H, P, N, q = SSD_JAMBA
         args = ssd_inputs(torch, torch.Generator().manual_seed(9), 1, S, H,
                           P, N, tdt)
@@ -2296,16 +2408,16 @@ def check_moe_kernels(torch, fa_ops, ssd_ops):
     return errs
 
 
-def time_moe_kernels(torch, fa_ops, ssd_ops, launches):
-    """Causal flash at the MoE models' prefill shapes and the SSD scan at
-    jamba's, bf16 (their dtype): kernel (events and profiler), plain
-    version, SDPA ``is_causal`` for flash, the bounds.  ``launches``
-    {label: launches per prefill on the MoE path}."""
+def time_causal_flash(torch, fa_ops, shapes, launches, seed: int):
+    """Causal flash in bf16 at each (label, B, S, H, D) of ``shapes``:
+    kernel (events and profiler), plain version, SDPA ``is_causal`` (a
+    yardstick the port never calls) and the causal bound.  ``launches``
+    {label: launches per prefill on the path}.  Returns the rows."""
     import torch.nn.functional as F
-    gen = torch.Generator(device="cuda").manual_seed(10)
-    rows = {"flash_attention": [], "ssd": []}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
     dtype = "bfloat16"
-    for (label, B, S, H, D) in FA_MOE:
+    for (label, B, S, H, D) in shapes:
         q, k, v = card_qkv(torch, gen, B, S, H, D, torch.bfloat16)
         qt, kt, vt = [x.transpose(1, 2) for x in (q, k, v)]
         row = {
@@ -2330,8 +2442,21 @@ def time_moe_kernels(torch, fa_ops, ssd_ops, launches):
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
               f"bound_share={row['bound_ms'] / row['ms']:.3f} "
               f"launches_per_prefill={row['launches_per_prefill']}")
-        rows["flash_attention"].append(row)
+        rows.append(row)
         del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def time_moe_kernels(torch, fa_ops, ssd_ops, launches):
+    """Causal flash at the MoE models' prefill shapes and the SSD scan at
+    jamba's, bf16 (their dtype): kernel (events and profiler), plain
+    version, SDPA ``is_causal`` for flash, the bounds.  ``launches``
+    {label: launches per prefill on the MoE path}."""
+    rows = {"flash_attention": time_causal_flash(torch, fa_ops, FA_MOE,
+                                                 launches, 10),
+            "ssd": []}
+    dtype = "bfloat16"
     label, Bt, S, H, P, N, q = SSD_JAMBA
     args = ssd_inputs(torch, torch.Generator().manual_seed(11), Bt, S, H, P,
                       N, torch.bfloat16)
@@ -2342,7 +2467,8 @@ def time_moe_kernels(torch, fa_ops, ssd_ops, launches):
            "plain_ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan_plain(
                *args, chunk=q), iters=3, warmup=1, rounds=1),
            "library_ms": None}
-    parts = device_breakdown(torch, lambda: ssd_ops.ssd_scan(*args, chunk=q))
+    parts = device_breakdown(torch, lambda: ssd_ops.ssd_scan(*args, chunk=q),
+                             SSD_KERNELS)
     row["device_ms"] = sum(parts.values())
     row["bound_ms"], row["bound_by"] = ssd_bound(Bt, S, H, P, N, q, dtype)
     print(f"time ssd {label:16s} {dtype:8s} Bt={Bt} S={S} H={H} P={P} N={N} "
@@ -2640,6 +2766,220 @@ def check_moe_cpu(torch, fa_ops):
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# the LM zoo's frontend and codebook models
+# --------------------------------------------------------------------- #
+
+def check_frontends(torch, fa_ops, wa_ops, ssd_ops):
+    """Each of FRONTEND_RUNS whole at full width in bf16 through
+    ``generate`` on ``random_batch``'s prefill batch (tokens, the
+    frontend's embeddings, qwen2-vl's (3, B, S) positions), every launch
+    counter reset just before the run and read just after: one causal
+    flash launch per layer in the prefill, none of another kernel.  Then
+    one prefill and one decode step under the profiler.  Returns ({label:
+    flash launches per prefill}, total flash launches)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.specs import random_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import torch_dtype
+
+    per_prefill, total = {}, 0
+    for (arch, B, S), (label, *_) in zip(FRONTEND_RUNS, FA_FRONTENDS):
+        cfg = get_config(arch)
+        V, C, F = cfg.vocab_size, cfg.num_codebooks, cfg.frontend_len
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tfm.init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        leaves = list(_leaves(params))
+        n_params = sum(t.numel() for t in leaves)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        kv_bytes = sum(math.prod(spec.shape) for spec in _leaves(
+            tfm.cache_specs(cfg, B, S + FRONTEND_DECODE))) \
+            * torch_dtype(cfg.dtype).itemsize
+        print(f"frontends {arch} config: layers={cfg.num_layers} d_model="
+              f"{cfg.d_model} heads={cfg.num_heads} kv_heads="
+              f"{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} "
+              f"{cfg.activation} mrope_sections={cfg.mrope_sections} "
+              f"frontend={cfg.frontend} x {F} codebooks={C} vocab={V} "
+              f"padded={tfm.padded_vocab(cfg)} {cfg.dtype} params={n_params}"
+              f" ({nbytes / 1e9:.2f} GB; init {t_init:.2f} s on the card); "
+              f"batch {B} x {S} positions ({F} frontend + {S - F} token "
+              f"positions) + {FRONTEND_DECODE} decode steps, KV cache at "
+              f"{S + FRONTEND_DECODE} positions {kv_bytes / 1e9:.2f} GB "
+              "(prefill_32k's 32 x 32768 cut in batch and length only)")
+        batch = random_batch(cfg, ShapeConfig(f"prefill_{S}", S, B,
+                                              "prefill"), "prefill",
+                             seed=0, device="cuda")
+        # warm-up (cuBLAS handles, lazy modules), not counted
+        warm = random_batch(cfg, ShapeConfig("warm", F + 256, 1, "prefill"),
+                            "prefill", seed=1, device="cuda")
+        generate(params, cfg, warm, 1)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.flash_attention.launches = 0
+        wa_ops.weighted_attention.launches = 0
+        ssd_ops.ssd_scan.launches = 0
+        g = generate(params, cfg, batch, FRONTEND_DECODE)
+        n = (fa_ops.flash_attention.launches, ssd_ops.ssd_scan.launches,
+             wa_ops.weighted_attention.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expect = (cfg.num_layers, 0, 0)
+        print(f"frontends {arch} launches: flash={n[0]} ssd={n[1]} "
+              f"weighted={n[2]} (per prefill, expected {expect})")
+        require(n == expect, f"frontends {arch}: launches (flash, ssd, "
+                f"weighted) {n}, expected {expect}")
+        per_prefill[label] = n[0]
+        total += n[0]
+        carry = (f", each position carrying {C} codebook tokens" if C > 1
+                 else "")
+        print(f"frontends {arch} bfloat16: prefill {g.prefill_seconds:.4f} "
+              f"s = {B * S / g.prefill_seconds:.1f} positions/s ({F} "
+              f"frontend embeddings a sequence{carry}); decode "
+              f"{1e3 * g.decode_seconds / FRONTEND_DECODE:.3f} ms/step "
+              f"(batch {B}; all weights {1e3 * nbytes / HBM_BYTES_PER_S:.3f} "
+              f"ms of HBM time at 3.35 TB/s); peak memory {peak:.2f} GiB "
+              f"(parameters included); first tokens "
+              f"{g.tokens[0, :4].tolist()}")
+        require(bool(torch.isfinite(g.logits.float()).all()),
+                f"frontends {arch}: non-finite logits")
+        books = (C,) if C > 1 else ()
+        shape = (B, FRONTEND_DECODE + 1) + books + (tfm.padded_vocab(cfg),)
+        require(tuple(g.logits.shape) == shape,
+                f"frontends {arch}: logits shape {tuple(g.logits.shape)}, "
+                f"expected {shape}")
+        require(tuple(g.tokens.shape) == shape[:-1],
+                f"frontends {arch}: tokens shape {tuple(g.tokens.shape)}")
+        require(int(g.tokens.max()) < V,
+                f"frontends {arch}: decoded a padded vocab column")
+        (logits, cache), *prof = device_profile(
+            torch, lambda: tfm.prefill_step(params, batch, cfg))
+        print_profile(f"frontends {arch} bfloat16 prefill", *prof)
+        del logits
+        cache = tfm.place_caches(cfg, cache, S + 1)
+        _, *prof = device_profile(torch, lambda: tfm.decode_step(
+            params, {"tokens": g.tokens[:, :1]}, cfg, cache, S))
+        print_profile(f"frontends {arch} bfloat16 decode step", *prof)
+        del params, cache, g, batch, warm, prof
+        torch.cuda.empty_cache()
+    return per_prefill, total
+
+
+def frontend_gate_batch(torch, cfg, S: int):
+    """B=FRONTEND_GATE_BATCH x (S + 1) positions from ``random_batch``
+    (seed 3, on the CPU): the frontend's embeddings, then tokens.  With
+    M-RoPE, three different position streams (a permutation of the first
+    S positions each), and position S in all three at the last, the
+    position a decode step after a prefill of S takes."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.specs import random_batch
+
+    batch = random_batch(cfg, ShapeConfig("gate", S + 1, FRONTEND_GATE_BATCH,
+                                          "prefill"), "prefill", seed=3,
+                         device="cpu")
+    if cfg.mrope_sections:
+        gen = torch.Generator().manual_seed(3)
+        pos = torch.full((3, FRONTEND_GATE_BATCH, S + 1), S)
+        for i in range(3):
+            for b in range(FRONTEND_GATE_BATCH):
+                pos[i, b, :S] = torch.randperm(S, generator=gen)
+        batch["positions"] = pos
+    return batch
+
+
+def check_frontends_cpu(torch, fa_ops):
+    """Each frontend model at full width cut to FRONTEND_GATE_LAYERS
+    layers, the same seeded parameters on the card and through the
+    port's CPU path, FRONTEND_GATE_BATCH x FRONTEND_GATE_POSITIONS
+    positions (the frontend's embeddings first; qwen2-vl fed three
+    different position streams): f32 (TF32 off) prefill + 2 decode steps,
+    logits card vs CPU <= 1e-4 relative and the same tokens; prefill(S)
+    + one decode step == prefill(S + 1)'s last row on the card, <= 1e-4
+    relative.  bf16: the last row's logits with the flash kernel within
+    half of the port's CPU bf16-vs-f32 gap of the same card run with the
+    attention's plain version (``check_dense_cpu``'s gate); card vs CPU
+    in bf16 reported beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as tfm
+
+    S = FRONTEND_GATE_POSITIONS
+    for arch, *_ in FRONTEND_RUNS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(num_layers=FRONTEND_GATE_LAYERS)
+        f32 = cfg.replace(dtype="float32", param_dtype="float32")
+        V = cfg.vocab_size
+        p32_card = tfm.init_params(f32, seed=1, device="cuda")
+        p32 = _to(p32_card, "cpu")
+        long = frontend_gate_batch(torch, f32, S)
+        n_tok = S - cfg.frontend_len
+        prompt = dict(long, tokens=long["tokens"][:, :n_tok])
+        if "positions" in long:
+            prompt["positions"] = long["positions"][:, :, :S]
+        card = generate(p32_card, f32, prompt, 2, device="cuda")
+        cpu = generate(p32, f32, prompt, 2, device="cpu")
+        rel = live_rel(card.logits.cpu(), cpu.logits, V)
+        streams = ("three different position streams"
+                   if cfg.mrope_sections else "one position stream")
+        print(f"frontends card vs CPU ({arch}, {cfg.num_layers} layers at "
+              f"full width, f32, B={FRONTEND_GATE_BATCH} x {S} positions: "
+              f"{cfg.frontend_len} frontend + {n_tok} tokens, {streams}, + 2 "
+              f"decode steps): logits rel {rel:.3e}, tokens equal "
+              f"{torch.equal(card.tokens.cpu(), cpu.tokens)}")
+        require(rel <= 1e-4, f"frontends {arch} card vs CPU rel {rel}")
+        require(torch.equal(card.tokens.cpu(), cpu.tokens),
+                f"frontends {arch}: card and CPU tokens differ")
+        del card, cpu
+
+        def on_card(b):
+            return {k: v.cuda() for k, v in b.items()}
+        full, _ = tfm.prefill_step(p32_card, on_card(long), f32)
+        _, cache = tfm.prefill_step(p32_card, on_card(prompt), f32)
+        cache = tfm.place_caches(f32, cache, S + 1)
+        step, _ = tfm.decode_step(p32_card, {"tokens": long["tokens"][
+            :, n_tok:].cuda()}, f32, cache, S)
+        rel_pd = live_rel(step[:, 0], full[:, -1], V)
+        print(f"frontends {arch} prefill({S}) + decode vs prefill({S + 1}) "
+              f"last row on the card: rel {rel_pd:.3e}")
+        require(rel_pd <= 1e-4, f"frontends {arch} prefill vs decode rel "
+                f"{rel_pd}")
+        del p32_card, full, cache, step
+
+        p16 = cast_params(p32, tfm.model_specs(cfg), torch.bfloat16)
+        p16_card = _to(p16, "cuda")
+
+        def last(p, c, device):
+            logits, _ = tfm.prefill_step(p, {k: v.to(device) for k, v in
+                                             prompt.items()}, c)
+            return logits[:, -1, ..., :V].float().cpu()
+        card16 = last(p16_card, cfg, "cuda")
+        kernel = fa_ops.flash_attention
+        fa_ops.flash_attention = fa_ops.flash_attention_plain
+        try:
+            card16_plain = last(p16_card, cfg, "cuda")
+        finally:
+            fa_ops.flash_attention = kernel
+        cpu16, cpu32 = last(p16, cfg, "cpu"), last(p32, f32, "cpu")
+        gap = rel_norm(cpu16, cpu32)
+        d_kernel = rel_norm(card16, card16_plain)
+        print(f"frontends bf16 gate ({arch}, {cfg.num_layers} layers at full "
+              f"width, {time.perf_counter() - t0:.1f} s): the port's bf16 vs "
+              f"f32 gap on the CPU {gap:.3e}; last-row logits card (flash "
+              f"kernel) vs card (the attention's plain version) "
+              f"{d_kernel:.3e} (gate: below half the gap); card vs CPU "
+              f"{rel_norm(card16, cpu16):.3e} and with the plain attention "
+              f"on the card {rel_norm(card16_plain, cpu16):.3e} (reported, "
+              "not enforced)")
+        require(d_kernel < 0.5 * gap, f"frontends {arch} bf16 flash kernel "
+                f"vs its plain version on the card {d_kernel} >= half of the "
+                f"bf16 vs f32 gap {gap}")
+        del p16, p16_card, p32
+        torch.cuda.empty_cache()
+
+
 def device_profile(torch, fn, top: int = 5):
     """Run ``fn`` once under ``torch.profiler``.  Returns (its result, wall
     s, device busy s = the sum of the kernels' device times, the port's
@@ -2769,9 +3109,11 @@ def main() -> int:
     launches["ssd"] = check_mamba2(torch, fa_ops, wa_ops, ssd_ops)
     phase("mamba2")
     check_mamba2_bf16(torch)
+    check_mamba2_bf16_zoo(torch, ssd_ops)
     phase("mamba2 bf16 gate")
     print_d128_ptxas(build)
-    for dtype, err in check_dense_flash(torch, fa_ops).items():
+    for dtype, err in check_causal_flash(torch, fa_ops, FA_DENSE,
+                                         6).items():
         errs["flash_attention"][dtype] = max(
             errs["flash_attention"][dtype], err)
     per_prefill, n = check_dense(torch, fa_ops, wa_ops, ssd_ops)
@@ -2791,6 +3133,16 @@ def main() -> int:
                                            per_prefill).items():
         rows[name] += moe_rows
     phase("moe")
+    for dtype, err in check_causal_flash(torch, fa_ops, FA_FRONTENDS,
+                                         12).items():
+        errs["flash_attention"][dtype] = max(
+            errs["flash_attention"][dtype], err)
+    per_prefill, n = check_frontends(torch, fa_ops, wa_ops, ssd_ops)
+    launches["flash_attention"] += n
+    check_frontends_cpu(torch, fa_ops)
+    rows["flash_attention"] += time_causal_flash(torch, fa_ops, FA_FRONTENDS,
+                                                 per_prefill, 13)
+    phase("frontends")
     print("phases: " + ", ".join(f"{name} {sec:.1f} s"
                                  for name, sec in phase_s.items()))
 

@@ -2,23 +2,27 @@
 
 The LM zoo's ``ArchConfig`` keeps the reference's layer-schedule helpers
 and the fields that the ported paths read: the stack, the embedding and
-norms, the Mamba2 mixer, the attention mixer (heads, ``qk_norm``, RoPE),
-the dense FFN's activation and the MoE FFN's routing (experts, top-k,
-capacity factor, the interleave).  The M-RoPE, sliding-window, frontend
-and shape-list fields come with the slice that ports their code.  Also
-left out: the implementation selectors (``attn_impl``, ``ssm_impl``: the
-port always calls its kernels' wrappers, which launch the CUDA kernel on
-a CUDA tensor and run the plain PyTorch version on a CPU tensor), the XLA
-execution knobs (``remat``, ``scan_layers``, ``attn_chunk``) and the
-CAPSim predictor extras, whose config is ``configs/capsim.py``.
+norms, the Mamba2 mixer, the attention mixer (heads, ``qk_norm``, RoPE
+and Qwen2-VL's M-RoPE sections), the dense FFN's activation, the MoE
+FFN's routing (experts, top-k, capacity factor, the interleave), the
+modality frontend stubs (``frontend``, ``frontend_len``) and MusicGen's
+parallel codebooks (``num_codebooks``).  Left out: the sliding window
+and the logit soft-cap (``attn_window``, ``attn_logit_softcap``), which
+no config of the zoo sets; the shape lists (``shape_names``,
+``skipped_shapes``, ``skip_reason``); the implementation selectors
+(``attn_impl``, ``ssm_impl``: the port always calls its kernels'
+wrappers, which launch the CUDA kernel on a CUDA tensor and run the
+plain PyTorch version on a CPU tensor), the XLA execution knobs
+(``remat``, ``scan_layers``, ``attn_chunk``) and the CAPSim predictor
+extras, whose config is ``configs/capsim.py``.
 
-``get_config``/``get_smoke_config`` resolve ``--arch`` names.  ``capsim``,
-``mamba2-780m``, the dense decoders (``olmo-1b``, ``qwen3-4b``,
-``internlm2-20b``, ``nemotron-4-15b``) and the MoE and hybrid models
-(``kimi-k2-1t-a32b``, ``llama4-maverick-400b-a17b``,
-``jamba-1.5-large-398b``) are ported; ``qwen2-vl-2b`` and
-``musicgen-large`` raise ``NotImplementedError`` naming their ROADMAP
-port-queue item.
+``get_config``/``get_smoke_config`` resolve ``--arch`` names: ``capsim``
+and every model of the LM zoo (``mamba2-780m``; the dense decoders
+``olmo-1b``, ``qwen3-4b``, ``internlm2-20b``, ``nemotron-4-15b``; the MoE
+and hybrid models ``kimi-k2-1t-a32b``, ``llama4-maverick-400b-a17b``,
+``jamba-1.5-large-398b``; the frontend and codebook models
+``qwen2-vl-2b`` and ``musicgen-large``).  An unknown name raises
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -75,11 +79,17 @@ class ArchConfig:
     # --- attention features ---
     qk_norm: bool = False
     rope_theta: float = 10_000.0
+    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (temporal, h, w) dims
 
     # --- FFN / norm features ---
     activation: str = "swiglu"       # swiglu | squared_relu | gelu
     nonparametric_norm: bool = False # olmo: LN without learnable params
     tie_embeddings: bool = False
+
+    # --- modality frontend stubs ---
+    frontend: str = "none"           # none | vision | audio
+    frontend_len: int = 0            # number of precomputed frontend embeddings
+    num_codebooks: int = 1           # musicgen: parallel EnCodec streams
 
     # --- numerics ---
     dtype: str = "bfloat16"
@@ -132,18 +142,12 @@ _PORTED = {"capsim": "capsim", "mamba2-780m": "mamba2_780m",
            "internlm2-20b": "internlm2_20b", "olmo-1b": "olmo_1b",
            "jamba-1.5-large-398b": "jamba_1_5_large_398b",
            "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
-           "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b"}
-# zoo names whose path waits for ROADMAP port-queue item 1c, the modality
-# frontends and codebooks
-_NOT_PORTED = {"qwen2-vl-2b": "1c", "musicgen-large": "1c"}
-ARCH_NAMES = tuple(_PORTED) + tuple(_NOT_PORTED)
+           "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+           "qwen2-vl-2b": "qwen2_vl_2b", "musicgen-large": "musicgen_large"}
+ARCH_NAMES = tuple(_PORTED)
 
 
 def _module(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"--arch {name}: its path is not ported yet (ROADMAP port "
-            f"queue item {_NOT_PORTED[name]}, the rest of the LM zoo)")
     if name not in _PORTED:
         raise KeyError(f"unknown arch {name!r}; known: {list(ARCH_NAMES)}")
     return importlib.import_module(f"repro_torch.configs.{_PORTED[name]}")

@@ -17,9 +17,10 @@ path).  ``--metrics-port`` serves Prometheus text at ``/metrics``,
 the service's demotion postmortems.  ``--arch mamba2-780m``, the dense
 decoders (``olmo-1b``, ``qwen3-4b``, ``internlm2-20b``,
 ``nemotron-4-15b``) and the MoE and hybrid models (``kimi-k2-1t-a32b``,
-``llama4-maverick-400b-a17b``, ``jamba-1.5-large-398b``) run the LM zoo's
-prefill + greedy decode loop (``generate``) on the smoke config, as the
-reference does.  ``--device``
+``llama4-maverick-400b-a17b``, ``jamba-1.5-large-398b``) and the
+frontend and codebook models (``qwen2-vl-2b``, ``musicgen-large``) run
+the LM zoo's prefill + greedy decode loop (``generate``) on the smoke
+config, as the reference does.  ``--device``
 defaults to ``cuda``; ``--device cpu`` runs the kernels' plain versions.
 """
 from __future__ import annotations
@@ -230,11 +231,12 @@ def serve_service(args) -> None:
 
 @dataclasses.dataclass
 class Generation:
-    """What ``generate`` returns.  tokens: (B, 1 + decode_steps) greedy
-    ids, the prefill's then each decode step's; logits: (B, 1 +
-    decode_steps, V_pad) the last position's logits at each step;
-    prefill_seconds: prefill and its argmax; decode_seconds: all decode
-    steps (host clock, synchronized on a card)."""
+    """What ``generate`` returns.  tokens: (B, 1 + decode_steps[, C])
+    greedy ids, the prefill's then each decode step's (per codebook with
+    C > 1 codebooks); logits: (B, 1 + decode_steps[, C], V_pad) the last
+    position's logits at each step; prefill_seconds: prefill and its
+    argmax; decode_seconds: all decode steps (host clock, synchronized on
+    a card)."""
     tokens: torch.Tensor
     logits: torch.Tensor
     prefill_seconds: float
@@ -249,22 +251,26 @@ def _sync(device: torch.device) -> None:
 @torch.no_grad()
 def generate(params: dict, cfg, batch: dict, decode_steps: int,
              device="cuda") -> Generation:
-    """Prefill ``batch['tokens']`` (B, S), then ``decode_steps`` greedy
-    decode steps against the prefill's caches (the reference's
-    ``serve_lm`` loop).  Attention caches are first placed into decode
-    caches of ``S + decode_steps`` positions; an SSM cache does not grow
-    with the sequence and is used as it is (a hybrid holds both).  An MoE
-    layer's capacity counts the tokens of each call: the prefill's B·S,
-    then each decode step's B."""
+    """Prefill ``batch`` ('tokens' (B, S[, C]), and the optional
+    'frontend' and 'positions' that ``transformer.forward`` takes), then
+    ``decode_steps`` greedy decode steps against the prefill's caches
+    (the reference's ``serve_lm`` loop).  The prefill covers S_total =
+    F + S positions with F frontend embeddings, and decode step i runs at
+    ``cache_pos`` S_total + i.  With codebooks the next token is each
+    codebook's argmax, (B, 1, C).  Attention caches are first placed into
+    decode caches of ``S_total + decode_steps`` positions; an SSM cache
+    does not grow with the sequence and is used as it is (a hybrid holds
+    both).  An MoE layer's capacity counts the tokens of each call: the
+    prefill's B·S_total, then each decode step's B."""
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as tfm
 
     dev = resolve_device(device)
-    tokens = batch["tokens"].to(dev)
-    S = tokens.shape[1]
+    batch = {k: v.to(dev) for k, v in batch.items()}
     t0 = time.perf_counter()
-    logits, caches = tfm.prefill_step(params, {"tokens": tokens}, cfg)
-    last = [logits[:, -1].clone()]       # frees the (B, S, V) logits
+    logits, caches = tfm.prefill_step(params, batch, cfg)
+    S = logits.shape[1]
+    last = [logits[:, -1].clone()]       # frees the (B, S, [C,] V) logits
     del logits
     caches = tfm.place_caches(cfg, caches, S + decode_steps)
     out = [last[-1].argmax(-1)]
@@ -294,9 +300,16 @@ def serve_lm(args) -> None:
     batch = random_batch(cfg, ShapeConfig("p", S // 2, B, "prefill"),
                          "prefill", device=device)
     gen = generate(params, cfg, batch, args.decode_steps, device)
-    print(f"{args.arch}: prefill {S // 2} tokens in "
-          f"{gen.prefill_seconds:.3f}s + {args.decode_steps} decode steps "
-          f"in {gen.decode_seconds:.3f}s on {device}; tokens "
+    what = []
+    if "frontend" in batch:
+        what.append(f"the first {batch['frontend'].shape[1]} frontend "
+                    "embeddings")
+    if cfg.num_codebooks > 1:
+        what.append(f"{cfg.num_codebooks} codebooks a token")
+    print(f"{args.arch}: prefill {S // 2} tokens"
+          + (f" ({', '.join(what)})" if what else "")
+          + f" in {gen.prefill_seconds:.3f}s + {args.decode_steps} decode "
+          f"steps in {gen.decode_seconds:.3f}s on {device}; tokens "
           f"{gen.tokens.tolist()}")
 
 
@@ -305,9 +318,10 @@ def main() -> None:
     ap.add_argument("--arch", default="capsim",
                     help="capsim (the engine), or mamba2-780m, olmo-1b, "
                          "qwen3-4b, internlm2-20b, nemotron-4-15b, "
-                         "kimi-k2-1t-a32b, llama4-maverick-400b-a17b or "
-                         "jamba-1.5-large-398b (LM prefill + greedy decode "
-                         "on the smoke config)")
+                         "kimi-k2-1t-a32b, llama4-maverick-400b-a17b, "
+                         "jamba-1.5-large-398b, qwen2-vl-2b or "
+                         "musicgen-large (LM prefill + greedy decode on "
+                         "the smoke config)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")

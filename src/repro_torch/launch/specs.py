@@ -2,7 +2,7 @@
 ``repro/launch/specs.py``: ``lm_batch_shapes`` and ``random_batch`` for
 the prefill and decode kinds).  Batches are drawn from
 ``np.random.RandomState(seed)`` in the reference's order, so a seed gives
-the JAX package's tokens."""
+the JAX package's batch, bit for bit."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,25 +12,53 @@ from repro_torch.configs import ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 
+def _token_len(cfg, seq_len: int) -> int:
+    """Token positions of a sequence of ``seq_len``: the frontend's
+    embeddings take the first ``frontend_len``."""
+    return seq_len - (cfg.frontend_len if cfg.frontend != "none" else 0)
+
+
 def lm_batch_shapes(cfg, shape: ShapeConfig, kind: str) -> dict:
-    """{name: (shape, numpy dtype)} of one input batch (without caches)."""
+    """{name: (shape, numpy dtype)} of one input batch (without caches),
+    in the reference's key order: tokens (B, S_tok[, C]), the frontend's
+    (B, F, d_model) embeddings and M-RoPE's (3, B, S) positions where the
+    config has them; a decode batch is one (B, 1[, C]) token."""
     if kind == "train":
         raise NotImplementedError("training batches: ROADMAP port queue "
                                   "item 7")
     if kind not in ("prefill", "decode"):
         raise ValueError(f"kind must be prefill or decode, got {kind!r}")
-    S = 1 if kind == "decode" else shape.seq_len
-    return {"tokens": ((shape.global_batch, S), np.int32)}
+    B, S = shape.global_batch, shape.seq_len
+    codebooks = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    if kind == "decode":
+        return {"tokens": ((B, 1) + codebooks, np.int32)}
+    batch = {"tokens": ((B, _token_len(cfg, S)) + codebooks, np.int32)}
+    if cfg.frontend != "none":
+        batch["frontend"] = ((B, cfg.frontend_len, cfg.d_model), np.float32)
+    if cfg.mrope_sections:
+        batch["positions"] = ((3, B, S), np.int32)
+    return batch
 
 
 def random_batch(cfg, shape: ShapeConfig, kind: str, seed: int = 0,
                  device: DeviceLike = "cuda") -> dict:
-    """Concrete random batch matching ``lm_batch_shapes``: token ids in
-    [0, vocab_size), as int64 tensors on ``device``."""
+    """Concrete random batch matching ``lm_batch_shapes`` on ``device``:
+    token ids in [0, vocab_size) as int64, frontend embeddings standard
+    normal in float32, and the M-RoPE positions as the reference gives
+    them: drawn (the draw advances the generator) and then replaced by
+    ``arange(S)`` in all three streams."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
     out = {}
-    for k, (shp, _) in lm_batch_shapes(cfg, shape, kind).items():
-        tok = rng.randint(0, max(2, cfg.vocab_size), size=shp)
-        out[k] = torch.from_numpy(tok.astype(np.int64)).to(dev)
+    for k, (shp, dt) in lm_batch_shapes(cfg, shape, kind).items():
+        if dt == np.int32:
+            hi = cfg.vocab_size if k == "tokens" else shape.seq_len
+            a = rng.randint(0, max(2, hi), size=shp).astype(np.int64)
+        else:
+            a = rng.randn(*shp).astype(np.float32)
+        out[k] = torch.from_numpy(a).to(dev)
+    if "positions" in out:
+        B, S = shape.global_batch, shape.seq_len
+        out["positions"] = torch.arange(S, device=dev).expand(
+            3, B, S).contiguous()
     return out

@@ -89,7 +89,8 @@ def attention_forward(params: dict, x: torch.Tensor,
                       cache: Optional[dict] = None,
                       cache_pos: Optional[int] = None
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """x: (B, S, d).  mode: 'train' | 'prefill' | 'decode'.
+    """x: (B, S, d).  mode: 'train' | 'prefill' | 'decode'.  positions:
+    (B, S), or M-RoPE's (3, B, S) where ``cfg.mrope_sections`` is set.
 
     decode: S == 1; ``cache`` holds (B, S_max, KV, Dh) k/v and the query
     position is ``cache_pos``; the new k/v are written into it in place.
@@ -107,8 +108,8 @@ def attention_forward(params: dict, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
 
     new_cache = None
     if mode == "decode":

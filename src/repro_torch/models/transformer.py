@@ -6,11 +6,13 @@ One model definition driven by ``ArchConfig``: the per-layer schedule
 ``cfg.pattern()`` gives each layer of a super-block its mixer and FFN, and
 the stack runs ``num_repeats`` super-blocks (a Python loop over the stacked
 layer parameters where the reference scans).  Ported: the SSM mixer
-(Mamba2), the attention mixer (``models/attention.py``), the dense FFN
-and the top-k MoE FFN (``models/moe.py``), in any schedule the config
-gives (jamba's super-block mixes all four).  The modality frontends and
-multi-codebook heads come with the configs that use them (ROADMAP port
-queue item 1c).  ``loss_fn`` is training (item 7).
+(Mamba2), the attention mixer (``models/attention.py``, with Qwen2-VL's
+M-RoPE), the dense FFN and the top-k MoE FFN (``models/moe.py``), in any
+schedule the config gives (jamba's super-block mixes all four); the
+modality frontend stubs (precomputed embeddings prepended to the token
+embeddings) and MusicGen's parallel codebooks (a (C, V, d) embedding
+table summed over the codebooks, a (C, d, V) unembedding giving (B, S,
+C, V) logits).  ``loss_fn`` is training (ROADMAP port queue item 7).
 
 Decode writes each attention layer's new key and value into the caches
 it is given, in place, and returns those caches; an SSM layer's new
@@ -68,15 +70,19 @@ def padded_vocab(cfg) -> int:
 
 
 def model_specs(cfg) -> dict:
+    """The parameter tree's specs.  With C > 1 codebooks the embedding is
+    (C, V_pad, d) and an untied unembedding (C, d, V_pad)."""
     d, V = cfg.d_model, padded_vocab(cfg)
-    specs: dict = {"embed": ParamSpec((V, d), std=1.0 / math.sqrt(d))}
+    books = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    std = 1.0 / math.sqrt(d)
+    specs: dict = {"embed": ParamSpec(books + (V, d), std=std)}
     specs["blocks"] = {
         f"i{j}": specs_with_leading_stack(_block_specs(cfg, mixer, ffn),
                                           cfg.num_repeats)
         for j, (mixer, ffn) in enumerate(cfg.pattern())}
     specs["final_norm"] = norm_spec(cfg)
     if not cfg.tie_embeddings:
-        specs["unembed"] = dense_spec(d, V)
+        specs["unembed"] = ParamSpec(books + (d, V), std=std)
     return specs
 
 
@@ -138,7 +144,17 @@ def place_caches(cfg, caches: dict, max_seq: int) -> dict:
 # --------------------------------------------------------------------------- #
 
 def _embed_tokens(params, tokens, cfg):
-    return params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    """(B, S) ids, or (B, S, C) with codebooks -> (B, S, d) in cfg.dtype.
+    The C lookups are summed in the parameter dtype in codebook order
+    (the reference's ``sum``: ((e0 + e1) + e2) + e3), then cast."""
+    emb = params["embed"]
+    if cfg.num_codebooks > 1:
+        x = emb[0][tokens[..., 0]]
+        for c in range(1, cfg.num_codebooks):
+            x = x + emb[c][tokens[..., c]]
+    else:
+        x = emb[tokens]
+    return x.to(torch_dtype(cfg.dtype))
 
 
 def _block_forward(bparams, x, cfg, mode, cache, positions=None,
@@ -216,8 +232,11 @@ def _stack_forward(params, x, cfg, mode: str, caches=None, positions=None,
 
 
 def _logits(params, x, cfg):
-    w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
-    logits = x @ w
+    """(B, S, V_pad) logits, or (B, S, C, V_pad) with codebooks."""
+    w = (params["embed"].transpose(-2, -1) if cfg.tie_embeddings
+         else params["unembed"])                     # ([C,] d, V_pad)
+    logits = (torch.einsum("bsd,cdv->bscv", x, w) if w.dim() == 3
+              else x @ w)
     if logits.shape[-1] != cfg.vocab_size:
         # padded columns never win an argmax and carry no probability
         logits[..., cfg.vocab_size:] = NEG_LOGIT
@@ -227,18 +246,29 @@ def _logits(params, x, cfg):
 def forward(params, batch, cfg, mode: str, caches=None, cache_pos=None):
     """Returns (logits, new_caches, lb_loss, z_loss), as the reference:
     the MoE layers' load-balance and router z losses summed over the
-    layers (f32 zeros without MoE).  batch: {'tokens': (B, S) int}.
-    Positions are ``arange(S)`` for train/prefill and ``cache_pos`` (the
-    decode position, an int) for decode; the SSM cache does not read
-    them."""
+    layers (f32 zeros without MoE).
+
+    batch: 'tokens' (B, S[, C]) int; optional 'frontend' (B, F, d_model),
+    precomputed modality embeddings prepended to the token embeddings
+    when ``cfg.frontend`` is set (the caches then hold F + S positions);
+    optional 'positions', (B, S) or M-RoPE's (3, B, S), over the F + S
+    positions.  Without them positions are ``arange(F + S)`` for
+    train/prefill (an M-RoPE config needs them there: ``apply_rope``
+    raises) and ``cache_pos`` (the decode position, an int; in all three
+    streams for M-RoPE) for decode; the SSM cache does not read them."""
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
-    B, S = tokens.shape
-    if mode == "decode":
-        positions = torch.full((B, 1), int(cache_pos), dtype=torch.long,
-                               device=tokens.device)
+    if cfg.frontend != "none" and "frontend" in batch:
+        x = torch.cat([batch["frontend"].to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
+    if "positions" in batch:
+        positions = batch["positions"]
+    elif mode == "decode":
+        shape = (3, B, 1) if cfg.mrope_sections else (B, 1)
+        positions = torch.full(shape, int(cache_pos), dtype=torch.long,
+                               device=x.device)
     else:
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        positions = torch.arange(S, device=x.device).expand(B, S)
     x, new_caches, lb, z = _stack_forward(params, x, cfg, mode, caches,
                                           positions, cache_pos)
     x = norm(x, params["final_norm"], cfg)

@@ -167,14 +167,14 @@ def test_full_width_specs_match_the_reference(arch):
 
 def test_moe_ffn_is_refused_naming_its_roadmap_item():
     """The MoE FFN is ported (item 1b): a dense config given experts
-    builds MoE specs.  What the port still refuses are the frontend and
-    codebook models, naming their item, 1c."""
+    builds MoE specs.  The frontend and codebook models (item 1c) are
+    ported too: both configs load."""
     _, tc = _cfgs("qwen3-4b")
     specs = tt.model_specs(tc.replace(num_experts=4, experts_per_token=1))
     assert specs["blocks"]["i0"]["ffn"]["router"].shape == (2, 64, 4)
     for name in ("qwen2-vl-2b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="port queue item 1c"):
-            tcfgs.get_smoke_config(name)
+        assert tcfgs.get_smoke_config(name).name == name
+        assert tcfgs.get_config(name).frontend != "none"
 
 
 def test_random_batch_and_bridge_match_the_reference():

@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version, and
 the engine (single-core and multicore, sampled, and its RT store's
-restart), the serving layer, the Mamba2 LM, the dense decoders and the
-MoE and hybrid models on the card against the same code on the CPU.
+restart), the serving layer, the Mamba2 LM, the dense decoders, the
+MoE and hybrid models and the frontend and codebook models on the card
+against the same code on the CPU.
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 file imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -20,7 +21,7 @@ from _torch_cases import (FA_CASES, FA_EDGE_CASES, SSD_CASES,  # noqa: E402
                           WA_EDGE_CASES, fa_inputs, scaled_err, ssd_inputs,
                           wa_inputs)
 
-from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_smoke_config  # noqa: E402
 from repro_torch.configs.capsim import config  # noqa: E402
 from repro_torch.core import predictor  # noqa: E402
 from repro_torch.core import standardize as std_mod  # noqa: E402
@@ -32,6 +33,7 @@ from repro_torch.kernels.fused_serving import ops as wa_ops  # noqa: E402
 from repro_torch.isa import multicore  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.launch.specs import random_batch  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -542,6 +544,43 @@ def test_moe_on_card_matches_cpu(arch):
     assert fa_ops.flash_attention.launches == before[0] + mixers.count("attn")
     assert ssd_ops.ssd_scan.launches == before[1] + mixers.count("ssm")
     cpu = generate(params, cfg, {"tokens": tok}, 3, device="cpu")
+    rel = float((card.logits.cpu() - cpu.logits).abs().max()
+                / cpu.logits.abs().max())
+    assert rel <= 1e-4, rel
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-large"])
+def test_frontends_on_card_matches_cpu(arch):
+    """The frontend and codebook smoke models, f32 (TF32 off): one seed
+    gives the same parameters on the card as on the CPU, bit for bit
+    (bf16 too); a prefill of 8 frontend embeddings + 32 tokens (musicgen:
+    4 codebooks a token; qwen2-vl: three different position streams) + 3
+    greedy decode steps, one causal flash launch per layer in the
+    prefill; logits <= 1e-4 relative, the same tokens."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    for c in (cfg, cfg.replace(dtype="bfloat16", param_dtype="bfloat16")):
+        cpu_init = dict(_leaves(tfm.init_params(c, seed=0, device="cpu")))
+        card_init = dict(_leaves(tfm.init_params(c, seed=0, device="cuda")))
+        assert cpu_init.keys() == card_init.keys()
+        for name, a in cpu_init.items():          # one seed, one init
+            assert torch.equal(a, card_init[name].cpu()), name
+    params = tfm.init_params(cfg, seed=0, device="cpu")
+    on_card = tfm.init_params(cfg, seed=0, device="cuda")
+    S = cfg.frontend_len + 32
+    batch = random_batch(cfg, ShapeConfig("p", S, 2, "prefill"), "prefill",
+                         seed=0, device="cpu")
+    if cfg.mrope_sections:
+        gen = torch.Generator().manual_seed(0)
+        batch["positions"] = torch.stack([torch.stack([torch.randperm(
+            S, generator=gen) for _ in range(2)]) for _ in range(3)])
+    before = fa_ops.flash_attention.launches
+    card = generate(on_card, cfg, batch, 3, device="cuda")
+    assert fa_ops.flash_attention.launches == before + cfg.num_layers
+    cpu = generate(params, cfg, batch, 3, device="cpu")
+    assert card.tokens.shape == cpu.tokens.shape
     rel = float((card.logits.cpu() - cpu.logits).abs().max()
                 / cpu.logits.abs().max())
     assert rel <= 1e-4, rel

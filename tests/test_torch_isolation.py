@@ -81,13 +81,15 @@ def test_entry_points_raise_without_a_card():
                   lambda: SimulationService(params, cfg)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
-    # the LM zoo's dense decoders and its MoE and hybrid models
+    # the LM zoo's dense decoders, its MoE and hybrid models and its
+    # frontend and codebook models
     for arch in ("olmo-1b", "qwen3-4b", "internlm2-20b", "nemotron-4-15b",
                  "kimi-k2-1t-a32b", "llama4-maverick-400b-a17b",
-                 "jamba-1.5-large-398b"):
+                 "jamba-1.5-large-398b", "qwen2-vl-2b", "musicgen-large"):
         lm = get_smoke_config(arch)
         lm_params = tfm.init_params(lm, device="cpu")
-        batch = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
+        batch = random_batch(lm, ShapeConfig("p", 12, 1, "prefill"),
+                             "prefill", device="cpu")
         for call in (lambda: tfm.init_params(lm),
                      lambda: tfm.init_cache(lm, 1, 8),
                      lambda: serve.generate(lm_params, lm, batch, 1),

@@ -90,10 +90,28 @@ def test_configs_match_the_reference():
     assert tcfgs.get_config("capsim").name == "capsim"
 
 
-@pytest.mark.parametrize("name", ["qwen2-vl-2b", "musicgen-large"])
-def test_unported_archs_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="port queue item 1c"):
-        tcfgs.get_config(name)
+def _refuse_train_batch():
+    tspecs.lm_batch_shapes(tcfgs.get_smoke_config(ARCH),
+                           tcfgs.ShapeConfig("t", 8, 2, "train"), "train")
+
+
+def _refuse_mesh_shape():
+    from repro_torch.core.engine import reject_unported
+    from repro_torch.core.engine_config import EngineConfig
+    reject_unported(EngineConfig(mesh_shape=(2,)), "SimulationEngine")
+
+
+@pytest.mark.parametrize("refused, item", [(_refuse_train_batch, "7"),
+                                           (_refuse_mesh_shape, "6")],
+                         ids=["train-batch", "mesh_shape"])
+def test_unported_archs_name_their_roadmap_item(refused, item):
+    """Every arch of the zoo resolves; what the port still refuses names
+    its ROADMAP port-queue item: training batches (7) and the device mesh
+    (6).  An unknown arch is a KeyError."""
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        refused()
+    for name in tcfgs.ARCH_NAMES:
+        assert tcfgs.get_smoke_config(name).name == name
     with pytest.raises(KeyError):
         tcfgs.get_config("no-such-arch")
 
