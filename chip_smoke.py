@@ -19,8 +19,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main path's shapes (the instruction encoder's passes of
               4096 instructions among them, and, timed beside them, a
-              monolithic batch's 32768 in one launch) and the reference
-              kernel tests' sweeps,
+              monolithic batch's 32768 in one launch, and multicore
+              training's M = 1476 with peer channels at batch 32) and
+              the reference kernel tests' sweeps,
               in float32 and bfloat16.  Attention: max abs err <= 2e-5 /
               2e-2, exact zeros for a row with no valid key (weighted: all
               weights 0, or zero-weight keys leading every live score by
@@ -37,7 +38,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               B/C views that break 16-byte alignment): max abs err / max
               |plain| <= 1e-5 / 1e-2 for y, 1e-5 / 1e-4 for the state.
   4. timing   each kernel at its path shapes (the multicore block
-              encoder's M=369 among them; CUDA events after warm-up,
+              encoder's M=369 and M=1476 among them; CUDA events after warm-up,
               the least of three means of at least 20 back-to-back calls,
               enough to fill ~2 ms for short ones):
               kernel (and, for attention, its device time under
@@ -244,6 +245,42 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               plain version (card vs CPU in bf16 reported).  Then causal
               flash timed at (4, 4096, 12, 128) and (4, 4096, 32, 64) in
               bf16 like phase 13.
+ 15. train grads  the flash and SSD kernels' gradients: each wrapper's
+              ``torch.autograd.Function`` (the kernel's launch forward,
+              the plain version's recompute backward) against autograd
+              through the plain version on the card, at the CAPSim train
+              step's attention shapes at batch 32 (instruction encoder
+              4096 x 16 with its mask, block self 360 / 369, cross 360 /
+              369 -> 128 with clip_mask), causal (1, 1024, 32, 128) and
+              Mamba2's SSD shape (1, 4096, 48, 64, 128): f32 <= 1e-4
+              relative norm per input, bf16 reported, all finite, the
+              forward bitwise the no-grad launch.  Each flash shape timed
+              forward (kernel, plain, SDPA, bound) and backward.
+ 16. train capsim the CAPSim predictor at full width in f32 on 750 clips
+              (every Table II benchmark, 2 checkpoints of 10 000): card
+              vs CPU from one init over 3 batches of 32 (the first
+              gradient of every leaf nonzero and <= 1e-4, the parameters
+              after 3 SGD-momentum steps <= 1e-4); then
+              ``launch/train.py``'s ``train_capsim`` for 200 steps through
+              ResilientTrainer and CheckpointManager (a save every 50),
+              launch counters reset just before and read just after (12
+              flash launches a forward), the MAPE curve, steps/s and
+              clips/s; its restart resumes at step 200 with the state
+              bitwise the saved one; one step of the real train step
+              profiled and cut at its ``record_function`` ranges
+              (forward, backward with the flash recompute apart,
+              update); a throughput row at batch 256.
+ 17. train multicore  ``train_capsim_multicore`` on 4 cores at interval
+              20 000 for 20 steps, at context width 369 and with peer
+              channels (1476 rows): finite losses, steps/s, the flash
+              launches exactly 12 a forward.
+ 18. train lm  qwen3-4b (2 layers) and mamba2-780m (4 layers) at full
+              width in bf16, batch 1 x 4096: 3 AdamW steps on one batch,
+              the loss finite and falling, every leaf's first gradient
+              finite and nonzero, one flash / SSD launch per layer a
+              forward, tokens/s, peak memory, a profiled step; then the
+              f32 gradient at 1 x 256 on the card against the CPU (loss
+              <= 1e-5, each leaf <= 1e-4 relative norm).
 
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (the
@@ -357,6 +394,32 @@ FRONTEND_GATE_LAYERS, FRONTEND_GATE_BATCH, FRONTEND_GATE_POSITIONS = 2, 2, 300
 FA_FRONTENDS = (("qwen2vl_prefill", 4, 4096, 12, 128),
                 ("musicgen_prefill", 4, 4096, 32, 64))
 
+# training (ROADMAP item 7): the CAPSim train step's attention shapes at
+# batch 32 (label, B, Sq, Skv, H, D, causal, masked) and a causal LM
+# shape, and the Mamba2 SSD shape (label, Bt, S, H, P, N, chunk), where
+# the Functions' gradients are held to the plain versions' (f32 within
+# GRAD_TOL relative norm per input)
+FA_TRAIN = (("inst", 4096, 16, 16, 4, 32, False, True),
+            ("block_self", 32, 360, 360, 4, 32, False, False),
+            ("block_self_369", 32, 369, 369, 4, 32, False, False),
+            ("block_cross", 32, 360, 128, 4, 32, False, True),
+            ("block_cross_369", 32, 369, 128, 4, 32, False, True),
+            ("causal_lm", 1, 1024, 1024, 32, 128, True, False))
+SSD_TRAIN = ("mamba2_train", 1, 4096, 48, 64, 128, 256)
+GRAD_TOL = 1e-4
+# CAPSim training at full width: the data (Table II benchmarks, interval,
+# checkpoints: every benchmark, since the first 3 give 27 training clips,
+# less than one batch), the paper's batch, the trainer's steps and
+# checkpoint period, and a throughput row at a larger batch
+TRAIN_DATA = (24, 10_000, 2)
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_SAVE_EVERY = 32, 200, 50
+TRAIN_BIG_BATCH, TRAIN_BIG_STEPS = 256, 11
+TRAIN_MC_CORES, TRAIN_MC_INTERVAL, TRAIN_MC_STEPS = 4, 20_000, 20
+# the LM zoo's loss at full width, cut in depth: (arch, layers), AdamW
+# steps on one batch; the f32 card-vs-CPU gradient at a shorter sequence
+LM_TRAIN_RUNS = (("qwen3-4b", 2), ("mamba2-780m", 4))
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_GATE_SEQ = 1, 4096, 3, 256
+
 
 def require(ok: bool, what: str) -> None:
     if not ok:
@@ -406,25 +469,39 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     the ``capsim_*`` namespaces; ``fn`` launches one), from
     ``torch.profiler``, averaged over the launches it recorded: at a
     launch-bound shape the host clock of ``cuda_ms`` times the wrapper,
-    this the kernel."""
+    this the kernel.  As in ``device_breakdown``, each capture records
+    ``iters`` calls after a warm-up step of as many, whose events the
+    profiler's schedule drops: the first launches of a capture can reach
+    the profiler late, and a short capture then holds none of them."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    # a capture that records no device event at all is the profiler's
-    # fault, not the kernel's: take another, at most twice
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        ours = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and "capsim" in e.key]
+    # a capture that holds no device event of any kind (not even another
+    # kernel) is empty on the profiler's side while ``fn`` launched:
+    # take another, at most four times.  A capture that holds device
+    # work but none of the port's kernels fails at once.
+    for _ in range(5):
+        ready = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: ready.append(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        held = [e for e in (ready[-1] if ready else [])
+                if e.device_type == DeviceType.CUDA]
+        ours = [e for e in held if "capsim" in e.key]
         launches = sum(e.count for e in ours)
         if launches:
             break
-        print("device_ms: the profiler recorded no kernel of the port; "
-              "capturing again")
+        require(not held, "the profiler recorded device work but no kernel "
+                f"of the port: {[e.key[:60] for e in held[:3]]}")
+        print(f"device_ms: an empty capture (traces {len(ready)}, no device "
+              "event of any kind); capturing again")
     require(launches > 0, "the profiler saw no kernel of the port")
     return sum(e.self_device_time_total for e in ours) / launches / 1e3
 
@@ -550,6 +627,11 @@ FA_PATH = [
     # M = 369 (369 mod 64 = 49 keys in the last tile)
     ("block_self_m369", 256, 369, 369, 4, 32, False, 0, None),
     ("block_cross_m369", 256, 369, 128, 4, 32, False, 0, "clip"),
+    # multicore training with peer channels: 4 cores' contexts side by
+    # side, M = 1476 (1476 mod 64 = 4 keys in the last tile), at the
+    # paper's training batch
+    ("block_self_m1476", 32, 1476, 1476, 4, 32, False, 0, None),
+    ("block_cross_m1476", 32, 1476, 128, 4, 32, False, 0, "clip"),
 ]
 FA_SWEEP = [
     ("sweep", 2, 128, 128, 4, 64, True, 0, None),
@@ -2980,12 +3062,560 @@ def check_frontends_cpu(torch, fa_ops):
         torch.cuda.empty_cache()
 
 
-def device_profile(torch, fn, top: int = 5):
-    """Run ``fn`` once under ``torch.profiler``.  Returns (its result, wall
-    s, device busy s = the sum of the kernels' device times, the port's
-    own kernels' device s, the ``top`` kernels by device time as (name,
-    ms, calls))."""
+# --------------------------------------------------------------------- #
+# training: gradients through the kernels, CAPSim at full width, LMs
+# --------------------------------------------------------------------- #
+
+def rel_norm_err(a, b) -> float:
+    """|a - b| / |b| in f32 (Frobenius norms)."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def check_train_grads(torch, fa_ops, ssd_ops):
+    """The flash and SSD Functions' gradients (the kernel's forward, the
+    plain version's recompute) against autograd through the plain
+    versions on the card, at FA_TRAIN's and SSD_TRAIN's shapes: f32 <=
+    GRAD_TOL per input in relative norm, bf16 reported, all finite; the
+    forward under grad bitwise the no-grad launch.  Then the forward
+    kernel at each train shape in both dtypes, timed beside its plain
+    version, SDPA and its bound, and the backward recompute's time."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        for label, B, Sq, Skv, H, D, causal, masked in FA_TRAIN:
+            q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda",
+                                   dtype=tdt).requires_grad_(True)
+                       for S in (Sq, Skv, Skv))
+            g = torch.randn(B, Sq, H, D, generator=gen, device="cuda",
+                            dtype=tdt)
+            m = ((torch.rand(B, Skv, generator=gen, device="cuda") > 0.25)
+                 .float() if masked else None)
+            kw = dict(causal=causal, kv_mask=m)
+            out = fa_ops.flash_attention(q, k, v, **kw)
+            with torch.no_grad():
+                same = torch.equal(out.detach(),
+                                   fa_ops.flash_attention(q, k, v, **kw))
+            got = torch.autograd.grad(out, (q, k, v), g)
+            ref = torch.autograd.grad(fa_ops.flash_attention_plain(
+                q, k, v, **kw), (q, k, v), g)
+            errs = [rel_norm_err(a, b) for a, b in zip(got, ref)]
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            print(f"train grad flash_attention {label:14s} {dtype:8s} B={B} "
+                  f"Sq={Sq} Skv={Skv} H={H} D={D} causal={causal} "
+                  f"masked={masked}: rel_norm dq/dk/dv "
+                  + "/".join(f"{e:.3e}" for e in errs)
+                  + f" finite={finite} forward_bitwise_no_grad={same}")
+            require(finite and same, f"flash grad {label} {dtype}: finite "
+                    f"{finite}, forward bitwise {same}")
+            if dtype == "float32":
+                require(max(errs) <= GRAD_TOL,
+                        f"flash grad {label}: rel norm {errs}")
+            with torch.no_grad():
+                qt, kt, vt = (x.detach() for x in (q, k, v))
+                row = {"shape": f"train_{label}", "dtype": dtype,
+                       "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(
+                           qt, kt, vt, **kw), iters=10),
+                       "plain_ms": cuda_ms(
+                           torch, lambda: fa_ops.flash_attention_plain(
+                               qt, kt, vt, **kw), iters=3, warmup=1,
+                           rounds=2)}
+                sq, sk, sv = (x.transpose(1, 2) for x in (qt, kt, vt))
+                bias = None if m is None else torch.where(
+                    m[:, None, None, :] > 0, 0.0, -1e30).to(tdt)
+                row["library_ms"] = cuda_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        sq, sk, sv, attn_mask=bias, is_causal=causal),
+                    iters=10)
+            row["backward_ms"] = cuda_ms(
+                torch, lambda: fa_ops.flash_attention_backward(
+                    qt, kt, vt, m, g, causal, 0), iters=3, warmup=1,
+                rounds=2)
+            row["bound_ms"], row["bound_by"] = bound(B, Sq, Skv, H, D, dtype,
+                                                     masked, causal)
+            print(f"time flash_attention {row['shape']:20s} {dtype:8s} "
+                  f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f}"
+                  f" library_ms={row['library_ms']:.4f} (sdpa) bound_ms="
+                  f"{row['bound_ms']:.4f} ({row['bound_by']}) bound_share="
+                  f"{row['bound_ms'] / row['ms']:.3f} backward_recompute_ms="
+                  f"{row['backward_ms']:.4f}")
+            rows.append(row)
+            del q, k, v, g, out, got, ref, qt, kt, vt, sq, sk, sv
+        label, Bt, S, H, P, N, chunk = SSD_TRAIN
+        ins = [t.requires_grad_(True) for t in ssd_inputs(
+            torch, torch.Generator().manual_seed(22), Bt, S, H, P, N, tdt)]
+        y, st = ssd_ops.ssd_scan(*ins, chunk=chunk)
+        with torch.no_grad():
+            y0, st0 = ssd_ops.ssd_scan(*ins, chunk=chunk)
+        same = torch.equal(y.detach(), y0) and torch.equal(st.detach(), st0)
+        gy, gs = torch.randn_like(y), torch.randn_like(st)
+        got = torch.autograd.grad((y, st), ins, (gy, gs))
+        ref = torch.autograd.grad(ssd_ops.ssd_scan_plain(*ins, chunk),
+                                  ins, (gy, gs))
+        errs = [rel_norm_err(a, b) for a, b in zip(got, ref)]
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        print(f"train grad ssd {label:14s} {dtype:8s} Bt={Bt} S={S} H={H} "
+              f"P={P} N={N} chunk={chunk}: rel_norm dx/ddt/dB/dC/dA "
+              + "/".join(f"{e:.3e}" for e in errs)
+              + f" finite={finite} forward_bitwise_no_grad={same}")
+        require(finite and same, f"ssd grad {dtype}: finite {finite}, "
+                f"forward bitwise {same}")
+        if dtype == "float32":
+            require(max(errs) <= GRAD_TOL, f"ssd grad: rel norm {errs}")
+        detached = [t.detach() for t in ins]
+        with torch.no_grad():
+            fwd = cuda_ms(torch, lambda: ssd_ops.ssd_scan(
+                *detached, chunk=chunk), iters=10)
+            plain = cuda_ms(torch, lambda: ssd_ops.ssd_scan_plain(
+                *detached, chunk), iters=3, warmup=1, rounds=2)
+        ms = cuda_ms(torch, lambda: ssd_ops.ssd_scan_backward(
+            *detached, chunk, gy, gs), iters=3, warmup=1, rounds=2)
+        b_ms, b_by = ssd_bound(Bt, S, H, P, N, chunk, dtype)
+        print(f"time ssd {label} {dtype} kernel_ms={fwd:.4f} plain_ms="
+              f"{plain:.4f} bound_ms={b_ms:.4f} ({b_by}) bound_share="
+              f"{b_ms / fwd:.3f} backward_recompute_ms={ms:.4f}")
+        del ins, y, st, y0, st0, gy, gs, got, ref, detached
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def recorded_steps(torch, train_mod, last: int):
+    """``train_mod.make_train_step`` wrapped for the duration: each step
+    built appends its loss tensor to ``seen["losses"]``, with no
+    synchronization; ``seen["t0"]`` is the host time at the first step's
+    entry and ``seen["t_end"]`` the host time at the end of step ``last``
+    (the device synchronized there, after the last step to be timed)."""
+    make, seen = train_mod.make_train_step, {"losses": [], "t0": None,
+                                             "t_end": None}
+
+    def wrapped_make(loss_fn, tcfg):
+        step = make(loss_fn, tcfg)
+
+        def recorded(state, batch):
+            if seen["t0"] is None:
+                seen["t0"] = time.perf_counter()
+            state, metrics = step(state, batch)
+            seen["losses"].append(metrics["loss"])
+            if len(seen["losses"]) == last:
+                torch.cuda.synchronize()
+                seen["t_end"] = time.perf_counter()
+            return state, metrics
+        return recorded
+    train_mod.make_train_step = wrapped_make
+    try:
+        yield seen
+    finally:
+        train_mod.make_train_step = make
+
+
+def steps_per_s(seen) -> float:
+    """Steps a second of a recorded run: all its steps over the span from
+    the first step's entry to the last step's end (its work done on the
+    device); the checkpoints saved in between are inside the span."""
+    return len(seen["losses"]) / (seen["t_end"] - seen["t0"])
+
+
+# the train step's ``record_function`` ranges (training/train_loop.py)
+# and the flash Function's recompute (kernels/flash_attention/ops.py)
+TRAIN_RANGES = ("train/forward", "train/backward", "train/update",
+                "flash_attention_backward")
+
+
+def train_step_split(torch, fn, what: str) -> dict:
+    """One call of a train step ``fn`` (the real ``make_train_step``)
+    under ``torch.profiler``, printed as ``device_profile`` prints, and
+    cut at the step's ``record_function`` ranges: the device ms of the
+    kernels launched inside each, and the host ms each range spans.  The
+    autograd engine launches the backward's kernels from its own thread,
+    outside the main thread's ``train/backward`` range, so the backward's
+    device time is the busy time that the forward and the update leave;
+    the flash Function's recompute runs in that thread inside its own
+    range.  Returns {part: device ms}."""
     from torch.autograd import DeviceType
+    _, wall, avg = _capture(torch, fn)
+    busy, ours, top = _summary(avg)
+    print_profile(what, wall, busy, ours, top)
+    ranges = {e.key: e for e in avg
+              if e.device_type == DeviceType.CPU and e.key in TRAIN_RANGES}
+    require(set(ranges) == set(TRAIN_RANGES),
+            f"{what}: the profiler holds the ranges {sorted(ranges)}")
+    dev = {k: e.device_time_total / 1e3 for k, e in ranges.items()}
+    host = {k: e.cpu_time_total / 1e3 for k, e in ranges.items()}
+    parts = {"forward": dev["train/forward"],
+             "backward": 1e3 * busy - dev["train/forward"]
+             - dev["train/update"],
+             "of which flash recompute": dev["flash_attention_backward"],
+             "update": dev["train/update"]}
+    require(parts["forward"] > 0 and parts["update"] > 0
+            and parts["of which flash recompute"] > 0,
+            f"{what}: a range holds no device time {parts}")
+    print(f"{what} split (device ms of the kernels each part launched): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+          + f"; busy {1e3 * busy:.2f}, the flash recompute "
+          f"{parts['of which flash recompute'] / (1e3 * busy):.3f} of it; "
+          "host ms in each range: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+    return parts
+
+
+def check_train_capsim(torch, fa_ops, wa_ops):
+    """CAPSim training at full width (``get_config("capsim")`` in f32 as
+    ``launch/train.py::_capsim_cfg`` builds it) on TRAIN_DATA's clips:
+    the card against the CPU from the same init over the same 3 batches
+    of TRAIN_BATCH (the first gradient of every leaf nonzero and finite
+    on the card, <= GRAD_TOL relative norm; the parameters after 3 SGD-
+    momentum steps <= 1e-4 relative); then ``launch/train.py``'s
+    ``train_capsim`` for TRAIN_STEPS steps through ResilientTrainer and
+    CheckpointManager (every launch counter reset just before, read just
+    after), and its restart, which resumes at the last step with the
+    state bitwise the saved one; one step cut at its parts and under the
+    profiler; a throughput row at TRAIN_BIG_BATCH.  Returns the flash
+    launches of the trainer's run."""
+    import argparse
+    import tempfile
+    from repro_torch.core import predictor
+    from repro_torch.core.standardize import build_vocab
+    from repro_torch.data.dataset import (BuildConfig, batches,
+                                          build_dataset, split_dataset)
+    from repro_torch.isa.progen import TABLE_II
+    from repro_torch.launch import train as train_mod
+    from repro_torch.training import train_loop as ttl
+    from repro_torch.training.optimizer import tree_leaves
+
+    n_bench, interval, ckpts = TRAIN_DATA
+    vocab = build_vocab()
+    t0 = time.perf_counter()
+    ds = build_dataset(list(TABLE_II)[:n_bench], BuildConfig(
+        interval_size=interval, warmup=interval // 10,
+        max_checkpoints=ckpts), vocab)
+    build_s = time.perf_counter() - t0
+    train_ds, val_ds, _ = split_dataset(ds)
+    cfg = train_mod._capsim_cfg(argparse.Namespace(smoke=False), vocab)
+    print(f"train capsim data: {n_bench} Table II benchmarks x {ckpts} "
+          f"checkpoints of {interval} instructions: {len(ds)} clips "
+          f"(train {len(train_ds)}, val {len(val_ds)}) built in {build_s:.2f}"
+          f" s on the host; config d_model={cfg.d_model} heads="
+          f"{cfg.num_heads}x{cfg.head_dim} d_ff={cfg.d_ff} vocab="
+          f"{cfg.vocab_size} M={cfg.context_tokens} {cfg.dtype}")
+
+    # card vs CPU: first gradients, then 3 steps
+    def loss_fn(p, b):
+        return predictor.mape_loss(p, b, cfg)
+    tcfg = ttl.TrainConfig(optimizer="sgdm", base_lr=1e-3, warmup_steps=0,
+                           total_steps=3)
+    step = ttl.make_train_step(loss_fn, tcfg)
+    p_cpu = predictor.init_params(cfg, seed=0, device="cpu")
+    p_card = _to(p_cpu, "cuda")
+    three = [{k: torch.from_numpy(v) for k, v in b.items()}
+             for b, _ in zip(batches(train_ds, TRAIN_BATCH), range(3))]
+    (l_card, _), g_card = ttl.value_and_grad(loss_fn, p_card,
+                                             _to(three[0], "cuda"))
+    (l_cpu, _), g_cpu = ttl.value_and_grad(loss_fn, p_cpu, three[0])
+    g_errs, zero = [], []
+    for (name, a), b in zip(_named(g_card), tree_leaves(g_cpu)):
+        require(bool(torch.isfinite(a).all()), f"capsim grad {name} finite")
+        if not bool((a != 0).any()):
+            zero.append(name)
+        g_errs.append((rel_norm_err(a.cpu(), b), name))
+    print(f"train capsim card vs CPU: loss {float(l_card):.7f} / "
+          f"{float(l_cpu):.7f}; first gradient, {len(g_errs)} leaves, "
+          f"worst rel norm {max(g_errs)[0]:.3e} ({max(g_errs)[1]}); leaves "
+          f"with an all-zero gradient on the card: {zero}")
+    require(not zero, f"capsim: leaves without a gradient on the card {zero}")
+    require(max(g_errs)[0] <= GRAD_TOL, f"capsim first gradient {max(g_errs)}")
+    s_card = ttl.init_train_state(p_card, tcfg)
+    s_cpu = ttl.init_train_state(p_cpu, tcfg)
+    for b in three:
+        s_card, m_card = step(s_card, _to(b, "cuda"))
+        s_cpu, m_cpu = step(s_cpu, b)
+    worst, moved = 0.0, []
+    for a, b, p0 in zip(tree_leaves(s_card["params"]),
+                        tree_leaves(s_cpu["params"]), tree_leaves(p_cpu)):
+        a = a.cpu()
+        worst = max(worst, float((a - b).abs().max()
+                                 / b.abs().max().clamp(min=1e-30)))
+        moved.append(rel_norm_err(a - p0, b - p0))
+    print(f"train capsim card vs CPU after 3 sgdm steps: parameters worst "
+          f"rel {worst:.3e}; the updates' worst rel norm {max(moved):.3e}; "
+          f"mape {float(m_card['loss']):.6f} / {float(m_cpu['loss']):.6f}")
+    require(worst <= 1e-4, f"capsim 3 steps: parameters rel {worst}")
+    del p_cpu, g_cpu, s_cpu
+
+    # the trainer's run through the launcher, then its restart
+    with tempfile.TemporaryDirectory() as tmp:
+        args = train_mod.parse_args([
+            "--device", "cuda", "--n-benchmarks", str(n_bench),
+            "--interval-size", str(interval), "--max-checkpoints",
+            str(ckpts), "--steps", str(TRAIN_STEPS),
+            "--batch-size", str(TRAIN_BATCH), "--save-every",
+            str(TRAIN_SAVE_EVERY), "--ckpt-dir", tmp])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_steps(torch, train_mod, TRAIN_STEPS) as seen:
+            fa_ops.flash_attention.launches = 0
+            wa_ops.weighted_attention.launches = 0
+            t0 = time.perf_counter()
+            state = train_mod.train_capsim(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = (fa_ops.flash_attention.launches,
+                 wa_ops.weighted_attention.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        mape = [float(loss) for loss in seen["losses"]]
+        sps = steps_per_s(seen)
+        n_eval = -(-len(val_ds) // TRAIN_BATCH)
+        expect = (12 * (TRAIN_STEPS + n_eval), 0)
+        print(f"train capsim launcher: {len(mape)} steps in {wall:.2f} s "
+              f"(data build and validation included); {sps:.2f} steps/s = "
+              f"{sps * TRAIN_BATCH:.1f} clips/s (checkpoints every "
+              f"{TRAIN_SAVE_EVERY} included); peak {peak:.2f} GiB; launches "
+              f"flash={n[0]} weighted={n[1]} (expected {expect}: 4 + 8 a "
+              f"forward, {n_eval} validation batches)")
+        require(n == expect and len(mape) == TRAIN_STEPS,
+                f"capsim training launches {n} / steps {len(mape)}")
+        require(all(math.isfinite(x) for x in mape), "capsim: non-finite MAPE")
+        print("train capsim mape first 20: "
+              + " ".join(f"{x:.4f}" for x in mape[:20]))
+        print("train capsim mape last 20: "
+              + " ".join(f"{x:.4f}" for x in mape[-20:]))
+        saved, at = train_mod.CheckpointManager(tmp).restore_latest(
+            state, device="cuda")
+        with recorded_steps(torch, train_mod, 1) as again:
+            resumed = train_mod.train_capsim(args)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(resumed), tree_leaves(state))) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(saved),
+                                              tree_leaves(state)))
+        print(f"train capsim restart: resumed at step {at} "
+              f"(state step {int(resumed['step'])}), {len(again['losses'])} steps "
+              f"run, state bitwise the saved one: {same}")
+        require(at == TRAIN_STEPS and not again["losses"] and same
+                and int(resumed["step"]) == TRAIN_STEPS,
+                "capsim restart did not resume at the saved state")
+
+    # one step under the profiler, cut at its parts
+    batch = _to({k: torch.from_numpy(v) for k, v in next(
+        batches(train_ds, TRAIN_BATCH, seed=1)).items()}, "cuda")
+    tcfg = ttl.TrainConfig(optimizer="sgdm", base_lr=1e-3,
+                           warmup_steps=20, total_steps=TRAIN_STEPS)
+    step = ttl.make_train_step(loss_fn, tcfg)
+    step(state, batch)                                          # warm
+    train_step_split(torch, lambda: step(state, batch),
+                     f"train capsim step (batch {TRAIN_BATCH})")
+
+    # throughput at the larger batch
+    big = [_to({k: torch.from_numpy(v) for k, v in b.items()}, "cuda")
+           for b, _ in zip(batches(train_ds, TRAIN_BIG_BATCH, epochs=10),
+                           range(TRAIN_BIG_STEPS))]
+    s = ttl.init_train_state(state["params"], tcfg)
+    s, m = step(s, big[0])                                       # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for b in big[1:]:
+        s, m = step(s, b)
+    float(m["loss"])
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sps = (len(big) - 1) / dt
+    print(f"train capsim batch {TRAIN_BIG_BATCH}: {sps:.2f} steps/s = "
+          f"{sps * TRAIN_BIG_BATCH:.1f} clips/s over {len(big) - 1} steps, "
+          f"peak {peak:.2f} GiB")
+    train_step_split(torch, lambda: step(s, big[0]),
+                     f"train capsim step (batch {TRAIN_BIG_BATCH})")
+    del state, s, big, batch
+    torch.cuda.empty_cache()
+    return n[0]
+
+
+def check_train_multicore(torch, fa_ops, wa_ops):
+    """``launch/train.py``'s ``train_capsim_multicore`` on TRAIN_MC_CORES
+    cores at TRAIN_MC_INTERVAL for TRAIN_MC_STEPS steps, at context width
+    369 and with ``--peer-channels`` (4 x 369 rows), each with the launch
+    counters reset just before and read just after: finite losses, the
+    flash launches exactly 12 a forward (4 instruction-encoder layers in
+    one pass of 4096 rows, 4 block layers of self and cross attention)
+    over the steps and the validation and held-out batches, steps/s.
+    Returns the flash launches."""
+    import tempfile
+    from repro_torch.core.standardize import build_vocab
+    from repro_torch.data.dataset import split_dataset
+    from repro_torch.data.multicore_dataset import (MulticoreBuildConfig,
+                                                    build_multicore_dataset)
+    from repro_torch.isa.multicore import MULTICORE_NAMES
+    from repro_torch.launch import train as train_mod
+
+    total = 0
+    for peer in (False, True):
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--device", "cuda", "--multicore", str(TRAIN_MC_CORES),
+                    "--interval-size",
+                    str(TRAIN_MC_INTERVAL), "--steps", str(TRAIN_MC_STEPS),
+                    "--batch-size", str(TRAIN_BATCH), "--ckpt-dir", tmp]
+            args = train_mod.parse_args(argv + (["--peer-channels"]
+                                                if peer else []))
+            # the launcher's data, built here too to count its batches
+            _, val, test = split_dataset(build_multicore_dataset(
+                list(MULTICORE_NAMES)[:args.n_benchmarks],
+                MulticoreBuildConfig(
+                    interval_size=args.interval_size,
+                    warmup=args.interval_size // 10,
+                    max_checkpoints=args.max_checkpoints,
+                    n_cores=args.multicore, peer_channels=peer),
+                build_vocab()))
+            n_eval = sum(-(-len(d) // TRAIN_BATCH) for d in (val, test))
+            expect = (12 * (TRAIN_MC_STEPS + n_eval), 0)
+            torch.cuda.reset_peak_memory_stats()
+            with recorded_steps(torch, train_mod, TRAIN_MC_STEPS) as seen:
+                fa_ops.flash_attention.launches = 0
+                wa_ops.weighted_attention.launches = 0
+                t0 = time.perf_counter()
+                train_mod.train_capsim_multicore(args)
+                wall = time.perf_counter() - t0
+                n = (fa_ops.flash_attention.launches,
+                     wa_ops.weighted_attention.launches)
+            losses = [float(loss) for loss in seen["losses"]]
+            sps = steps_per_s(seen)
+        width = 369 * (TRAIN_MC_CORES if peer else 1)
+        print(f"train multicore {TRAIN_MC_CORES} cores context width "
+              f"{width} (peer_channels={peer}): {len(losses)} steps, "
+              f"{sps:.2f} steps/s = {sps * TRAIN_BATCH:.1f} clips/s, wall "
+              f"{wall:.2f} s (build and eval included), peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"launches flash={n[0]} weighted={n[1]} (expected {expect}: "
+              f"{n_eval} validation and held-out batches); mape "
+              f"first/last {losses[0]:.4f} / {losses[-1]:.4f}")
+        require(len(losses) == TRAIN_MC_STEPS and n == expect
+                and all(math.isfinite(x) for x in losses),
+                f"multicore training (peer {peer}): steps {len(losses)}, "
+                f"launches {n} (expected {expect}), losses {losses}")
+        total += n[0]
+    torch.cuda.empty_cache()
+    return total
+
+
+def check_train_lm(torch, fa_ops, wa_ops, ssd_ops):
+    """Each of LM_TRAIN_RUNS at full width, cut in depth, in its config
+    dtype: LM_TRAIN_STEPS AdamW steps on one batch of LM_TRAIN_BATCH x
+    LM_TRAIN_SEQ (the launcher's optimizer), the launch counters reset
+    just before and read just after (one flash launch per attention layer
+    and one SSD launch per SSM layer a forward); the first gradient of
+    every leaf finite and nonzero; the loss finite and falling;
+    tokens/s, peak memory and a profiled step.  Then the card against
+    the CPU for one f32 gradient at LM_GATE_SEQ: the loss <= 1e-5
+    relative, each leaf <= GRAD_TOL relative norm.  Returns (flash, SSD)
+    launches."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.specs import random_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import train_loop as ttl
+    from repro_torch.training.optimizer import tree_leaves
+
+    flash = ssd = 0
+    for arch, layers in LM_TRAIN_RUNS:
+        cfg = get_config(arch).replace(num_layers=layers)
+        mixers = [m for m, _ in cfg.pattern()] * cfg.num_repeats
+        B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+        params = tfm.init_params(cfg, seed=0, device="cuda")
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        batch = random_batch(cfg, ShapeConfig("train", S, B, "train"),
+                             "train", seed=0, device="cuda")
+
+        def loss_fn(p, b):
+            return tfm.loss_fn(p, b, cfg)
+        (_, _), grads = ttl.value_and_grad(loss_fn, params, batch)
+        zero = [name for name, g in _named(grads)
+                if not bool((g != 0).any()) or not bool(
+                    torch.isfinite(g).all())]
+        require(not zero, f"{arch}: leaves with a zero or non-finite "
+                f"gradient {zero}")
+        del grads
+        tcfg = ttl.TrainConfig(optimizer="adamw", base_lr=1e-3,
+                               warmup_steps=0, total_steps=LM_TRAIN_STEPS)
+        step = ttl.make_train_step(loss_fn, tcfg)
+        state = ttl.init_train_state(params, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.flash_attention.launches = 0
+        wa_ops.weighted_attention.launches = 0
+        ssd_ops.ssd_scan.launches = 0
+        losses, times = [], []
+        for _ in range(LM_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        n = (fa_ops.flash_attention.launches, ssd_ops.ssd_scan.launches,
+             wa_ops.weighted_attention.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expect = (LM_TRAIN_STEPS * mixers.count("attn"),
+                  LM_TRAIN_STEPS * mixers.count("ssm"), 0)
+        # the first step warms the allocator; each step ends synchronized
+        # (its loss read)
+        tok_s = B * S * len(times[1:]) / sum(times[1:])
+        print(f"train lm {arch} ({layers} of {get_config(arch).num_layers} "
+              f"layers, full width, {cfg.dtype}, {n_params} params) batch "
+              f"{B} x {S}: losses " + " ".join(f"{x:.4f}" for x in losses)
+              + f"; step s " + " ".join(f"{x:.3f}" for x in times)
+              + f"; {tok_s:.1f} tokens/s (steps 2-{LM_TRAIN_STEPS}); peak "
+              f"{peak:.2f} GiB; launches flash={n[0]} ssd={n[1]} "
+              f"weighted={n[2]} (expected {expect}); every leaf's first "
+              "gradient finite and nonzero")
+        require(n == expect, f"{arch} training launches {n}, expected "
+                f"{expect}")
+        require(all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0], f"{arch}: losses {losses}")
+        flash += n[0]
+        ssd += n[1]
+        _, *prof = device_profile(torch, lambda: step(state, batch))
+        print_profile(f"train lm {arch} step", *prof)
+        del params, state, batch, prof
+        torch.cuda.empty_cache()
+
+        # f32 card vs CPU
+        cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+        batch = random_batch(cfg32, ShapeConfig("gate", LM_GATE_SEQ, 1,
+                                                "train"), "train", seed=1,
+                             device="cpu")
+        p_cpu = tfm.init_params(cfg32, seed=0, device="cpu")
+        p_card = tfm.init_params(cfg32, seed=0, device="cuda")
+
+        def loss32(p, b):
+            return tfm.loss_fn(p, b, cfg32)
+        (l_card, _), g_card = ttl.value_and_grad(loss32, p_card,
+                                                 _to(batch, "cuda"))
+        (l_cpu, _), g_cpu = ttl.value_and_grad(loss32, p_cpu, batch)
+        errs = [(rel_norm_err(a.cpu(), b), name) for (name, a), b in zip(
+            _named(g_card), tree_leaves(g_cpu))]
+        loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        print(f"train lm {arch} f32 card vs CPU, 1 x {LM_GATE_SEQ}: loss "
+              f"{float(l_card):.6f} / {float(l_cpu):.6f} (rel {loss_rel:.3e})"
+              f"; gradients, {len(errs)} leaves, worst rel norm "
+              f"{max(errs)[0]:.3e} ({max(errs)[1]})")
+        require(loss_rel <= 1e-5 and max(errs)[0] <= GRAD_TOL,
+                f"{arch} f32 card vs CPU: loss {loss_rel}, {max(errs)}")
+        del p_cpu, p_card, g_card, g_cpu
+        torch.cuda.empty_cache()
+    return flash, ssd
+
+
+def _named(tree, prefix=""):
+    """(name, leaf) in sorted key order (``tree_leaves``' order)."""
+    for k in sorted(tree):
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(tree[k], dict):
+            yield from _named(tree[k], name)
+        else:
+            yield name, tree[k]
+
+
+def _capture(torch, fn):
+    """Run ``fn`` once under ``torch.profiler`` (host and device).
+    Returns (its result, wall s, the capture's ``key_averages``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2994,15 +3624,33 @@ def device_profile(torch, fn, top: int = 5):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+    return out, wall, prof.key_averages()
+
+
+def _summary(avg, top: int = 5):
+    """(device busy s = the sum of the kernels' device times, the port's
+    own kernels' device s, the ``top`` kernels by device time as (name,
+    ms, calls)).  The device-side copies of ``record_function`` ranges
+    span kernels already counted, and are left out."""
+    from torch.autograd import DeviceType
+    kernels = sorted((e for e in avg if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
                      key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     ours = sum(e.self_device_time_total for e in kernels
                if "capsim" in e.key) / 1e6
     require(busy > 0, "the profiler saw no device time")
-    return out, wall, busy, ours, [(e.key, e.self_device_time_total / 1e3,
-                                    e.count) for e in kernels[:top]]
+    return busy, ours, [(e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in kernels[:top]]
+
+
+def device_profile(torch, fn, top: int = 5):
+    """Run ``fn`` once under ``torch.profiler``.  Returns (its result, wall
+    s, device busy s = the sum of the kernels' device times, the port's
+    own kernels' device s, the ``top`` kernels by device time as (name,
+    ms, calls))."""
+    out, wall, avg = _capture(torch, fn)
+    return (out, wall) + _summary(avg, top)
 
 
 def print_profile(what: str, wall: float, busy: float, ours: float,
@@ -3143,6 +3791,17 @@ def main() -> int:
     rows["flash_attention"] += time_causal_flash(torch, fa_ops, FA_FRONTENDS,
                                                  per_prefill, 13)
     phase("frontends")
+    rows["flash_attention"] += check_train_grads(torch, fa_ops, ssd_ops)
+    phase("train grads")
+    launches["flash_attention"] += check_train_capsim(torch, fa_ops, wa_ops)
+    phase("train capsim")
+    launches["flash_attention"] += check_train_multicore(torch, fa_ops,
+                                                         wa_ops)
+    phase("train multicore")
+    n_flash, n_ssd = check_train_lm(torch, fa_ops, wa_ops, ssd_ops)
+    launches["flash_attention"] += n_flash
+    launches["ssd"] += n_ssd
+    phase("train lm")
     print("phases: " + ", ".join(f"{name} {sec:.1f} s"
                                  for name, sec in phase_s.items()))
 

@@ -1,6 +1,6 @@
 """Atomic checkpoints: save/restore with a manifest (port of
 ``repro/checkpoint/ckpt.py``: ``save``, ``latest_step``, ``read_manifest``,
-``restore``).
+``restore`` and the training loop's ``CheckpointManager``).
 
 Layout (one directory per step), the reference's:
 
@@ -24,8 +24,11 @@ flat keys join the dict keys with "/", as the reference's pytree paths
 do.  numpy has no bfloat16, so a bfloat16 tensor is saved as its raw
 16-bit pattern (int16) with ``"bfloat16"`` in the manifest, and restores
 bit for bit.  ``restore`` returns tensors on the device the caller names.
-The reference's ``CheckpointManager`` (async, keep-K, for training) is
-not ported yet.
+
+``CheckpointManager`` saves asynchronously, one save in flight at a
+time, and keeps the newest K steps: the state is copied to the host
+before the writer thread starts, so training may go on with the
+device's tensors.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import json
 import os
 import re
 import shutil
+import threading
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
@@ -187,3 +191,51 @@ def restore(state_like, step: int, ckpt_dir: str, *, host: int = 0,
         return {k: build(v, f"{prefix}/{k}" if prefix else str(k))
                 for k, v in tree.items()}
     return build(state_like)
+
+
+class CheckpointManager:
+    """Async, keep-last-K checkpointing for the training loop.  ``wait``
+    returns once the save in flight (if any) is on disk."""
+
+    def __init__(self, ckpt_dir: str, *, keep: int = 3):
+        self.dir = Path(ckpt_dir)
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def save(self, state, step: int) -> None:
+        self.wait()                                     # one in flight
+        # on the host *now*, so training can go on with the device state
+        host_state = _host_copy(state)
+
+        def _do():
+            save(host_state, step, str(self.dir))
+            self._gc()
+
+        self._thread = threading.Thread(target=_do, daemon=True)
+        self._thread.start()
+
+    def _gc(self) -> None:
+        for s in _completed_steps(self.dir)[: -self.keep]:
+            shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
+
+    def restore_latest(self, state_like, device: DeviceLike = "cuda"):
+        """(state on ``device``, its step), or (None, None) without a
+        checkpoint."""
+        self.wait()
+        step = latest_step(str(self.dir))
+        if step is None:
+            return None, None
+        return restore(state_like, step, str(self.dir), device=device), step
+
+
+def _host_copy(tree):
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return np.array(tree)

@@ -13,6 +13,9 @@ Two-level architecture, Eq 5-9:
   head                  MLP -> per-row scalar -> mean -> softplus × the
                         clip's instruction count (cycles).
 
+Training minimizes ``mape_loss`` (Eq 11) over the monolithic ``forward``;
+gradients come back through ``flash_attention``'s backward.
+
 Parameters are a nested dict of tensors with the reference's tree and
 layouts: dense weights are ``(d_in, d_out)`` and per-layer weights carry a
 leading layer-stack axis, so ``params_from_numpy``/``params_to_numpy``
@@ -243,6 +246,20 @@ def forward_cached(params, rt_table, batch, cfg, use_context: bool = True):
     ``rt_table`` ((C, E), from ``encode_instructions``)."""
     return block_forward(params, rt_table[batch["rt_idx"]], batch, cfg,
                          use_context)
+
+
+def mape_loss(params, batch, cfg, use_context: bool = True):
+    """Eq 11: |prediction - fact| / fact, averaged over the batch; the
+    fact (``batch["time"]``, cycles) clamped to >= 1.  Returns (mape,
+    {"mape": mape}), the train step's (loss, aux)."""
+    pred = forward(params, batch, cfg, use_context)
+    fact = batch["time"].float().clamp(min=1.0)
+    mape = ((pred - fact).abs() / fact).mean()
+    return mape, {"mape": mape}
+
+
+def predict_step(params, batch, cfg, use_context: bool = True):
+    return forward(params, batch, cfg, use_context)
 
 
 # --------------------------------------------------------------------------- #

@@ -4,10 +4,18 @@ Replaces ``repro/kernels/flash_attention/ops.py::flash_attention`` (the
 Pallas kernel ``_fa_kernel``).  Layout is the reference's: q (B, Sq, H, D),
 k/v (B, Skv, H, D), kv_mask (B, Skv) with 1 = valid; causal masks align q
 to the end of kv (``q_offset = Skv - Sq``); a row with no valid key
-outputs zeros.  Forward only: the port does inference.
+outputs zeros.
 
 ``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors
 and runs ``flash_attention_plain`` for CPU tensors; anything else raises.
+It carries a gradient to q, k and v (the mask gets none).  On the CPU
+autograd differentiates the plain version.  On the card, when grad mode
+is on and q, k or v requires grad, the launch is the forward of a
+``torch.autograd.Function`` that saves q, k, v and the mask; its backward,
+``flash_attention_backward``, recomputes the attention through the plain
+version and differentiates that, as the reference's custom VJP
+recomputes through ``attention_ref``.  The forward launch is the same
+either way: same arguments, same bits, one launch counted.
 The kernel copies q/k/v rows 16 bytes at a time, so each must start on a
 16-byte boundary and step by a multiple of 16 bytes per batch and row;
 the C entry point checks that (it alone knows the kernel's loads) and the
@@ -22,6 +30,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import build
 
@@ -187,18 +196,59 @@ def _kernel():
     return lib, fn
 
 
+def flash_attention_backward(q, k, v, kv_mask, g, causal: bool = False,
+                             window: int = 0):
+    """(dq, dk, dv) of ``flash_attention`` at q/k/v for the output
+    gradient ``g``: the attention recomputed through
+    ``flash_attention_plain`` and differentiated by autograd, in a
+    ``torch.profiler`` range of the same name."""
+    with torch.enable_grad(), record_function("flash_attention_backward"):
+        qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = flash_attention_plain(*qkv, causal=causal, window=window,
+                                  kv_mask=kv_mask)
+        return torch.autograd.grad(o, qkv, g)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's launch as the forward, the plain version's recompute
+    as the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, window):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.causal, ctx.window = causal, window
+        return _launch(q, k, v, kv_mask, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, kv_mask, g,
+                                              ctx.causal, ctx.window)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, window: int = 0,
                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Skv, H, D); kv_mask: (B, Skv) 1 = valid.
     Returns (B, Sq, H, D) in q.dtype.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel on the current stream."""
+    CUDA tensors launch the kernel on the current stream, through
+    ``_FlashAttention`` where a gradient is wanted."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      kv_mask=kv_mask)
     if kv_mask is not None:
         kv_mask = kv_mask.float().contiguous()
     check_attention_args(q, k, v, kv_mask, "flash_attention")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kv_mask, causal, window)
+    return _launch(q, k, v, kv_mask, causal, window)
+
+
+def _launch(q, k, v, kv_mask, causal: bool, window: int) -> torch.Tensor:
+    """One launch of the kernel on checked arguments; head dim 112 runs
+    zero-padded to 128 and is cut back."""
     lib, fn = _kernel()
     D = q.shape[3]
     q, k, v = pad_head_dim(q, k, v)

@@ -6,15 +6,21 @@ twin: the row max runs over every in-range key, zero-weight keys
 included, and the weight multiplies the max-shifted exponential,
 ``Σ w·e^{s-m}·v / Σ w·e^{s-m}``.  A row whose keys all weigh 0 outputs
 zeros.  Layout: q (B, Sq, H, D), k/v (B, Skv, H, D), kv_weight (B, Skv)
-f32.  Inference only.
+f32.
 
 ``weighted_attention`` launches ``csrc/weighted_attention.cu`` (flash
 attention's body with the weight, ``csrc/flash_attention.cuh``) for CUDA
-tensors and runs ``weighted_attention_plain`` for CPU tensors.  Like
-flash attention's, the kernel copies q/k/v rows 16 bytes at a time: each
-must start on 16 bytes and step by multiples of 16 bytes per batch and
-row, or the wrapper raises ``ValueError``; the fused step's split QKV
-views pass.  Head dims as flash attention's, 112 zero-padded to 128.
+tensors and runs ``weighted_attention_plain`` for CPU tensors.  It
+carries no gradient on the card: nothing trains through the fused
+serving step (the reference's serves only), so on CUDA tensors it raises
+when grad mode is on and an input requires grad, rather than return an
+output cut off from autograd.  On the CPU autograd differentiates the
+plain version.
+
+Like flash attention's, the kernel copies q/k/v rows 16 bytes at a time:
+each must start on 16 bytes and step by multiples of 16 bytes per batch
+and row, or the wrapper raises ``ValueError``; the fused step's split
+QKV views pass.  Head dims as flash attention's, 112 zero-padded to 128.
 """
 from __future__ import annotations
 
@@ -62,6 +68,11 @@ def weighted_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors launch the kernel on the current stream."""
     if q.device.type == "cpu":
         return weighted_attention_plain(q, k, v, kv_weight)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, kv_weight)):
+        raise RuntimeError("weighted_attention: the CUDA kernel has no "
+                           "gradient (the fused step serves only); run "
+                           "it under torch.no_grad() or inference_mode()")
     kv_weight = kv_weight.float().contiguous()
     check_attention_args(q, k, v, kv_weight, "weighted_attention")
     lib, fn = _kernel()

@@ -23,7 +23,18 @@ f32 (the state after the last real step; padded steps leave it).
 ``ssd_scan`` launches ``csrc/ssd.cu`` (four kernels on the current
 stream: C·Bᵀ per chunk, each chunk's state contribution, the pass over
 chunks, y) for CUDA tensors and runs ``ssd_scan_plain`` for CPU tensors;
-anything else raises.  The kernels' f32 workspace (C·Bᵀ per chunk and
+anything else raises.  It carries a gradient to x, dt, B, C and A from
+both outputs.  On the CPU autograd differentiates the plain version.  On
+the card, when grad mode is on and an input requires grad, the launches
+are the forward of a ``torch.autograd.Function``; its backward,
+``ssd_scan_backward``, recomputes the scan through the plain version and
+differentiates that (the reference has no custom VJP: JAX
+differentiates its chunked scan).  The plain version masks the decay's
+exponent to -inf above the diagonal before the ``exp``, as the
+reference's ``_segsum`` does: there ``seg_i - seg_j`` is positive and
+overflows once a chunk's Σ dt·|A| passes ~88, and an ``exp`` taken
+first and masked after gives the right forward but ``0 · inf = NaN`` in
+its gradient.  The kernels' f32 workspace (C·Bᵀ per chunk and
 one state per chunk and head, about x's size in bf16 at the Mamba2
 shapes) is allocated here, on x's device.
 """
@@ -63,7 +74,7 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         dtc = dtc.transpose(1, 2)                               # (Bt, H, q)
         seg = torch.cumsum((dtc * Af[None, :, None]).double(), dim=-1)
         diff = (seg[..., :, None] - seg[..., None, :]).float()  # (Bt,H,q,q)
-        L = torch.where(causal, torch.exp(diff), 0.0)
+        L = torch.exp(diff.masked_fill(~causal, float("-inf")))
         CB = torch.einsum("bin,bjn->bij", Cc, Bc)
         xdt = xc * dtc.transpose(1, 2)[..., None]               # (Bt,q,H,P)
         y = torch.einsum("bhij,bjhp->bihp", CB[:, None] * L, xdt)
@@ -125,14 +136,49 @@ def _kernel():
     return lib, fn
 
 
+def ssd_scan_backward(x, dt, B, C, A, chunk: int, gy, gstate):
+    """(dx, ddt, dB, dC, dA) of ``ssd_scan`` for the gradients of its two
+    outputs: the scan recomputed through ``ssd_scan_plain`` and
+    differentiated by autograd."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, dt, B, C, A)]
+        y, state = ssd_scan_plain(*ins, chunk)
+        return torch.autograd.grad((y, state), ins, (gy, gstate))
+
+
+class _SSDScan(torch.autograd.Function):
+    """The kernels' launches as the forward, the plain version's
+    recompute as the backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B, C, A, chunk):
+        ctx.save_for_backward(x, dt, B, C, A)
+        ctx.chunk = chunk
+        return _launch(x, dt, B, C, A, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        return ssd_scan_backward(*ctx.saved_tensors, ctx.chunk, gy,
+                                 gstate) + (None,)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, A: torch.Tensor, chunk: int = 256):
     """Returns (y (Bt, S, H, P) in x's dtype, final state (Bt, H, P, N)
     f32).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel on the current stream."""
+    kernel on the current stream, through ``_SSDScan`` where a gradient
+    is wanted."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, B, C, A, chunk)
     check_ssd_args(x, dt, B, C, A)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, B, C, A)):
+        return _SSDScan.apply(x, dt, B, C, A, chunk)
+    return _launch(x, dt, B, C, A, chunk)
+
+
+def _launch(x, dt, B, C, A, chunk: int):
+    """One call's four launches on checked arguments."""
     Bt, S, H, P = x.shape
     N = B.shape[-1]
     q = min(chunk, S)

@@ -1,6 +1,6 @@
 """Input batch shapes and seeded random batches for the LM zoo (port of
 ``repro/launch/specs.py``: ``lm_batch_shapes`` and ``random_batch`` for
-the prefill and decode kinds).  Batches are drawn from
+the train, prefill and decode kinds).  Batches are drawn from
 ``np.random.RandomState(seed)`` in the reference's order, so a seed gives
 the JAX package's batch, bit for bit."""
 from __future__ import annotations
@@ -22,12 +22,12 @@ def lm_batch_shapes(cfg, shape: ShapeConfig, kind: str) -> dict:
     """{name: (shape, numpy dtype)} of one input batch (without caches),
     in the reference's key order: tokens (B, S_tok[, C]), the frontend's
     (B, F, d_model) embeddings and M-RoPE's (3, B, S) positions where the
-    config has them; a decode batch is one (B, 1[, C]) token."""
-    if kind == "train":
-        raise NotImplementedError("training batches: ROADMAP port queue "
-                                  "item 7")
-    if kind not in ("prefill", "decode"):
-        raise ValueError(f"kind must be prefill or decode, got {kind!r}")
+    config has them; a train batch adds labels (B, S[, C]) and the
+    loss_mask (B, S) over all S positions; a decode batch is one (B, 1[,
+    C]) token."""
+    if kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"kind must be train, prefill or decode, got "
+                         f"{kind!r}")
     B, S = shape.global_batch, shape.seq_len
     codebooks = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
     if kind == "decode":
@@ -37,23 +37,30 @@ def lm_batch_shapes(cfg, shape: ShapeConfig, kind: str) -> dict:
         batch["frontend"] = ((B, cfg.frontend_len, cfg.d_model), np.float32)
     if cfg.mrope_sections:
         batch["positions"] = ((3, B, S), np.int32)
+    if kind == "train":
+        batch["labels"] = ((B, S) + codebooks, np.int32)
+        batch["loss_mask"] = ((B, S), np.float32)
     return batch
 
 
 def random_batch(cfg, shape: ShapeConfig, kind: str, seed: int = 0,
                  device: DeviceLike = "cuda") -> dict:
     """Concrete random batch matching ``lm_batch_shapes`` on ``device``:
-    token ids in [0, vocab_size) as int64, frontend embeddings standard
-    normal in float32, and the M-RoPE positions as the reference gives
-    them: drawn (the draw advances the generator) and then replaced by
-    ``arange(S)`` in all three streams."""
+    token ids and labels in [0, vocab_size) as int64, frontend embeddings
+    standard normal in float32, the loss mask ones (no draw), and the
+    M-RoPE positions as the reference gives them: drawn (the draw
+    advances the generator) and then replaced by ``arange(S)`` in all
+    three streams."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
     out = {}
     for k, (shp, dt) in lm_batch_shapes(cfg, shape, kind).items():
         if dt == np.int32:
-            hi = cfg.vocab_size if k == "tokens" else shape.seq_len
+            hi = cfg.vocab_size if k in ("tokens", "labels") \
+                else shape.seq_len
             a = rng.randint(0, max(2, hi), size=shp).astype(np.int64)
+        elif k == "loss_mask":
+            a = np.ones(shp, np.float32)
         else:
             a = rng.randn(*shp).astype(np.float32)
         out[k] = torch.from_numpy(a).to(dev)

@@ -12,7 +12,8 @@ schedule the config gives (jamba's super-block mixes all four); the
 modality frontend stubs (precomputed embeddings prepended to the token
 embeddings) and MusicGen's parallel codebooks (a (C, V, d) embedding
 table summed over the codebooks, a (C, d, V) unembedding giving (B, S,
-C, V) logits).  ``loss_fn`` is training (ROADMAP port queue item 7).
+C, V) logits), and ``loss_fn``, the causal-LM loss with the MoE's
+load-balance and router z losses that training minimizes.
 
 Decode writes each attention layer's new key and value into the caches
 it is given, in place, and returns those caches; an SSM layer's new
@@ -273,6 +274,34 @@ def forward(params, batch, cfg, mode: str, caches=None, cache_pos=None):
                                           positions, cache_pos)
     x = norm(x, params["final_norm"], cfg)
     return _logits(params, x, cfg), new_caches, lb, z
+
+
+# --------------------------------------------------------------------------- #
+# Loss
+# --------------------------------------------------------------------------- #
+
+LB_COEF = 0.01
+Z_COEF = 1e-3
+
+
+def loss_fn(params, batch, cfg):
+    """Causal-LM loss, as the reference's.  batch: tokens, labels (B, S[,
+    C]) and loss_mask (B, S) over all S positions (a frontend's too: the
+    labels and mask are sized to match).  The label's logit is a gather,
+    which equals the reference's one-hot sum bit for bit (one value added
+    to exact zeros); with codebooks the CE is averaged over them; the
+    mask is normalized by max(sum, 1).  Returns (ce + LB_COEF·lb +
+    Z_COEF·z, {"ce", "lb", "z"})."""
+    logits, _, lb, z = forward(params, batch, cfg, "train")
+    logits = logits.float()
+    mask = batch["loss_mask"].float()
+    lab_logit = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
+    ce = torch.logsumexp(logits, dim=-1) - lab_logit
+    if cfg.num_codebooks > 1:
+        ce = ce.mean(-1)                                 # mean codebooks
+    ce = (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    total = ce + LB_COEF * lb + Z_COEF * z
+    return total, {"ce": ce, "lb": lb, "z": z}
 
 
 def prefill_step(params, batch, cfg):

@@ -1,8 +1,9 @@
-"""The port on the card: each CUDA kernel against its plain version, and
-the engine (single-core and multicore, sampled, and its RT store's
-restart), the serving layer, the Mamba2 LM, the dense decoders, the
-MoE and hybrid models and the frontend and codebook models on the card
-against the same code on the CPU.
+"""The port on the card: each CUDA kernel against its plain version (the
+flash and SSD kernels' gradients too), and the engine (single-core and
+multicore, sampled, and its RT store's restart), the serving layer, the
+Mamba2 LM, the dense decoders, the MoE and hybrid models, the frontend
+and codebook models and a train step of the CAPSim predictor and of two
+LMs on the card against the same code on the CPU.
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 file imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -585,3 +586,166 @@ def test_frontends_on_card_matches_cpu(arch):
                 / cpu.logits.abs().max())
     assert rel <= 1e-4, rel
     assert torch.equal(card.tokens.cpu(), cpu.tokens)
+
+
+def _grads_close(got, ref, tol, what):
+    for a, b, name in zip(got, ref, "qkv" if len(got) == 3 else
+                          ("x", "dt", "B", "C", "A")):
+        assert torch.isfinite(a).all(), (what, name)
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        assert rel <= tol, (what, name, rel)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_gradient_matches_plain_on_card(dtype):
+    """The Function's gradients (the kernel's forward, the plain
+    version's recompute) against autograd through the plain version on
+    the card, at the predictor's three shapes, a causal window with a key
+    mask and head dim 112: f32 <= 1e-4 relative norm per input, bf16 <=
+    2e-2; one kernel launch per forward, and the forward bitwise the
+    no-grad launch's."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    rng = np.random.RandomState(9)
+    for B, Sq, Skv, H, D, causal, window, masked in (
+            (64, 16, 16, 4, 32, False, 0, True),
+            (2, 360, 360, 4, 32, False, 0, False),
+            (2, 360, 128, 4, 32, False, 0, True),
+            (2, 100, 130, 2, 32, True, 40, True),
+            (1, 64, 64, 2, 112, True, 0, False)):
+        q, k, v = (_cuda(rng.randn(B, S, H, D), tdt).requires_grad_(True)
+                   for S in (Sq, Skv, Skv))
+        g = _cuda(rng.randn(B, Sq, H, D), tdt)
+        m = _cuda(rng.rand(B, Skv) > 0.3, torch.float32) if masked else None
+        before = fa_ops.flash_attention.launches
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     kv_mask=m)
+        assert fa_ops.flash_attention.launches == before + 1
+        with torch.no_grad():
+            plain_launch = fa_ops.flash_attention(q, k, v, causal=causal,
+                                                  window=window, kv_mask=m)
+        assert torch.equal(out.detach(), plain_launch)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        ref = torch.autograd.grad(fa_ops.flash_attention_plain(
+            q, k, v, causal=causal, window=window, kv_mask=m), (q, k, v), g)
+        _grads_close(got, ref, tol, (B, Sq, Skv, H, D))
+        assert got[0].shape == q.shape
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_gradient_matches_plain_on_card(dtype):
+    """The SSD Function's gradients from both outputs against autograd
+    through the plain version on the card, at a ragged last chunk and at
+    a decay that overflows an exp taken before the mask: finite, f32 <=
+    1e-4 relative norm, bf16 <= 2e-2."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for case, a_scale in [(c, 1.0) for c in SSD_CASES[:3]] + [
+            (SSD_CASES[1], 60.0)]:
+        x, dt, B, C, A = ssd_inputs(case, a_scale=a_scale)
+        ins = [_cuda(x, tdt), _cuda(dt, torch.float32), _cuda(B, tdt),
+               _cuda(C, tdt), _cuda(A, torch.float32)]
+        ins = [t.requires_grad_(True) for t in ins]
+        chunk = case[5]
+        before = ssd_ops.ssd_scan.launches
+        y, st = ssd_ops.ssd_scan(*ins, chunk)
+        assert ssd_ops.ssd_scan.launches == before + 1
+        gy = torch.randn_like(y)
+        gs = torch.randn_like(st)
+        got = torch.autograd.grad((y, st), ins, (gy, gs))
+        ref = torch.autograd.grad(ssd_ops.ssd_scan_plain(*ins, chunk),
+                                  ins, (gy, gs))
+        _grads_close(got, ref, tol, case)
+
+
+def test_capsim_train_step_on_card_matches_cpu():
+    """One SGD-momentum train step of the CAPSim predictor (mape_loss on
+    the monolithic forward, the paper's recipe) at full width in f32, on
+    the card against the CPU from the same parameters and batch: every
+    parameter <= 1e-4 relative, every leaf's gradient nonzero on the card
+    (gradients come back through the flash kernel's Function), one flash
+    launch per attention of the forward."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.training import train_loop as ttl
+    cfg = config().replace(dtype="float32")
+    rng = np.random.RandomState(0)
+    B, L, T, M = 4, 128, cfg.clip_tokens, cfg.context_tokens
+    tok = rng.randint(1, cfg.vocab_size, (B, L, T))
+    tok[np.arange(T) >= rng.randint(2, T + 1, (B, L))[..., None]] = 0
+    batch = {"clip_tokens": torch.from_numpy(tok),
+             "context_tokens": torch.from_numpy(
+                 rng.randint(1, cfg.vocab_size, (B, M))),
+             "clip_mask": torch.ones(B, L),
+             "time": torch.from_numpy(rng.uniform(50, 500, B).astype(
+                 np.float32))}
+    tcfg = ttl.TrainConfig(optimizer="sgdm", base_lr=1e-3)
+    step = ttl.make_train_step(
+        lambda p, b: predictor.mape_loss(p, b, cfg), tcfg)
+    params = predictor.init_params(cfg, seed=0, device="cpu")
+    card_params = _to_card(params)
+    (_, _), grads = ttl.value_and_grad(
+        lambda p, b: predictor.mape_loss(p, b, cfg), card_params,
+        _to_card(batch))
+    for name, g in _leaves(grads):
+        assert torch.isfinite(g).all() and bool((g != 0).any()), name
+    before = fa_ops.flash_attention.launches
+    card, _ = step(ttl.init_train_state(card_params, tcfg), _to_card(batch))
+    assert fa_ops.flash_attention.launches == before + 4 + 4 * 2
+    cpu, _ = step(ttl.init_train_state(params, tcfg), batch)
+    cpu_leaves = dict(_leaves(cpu["params"]))
+    for name, a in _leaves(card["params"]):
+        b = cpu_leaves[name]
+        rel = float((a.cpu() - b).abs().max() / b.abs().max().clamp(
+            min=1e-30))
+        assert rel <= 1e-4, (name, rel)
+
+
+def _to_card(tree):
+    return {k: _to_card(v) if isinstance(v, dict) else v.to("cuda")
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m"])
+def test_lm_train_step_on_card_matches_cpu(arch):
+    """One AdamW train step of the smoke model, f32, on the card against
+    the CPU: the loss <= 1e-5 relative, every gradient leaf finite and
+    <= 1e-4 relative norm (through causal flash or the SSD scan)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.training import train_loop as ttl
+    cfg = get_smoke_config(arch)
+    params = tfm.init_params(cfg, seed=0, device="cpu")
+    batch = random_batch(cfg, ShapeConfig("t", 64, 2, "train"), "train",
+                         seed=0, device="cpu")
+
+    def loss(p, b):
+        return tfm.loss_fn(p, b, cfg)
+    (l_cpu, _), g_cpu = ttl.value_and_grad(loss, params, batch)
+    (l_card, _), g_card = ttl.value_and_grad(loss, _to_card(params),
+                                             _to_card(batch))
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-5 * abs(float(l_cpu))
+    cpu_leaves = dict(_leaves(g_cpu))
+    for name, g in _leaves(g_card):
+        ref = cpu_leaves[name]
+        assert torch.isfinite(g).all(), name
+        rel = float((g.cpu() - ref).norm() / ref.norm().clamp(min=1e-30))
+        assert rel <= 1e-4, (name, rel)
+
+
+def test_weighted_attention_refuses_a_gradient_on_card():
+    """Nothing trains through the fused serving step: on the card the
+    weighted kernel raises when an input requires grad (it would return
+    an output cut off from autograd); under no_grad it launches."""
+    _need_card()
+    rng = np.random.RandomState(1)
+    q, k, v = (_cuda(rng.randn(2, 16, 4, 32), torch.float32)
+               for _ in range(3))
+    w = _cuda(rng.rand(2, 16), torch.float32)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        wa_ops.weighted_attention(q.requires_grad_(True), k, v, w)
+    with torch.no_grad():
+        out = wa_ops.weighted_attention(q, k, v, w)
+    assert out.shape == q.shape

@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module, and
 ``chip_smoke.py``, loads neither JAX nor anything of the ``repro``
-package, and the entry points refuse to fall back to the CPU."""
+package, and the entry points (the training launcher among them) refuse
+to fall back to the CPU."""
 import argparse
 import subprocess
 import sys
@@ -51,7 +52,7 @@ def test_port_sources_name_no_reference_import():
                 assert mod not in ("jax", "jaxlib", "repro"), (path, line)
 
 
-def test_entry_points_raise_without_a_card():
+def test_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     from repro_torch.configs import ShapeConfig, get_smoke_config
@@ -63,6 +64,7 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.core.simulate import capsim_simulate_multicore
     from repro_torch.isa import multicore
     from repro_torch.launch import serve
+    from repro_torch.launch import train
     from repro_torch.launch.specs import random_batch
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import PredictorEngine, SimulationService
@@ -78,7 +80,12 @@ def test_entry_points_raise_without_a_card():
                   lambda: capsim_simulate_multicore(mb, params, cfg,
                                                     vocab),
                   lambda: PredictorEngine(params, cfg),
-                  lambda: SimulationService(params, cfg)):
+                  lambda: SimulationService(params, cfg),
+                  lambda: train.main(["--smoke", "--steps", "1",
+                                      "--ckpt-dir", str(tmp_path / "c")]),
+                  lambda: train.main(["--smoke", "--steps", "1",
+                                      "--multicore", "2",
+                                      "--ckpt-dir", str(tmp_path / "m")])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     # the LM zoo's dense decoders, its MoE and hybrid models and its
@@ -96,6 +103,12 @@ def test_entry_points_raise_without_a_card():
                      lambda: random_batch(lm, ShapeConfig("p", 4, 1,
                                                           "prefill"),
                                           "prefill"),
+                     lambda: random_batch(lm, ShapeConfig("t", 12, 1,
+                                                          "train"),
+                                          "train"),
+                     lambda: train.main(["--arch", arch, "--smoke",
+                                         "--steps", "1", "--ckpt-dir",
+                                         str(tmp_path / arch)]),
                      lambda: serve.serve_lm(argparse.Namespace(
                          arch=arch, device="cuda", decode_steps=1))):
             with pytest.raises(RuntimeError, match="no CUDA device"):
