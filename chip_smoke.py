@@ -281,6 +281,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               forward, tokens/s, peak memory, a profiled step; then the
               f32 gradient at 1 x 256 on the card against the CPU (loss
               <= 1e-5, each leaf <= 1e-4 relative norm).
+ 19. mesh     the data mesh (``EngineConfig.mesh_shape``) at phases 5 and
+              6's configurations (600 clips single-core, 3200 on 4 cores
+              at M = 369, batch 256), fp32 and bf16, unfused and fused,
+              each run with a cold RT cache, after a warm-up pass on the
+              first benchmark (not counted): the unsharded engine, then
+              mesh (1,) on cuda:0 and 2 and 4 shards asked for on the one
+              card (each on its own stream; counters reset before each
+              run and read after).  Checks: mesh (1,) bitwise per clip;
+              2 and 4 shards with the RT table byte-identical, the same
+              batches, flash and weighted launches exactly n x the
+              unsharded run's, fp32 per clip and per benchmark or core
+              <= 1e-6 relative (the service's rt gate, C2), bf16 <= 1e-2
+              (its bf16-vs-fp32 gate), the multicore demux exact.
+              Reported: the per-clip gap and whether it is bitwise,
+              clips/s and predict seconds beside the unsharded run's.
+              Then the same on distinct cards where two or more are
+              visible (else one line says so), a pool of 3 clips on 4
+              shards (5 pad rows dropped, <= 1e-6), and ``serve.py
+              --mesh 1 --device cuda`` and ``--engine-config`` with
+              ``mesh_shape: [1]`` in subprocesses.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (the
@@ -302,6 +322,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 BENCHMARKS = 3
 MULTICORE_CORES, MULTICORE_INTERVAL = 4, 20_000
+# the mesh phase's shards on one card (each on its own stream)
+MESH_SHARDS = (2, 4)
+# one-element kernels launched at the start of each ``device_ms`` capture
+CAPTURE_PAD = 256
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -467,42 +491,40 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3,
 def device_ms(torch, fn, iters: int = 20) -> float:
     """Mean device time of one launch of the port's own kernel (names in
     the ``capsim_*`` namespaces; ``fn`` launches one), from
-    ``torch.profiler``, averaged over the launches it recorded: at a
-    launch-bound shape the host clock of ``cuda_ms`` times the wrapper,
-    this the kernel.  As in ``device_breakdown``, each capture records
-    ``iters`` calls after a warm-up step of as many, whose events the
-    profiler's schedule drops: the first launches of a capture can reach
-    the profiler late, and a short capture then holds none of them."""
+    ``torch.profiler``: at a launch-bound shape the host clock of
+    ``cuda_ms`` times the wrapper, this the kernel.  Each capture is
+    ``_capture``'s (host and device activity) of ``iters`` calls, after
+    ``iters`` calls outside it, and holds every one of their launches.
+    Late in a whole run the profiler drops the first device records of
+    every capture, whatever their kernel, more of them the more device
+    records were captured before (``tools/profiler_drop_probe.py``): a
+    capture of a few launches of a long kernel then holds none.  So each
+    capture first launches ``pad`` one-element kernels, which take the
+    loss; a capture that still lost launches of ``fn`` is taken again
+    with a pad 4 times as long, at most three times."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-    fn()
-    torch.cuda.synchronize()
-    # a capture that holds no device event of any kind (not even another
-    # kernel) is empty on the profiler's side while ``fn`` launched:
-    # take another, at most four times.  A capture that holds device
-    # work but none of the port's kernels fails at once.
-    for _ in range(5):
-        ready = []
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: ready.append(
-                         p.key_averages())) as prof:
-            for _ in range(2):
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        held = [e for e in (ready[-1] if ready else [])
-                if e.device_type == DeviceType.CUDA]
-        ours = [e for e in held if "capsim" in e.key]
+    pad_tensor = torch.zeros(1, device="cuda")
+    pad = CAPTURE_PAD
+
+    def padded():
+        for _ in range(pad):
+            pad_tensor.add_(1.0)
+        for _ in range(iters):
+            fn()
+    for _ in range(4):
+        for _ in range(iters):
+            fn()
+        _, _, avg = _capture(torch, padded)
+        ours = [e for e in avg if e.device_type == DeviceType.CUDA
+                and "capsim" in e.key]
         launches = sum(e.count for e in ours)
-        if launches:
+        if launches == iters:
             break
-        require(not held, "the profiler recorded device work but no kernel "
-                f"of the port: {[e.key[:60] for e in held[:3]]}")
-        print(f"device_ms: an empty capture (traces {len(ready)}, no device "
-              "event of any kind); capturing again")
-    require(launches > 0, "the profiler saw no kernel of the port")
+        print(f"device_ms: a capture held {launches} of {iters} launches "
+              f"after a pad of {pad}; capturing again after {4 * pad}")
+        pad *= 4
+    require(launches == iters, f"the profiler held {launches} of {iters} "
+            "launches of the port's kernel")
     return sum(e.self_device_time_total for e in ours) / launches / 1e3
 
 
@@ -1512,6 +1534,240 @@ def check_rt_store(torch):
                 "the CPU path did not adopt its own store")
     finally:
         shutil.rmtree(store, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
+# the data mesh (EngineConfig.mesh_shape)
+# --------------------------------------------------------------------- #
+
+def clip_gap(a, b) -> float:
+    """max over clips of |b - a| / |a| (numpy arrays of one length)."""
+    require(a.shape == b.shape, f"clip counts differ: {a.shape} {b.shape}")
+    return float((abs(b.astype("float64") - a) / abs(a)).max())
+
+
+def check_mesh(torch, fa_ops, wa_ops):
+    """The data mesh at the engine phases' configurations: mesh (1,) on
+    cuda:0, then MESH_SHARDS shards on the one card (each on its own
+    stream, asked for explicitly), against the unsharded engine on the
+    same card, single-core (3 Table II benchmarks, M 360) and multicore
+    (4 cores, M 369), fp32 and bf16, unfused and fused, each run with a
+    cold RT cache.  Distinct cards where two or more are visible; then
+    ``serve.py --mesh 1`` and ``--engine-config``.  Returns the launches
+    of every mesh run."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.configs.capsim import config
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core import predictor
+    from repro_torch.core import standardize as std_mod
+    from repro_torch.core.engine import BatchedPredictor
+    from repro_torch.core.engine_config import EngineConfig
+    from repro_torch.isa import multicore, progen
+    from repro_torch.launch.mesh import make_data_mesh
+
+    cfg = config()
+    vocab = std_mod.build_vocab()
+    names = list(progen.TABLE_II)[:BENCHMARKS]
+    params = predictor.init_params(cfg, seed=0, device="cuda")
+    mbenches = multicore.all_multicore_benchmarks(MULTICORE_CORES)
+    single = EngineConfig(interval_size=20_000, max_checkpoints=1,
+                          batch_size=256, with_oracle=True)
+    multi = single.replace(interval_size=MULTICORE_INTERVAL)
+    print(f"mesh config: E={cfg.d_model} batch={single.batch_size}; "
+          f"single-core {names} interval {single.interval_size}; multicore "
+          f"x{MULTICORE_CORES} cores interval {multi.interval_size}; "
+          f"shards on one card {MESH_SHARDS}; cards visible "
+          f"{torch.cuda.device_count()}")
+    drained = []                 # each run's per-clip predictions
+    drain = BatchedPredictor.drain
+
+    def recording(self):
+        out = drain(self)
+        drained.append(out)
+        return out
+
+    total = [0, 0]
+
+    def run(what, n, mesh_kw, precision, fused, mc, warm=False):
+        """One engine run: (results, per-clip predictions, RT table,
+        launches, wall s, engine).  ``warm``: the first benchmark only,
+        launches not counted (the first use of a GEMM shape or a stream
+        loads kernels and workspaces; the timed runs come after)."""
+        ec = (multi if mc else single).replace(precision=precision,
+                                               fused_serving=fused)
+        kw = {}
+        if n:
+            ec = ec.replace(mesh_shape=(n,))
+            kw["mesh"] = make_data_mesh(n, **mesh_kw)
+        fa_ops.flash_attention.launches = 0
+        wa_ops.weighted_attention.launches = 0
+        drained.clear()
+        engine = engine_mod.SimulationEngine(params, cfg, vocab, ec,
+                                             device="cuda", **kw)
+        t0 = time.perf_counter()
+        if mc:
+            res = engine.run_multicore(mbenches[:1] if warm else mbenches)
+        else:
+            engine.submit_names(names[:1] if warm else names)
+            res = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (fa_ops.flash_attention.launches,
+                  wa_ops.weighted_attention.launches)
+        if not warm:
+            total[0] += counts[0]
+            total[1] += counts[1]
+        require(len(drained) == 1, f"mesh {what}: {len(drained)} drains")
+        cache = engine._rt_cache
+        table = cache.table[:cache.n_rows].clone()
+        return res, drained[0], table, counts, wall, engine
+
+    def same_table(t0, t1) -> bool:
+        bits = torch.int16 if t0.dtype == torch.bfloat16 else torch.int32
+        return t0.shape == t1.shape and torch.equal(t0.view(bits),
+                                                    t1.view(bits))
+
+    def report(what, base, got, n, precision, mc) -> None:
+        res0, p0, t0, c0, w0, e0 = base
+        res1, p1, t1, c1, w1, e1 = got
+        gap = clip_gap(p0, p1)
+        bitwise = bool((p0 == p1).all())
+        table_ok = same_table(t0, t1)
+        n_clips = p0.shape[0]
+        print(f"mesh {what}: {n_clips} clips, per-clip max rel "
+              f"{gap:.3e} (bitwise {bitwise}), table {tuple(t1.shape)} "
+              f"byte-identical {table_ok}; launches flash / weighted "
+              f"{c1[0]} / {c1[1]} against {c0[0]} / {c0[1]} unsharded "
+              f"({e1.last_stats.n_batches} / {e0.last_stats.n_batches} "
+              f"batches); {n_clips / w1:.1f} clips/s, predict "
+              f"{e1.last_stats.predict_seconds:.4f} s against "
+              f"{n_clips / w0:.1f} clips/s, "
+              f"{e0.last_stats.predict_seconds:.4f} s unsharded")
+        require(table_ok, f"mesh {what}: the RT table is not byte-"
+                "identical (the C2 guarantee of the 4096-row passes)")
+        require(e1.last_stats.n_batches == e0.last_stats.n_batches,
+                f"mesh {what}: batch counts differ")
+        require(c1 == (n * c0[0], n * c0[1]), f"mesh {what}: launches "
+                f"{c1} are not {n} x the unsharded {c0}")
+        require(e1.last_stats.n_predicted == n_clips
+                == e0.last_stats.n_predicted, f"mesh {what}: clips lost")
+        if mc:
+            for a, b in zip(res0, res1, strict=True):
+                for ca, cb in zip(a.cores, b.cores, strict=True):
+                    require((ca.name, ca.n_clips, ca.oracle_cycles)
+                            == (cb.name, cb.n_clips, cb.oracle_cycles),
+                            f"mesh {what}: the demux differs at {ca.name}")
+        else:
+            for a, b in zip(res0, res1, strict=True):
+                require((a.name, a.n_clips, a.oracle_cycles)
+                        == (b.name, b.n_clips, b.oracle_cycles),
+                        f"mesh {what}: results differ at {a.name}")
+        if n == 1:
+            require(bitwise, f"mesh {what}: mesh (1,) is not bitwise")
+        elif precision == "fp32":
+            require(gap <= 1e-6, f"mesh {what}: per-clip gap {gap} > 1e-6")
+            worst = 0.0
+            for a, b in zip(res0, res1):
+                for ca, cb in zip(getattr(a, "cores", [a]),
+                                  getattr(b, "cores", [b])):
+                    worst = max(worst, abs(cb.predicted_cycles
+                                           - ca.predicted_cycles)
+                                / abs(ca.predicted_cycles))
+            print(f"mesh {what}: max per-{'core' if mc else 'benchmark'} "
+                  f"rel {worst:.3e} (limit 1e-6)")
+            require(worst <= 1e-6, f"mesh {what}: total gap {worst}")
+        else:
+            worst = max(abs(b.predicted_cycles - a.predicted_cycles)
+                        / abs(a.predicted_cycles)
+                        for a, b in zip(res0, res1))
+            print(f"mesh {what}: bf16 per-clip max rel {gap:.3e}, per "
+                  f"total {worst:.3e} (the bf16-vs-fp32 gate: 1e-2)")
+            require(worst <= 1e-2 and gap <= 1e-2,
+                    f"mesh {what}: bf16 gap {gap} / {worst} > 1e-2")
+
+    BatchedPredictor.drain = recording
+    try:
+        for mc in (False, True):
+            for precision in ("fp32", "bf16"):
+                for fused in (False, True):
+                    for n in (0, 1, *MESH_SHARDS):
+                        run("warm-up", n, dict(device="cuda:0",
+                                               on_one_device=True),
+                            precision, fused, mc, warm=True)
+        for mc in (False, True):
+            for precision in ("fp32", "bf16"):
+                for fused in (False, True):
+                    tag = (f"{'multicore' if mc else 'single-core'} "
+                           f"{precision} fused={fused}")
+                    base = run(tag, 0, {}, precision, fused, mc)
+                    shards = ((1, *MESH_SHARDS) if not mc else MESH_SHARDS)
+                    for n in shards:
+                        got = run(tag, n, dict(device="cuda:0",
+                                               on_one_device=True),
+                                  precision, fused, mc)
+                        report(f"({n},) one card {tag}", base, got, n,
+                               precision, mc)
+                    cards = torch.cuda.device_count()
+                    for n in MESH_SHARDS:
+                        if n > cards:
+                            continue
+                        got = run(tag, n, dict(device="cuda"), precision,
+                                  fused, mc)
+                        report(f"({n},) {n} cards {tag}", base, got, n,
+                               precision, mc)
+        if torch.cuda.device_count() < 2:
+            print(f"mesh distinct cards: not run, "
+                  f"{torch.cuda.device_count()} card visible")
+    finally:
+        BatchedPredictor.drain = drain
+
+    # a pool of 3 clips on 4 shards: padded to a full set of shards (the
+    # bucket floor 8), the pads dropped
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, vocab.size, (3, 128, cfg.clip_tokens)).astype(
+        np.int32)
+    ctx = rng.randint(0, vocab.size, (3, cfg.context_tokens)).astype(
+        np.int32)
+    mask = np.ones((3, 128), np.float32)
+    preds = []
+    for n in (0, 4):
+        ec = EngineConfig(batch_size=256, rt_cache=False,
+                          mesh_shape=(n,) if n else ())
+        kw = ({"mesh": make_data_mesh(n, "cuda:0", on_one_device=True)}
+              if n else {})
+        fa_ops.flash_attention.launches = 0
+        bp = BatchedPredictor(params, cfg, config=ec, device="cuda", **kw)
+        bp.add(tok, ctx, mask)
+        preds.append(bp.drain())
+        total[0] += fa_ops.flash_attention.launches
+        require(preds[-1].shape == (3,) and bp.stats.n_pad == 5,
+                f"mesh pool of 3 on {n} shards: {preds[-1].shape}, "
+                f"{bp.stats.n_pad} pads")
+    gap = clip_gap(preds[0], preds[1])
+    print(f"mesh pool of 3 clips on 4 shards: 5 pad rows dropped, per-clip "
+          f"max rel {gap:.3e} against unsharded")
+    require(gap <= 1e-6, f"mesh pool of 3: gap {gap}")
+
+    # the launcher: --mesh 1 on the card, and --engine-config with it
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for extra in (["--mesh", "1"],
+                  ["--engine-config", '{"mesh_shape": [1]}',
+                   "--fused-serving"]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+               "cuda", "--n-benchmarks", str(BENCHMARKS), *extra]
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=600)
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith("served ")]
+        print(f"mesh serve {' '.join(extra)}: rc {out.returncode}; "
+              f"{lines[-1] if lines else out.stderr[-2000:]}")
+        require(out.returncode == 0 and lines
+                and "over a 1-shard mesh on cuda" in lines[-1],
+                f"serve {' '.join(extra)} failed")
+    return {"flash_attention": total[0], "weighted_attention": total[1]}
 
 
 # --------------------------------------------------------------------- #
@@ -3802,6 +4058,9 @@ def main() -> int:
     launches["flash_attention"] += n_flash
     launches["ssd"] += n_ssd
     phase("train lm")
+    for name, n in check_mesh(torch, fa_ops, wa_ops).items():
+        launches[name] += n
+    phase("mesh")
     print("phases: " + ", ".join(f"{name} {sec:.1f} s"
                                  for name, sec in phase_s.items()))
 

@@ -42,8 +42,12 @@ core's clips checkpoint by checkpoint, interleaved with the other cores).
 engine, consulted at dispatch, at retire, at the RT store's load and at
 its persist.
 
-The device mesh (``EngineConfig.mesh_shape``) is not ported yet: it
-raises ``NotImplementedError`` naming its ROADMAP item.
+A non-empty ``EngineConfig.mesh_shape`` (n shards, ``launch/mesh.py``)
+splits every predict dispatch and every RT-cache encode pass over the
+data mesh (``predictor.sharded_*``): buckets stay multiples of n, a pool
+smaller than the mesh pads to a full set of shards with masked zero
+rows, and the per-shard outputs come back in row order, equal to the
+unsharded engine's.
 """
 from __future__ import annotations
 
@@ -64,23 +68,8 @@ from repro_torch.core.engine_config import EngineConfig
 from repro_torch.core.rt_cache import RTCache, RTCacheStats
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.isa import funcsim, multicore, progen, timing
+from repro_torch.launch.mesh import DataMesh, resolve_mesh
 from repro_torch.obs import SPAN_SECONDS_TOTAL, Observability
-
-# EngineConfig fields outside this port's slice -> the ROADMAP item that
-# ports them (the check is "field differs from its default")
-_UNPORTED = {
-    "mesh_shape": "port queue item 6, mesh / multi-GPU",
-}
-
-
-def reject_unported(config: EngineConfig, where: str) -> None:
-    default = EngineConfig()
-    for field, item in _UNPORTED.items():
-        if getattr(config, field) != getattr(default, field):
-            raise NotImplementedError(
-                f"{where}: EngineConfig.{field} is not ported to "
-                f"repro_torch yet (ROADMAP {item})")
-
 
 def params_to_device(params, device: torch.device):
     if isinstance(params, dict):
@@ -144,13 +133,20 @@ class SimResult:
             clip_provenance=self.clip_provenance)
 
 
-def bucket_sizes(batch_size: int) -> Tuple[int, ...]:
+def bucket_sizes(batch_size: int, align: int = 1) -> Tuple[int, ...]:
     """Descending pad targets for the final partial batch: the full batch
-    plus halvings down to 8, keeping remainder padding < 2x."""
+    plus halvings down to 8, keeping remainder padding < 2x.  ``align``
+    (the mesh's shard count) keeps every bucket a multiple of the mesh
+    size, and at least one row per shard, so a sharded dispatch never
+    hands a shard an empty or ragged slice.  The floor is the least
+    multiple of ``align`` >= 8; the reference takes ``max(8, align)``,
+    which a mesh of 3, 5, 6 or 7 does not divide (its dispatch contract
+    then refuses a drain of 8 rows or fewer)."""
+    floor = -(-8 // align) * align
     sizes = [batch_size]
     b = batch_size
-    while b > 8:
-        b = max(b // 2, 8)
+    while b > floor:
+        b = max((b // 2 + align - 1) // align * align, floor)
         sizes.append(b)
     return tuple(sizes)
 
@@ -301,21 +297,28 @@ class BatchedPredictor:
     serving plan rebuilt whenever the cache's ``version`` changes.
     Without a cache, batches carry token tensors and run ``forward``.
 
+    With a non-empty ``config.mesh_shape`` every dispatch splits its rows
+    over the data mesh (``mesh``, or ``make_data_mesh(n, device)``):
+    each shard runs on its device's copy of the parameters, the RT table
+    and the plan, and a retire joins the shards' outputs in row order.
+
     ``fault_injector`` (built from ``config.faults`` when not given) is
     consulted before every dispatch (``slow_flush``, ``device_error``)
-    and at every retire (``nan_output``).  Every buffer is the instance's
-    own: two backends share only the read-only parameters and the RT
-    cache, whose rows never change once written.
+    and at every retire (``nan_output``), once per dispatch however many
+    shards it has.  Every buffer is the instance's own: two backends
+    share only the read-only parameters and the RT cache, whose rows
+    never change once written.
     """
 
     def __init__(self, params, cfg, *, config: Optional[EngineConfig] = None,
                  rt_cache: Optional[RTCache] = None,
                  fault_injector=None,
                  obs: Optional[Observability] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 mesh: Optional[DataMesh] = None):
         config = config or EngineConfig()
-        reject_unported(config, "BatchedPredictor")
         self.device = resolve_device(device)
+        self._mesh = resolve_mesh(config.n_shards, self.device, mesh)
         self.config = config
         self.obs = (obs if obs is not None
                     else Observability.from_config(config.observability))
@@ -354,13 +357,18 @@ class BatchedPredictor:
         self.params = params
         self.cfg = pred_mod.inference_config(cfg, config.precision)
         self.batch_size = config.batch_size
-        self.buckets = bucket_sizes(config.batch_size)
+        self.buckets = bucket_sizes(config.batch_size,
+                                    max(config.n_shards, 1))
         self.max_in_flight = config.max_in_flight
         self.use_context = config.use_context
         self._cache = rt_cache
         self._fused = config.fused_serving
         self._plan = None              # serving_plan for _plan_version
+        self._plan_r = None            # its per-shard copies on a mesh
         self._plan_version = -1
+        # per-shard copies of the parameters (shards on one device share)
+        self._params_r = (self._mesh.replicate(params)
+                          if self._mesh is not None else None)
         if self._fused and rt_cache is None:
             raise ValueError(
                 "fused_serving requires an RTCache (the fused step IS "
@@ -374,7 +382,8 @@ class BatchedPredictor:
         self._mask: List[np.ndarray] = []
         self._ctx_width: Optional[int] = None  # pinned by the first add
         self._buffered = 0
-        self._pending: Deque[Tuple[torch.Tensor, int]] = deque()
+        # one dispatch's outputs (one per shard) and its real rows
+        self._pending: Deque[Tuple[List[torch.Tensor], int]] = deque()
         self._retired: List[np.ndarray] = []
         self._drained = 0           # clips returned by previous drains
         self.stats = PredictorStats(self.obs, self.instance)
@@ -463,31 +472,13 @@ class BatchedPredictor:
             # chaos layer: may stall (slow_flush) or raise (device_error)
             # where a real device failure would surface
             self._faults.on_dispatch()
-        dev = self.device
-        clip_mask = torch.as_tensor(mask, device=dev)
-        if self._fused:
-            # host-side context dedup: the fused step attends over each
-            # row's unique tokens with multiplicity weights
-            uniq, counts = std_mod.dedupe_context_tokens(ctx)
-            batch = {"rt_idx": torch.as_tensor(tok, device=dev),
-                     "ctx_uniq": torch.as_tensor(uniq, device=dev),
-                     "ctx_count": torch.as_tensor(counts, device=dev),
-                     "clip_mask": clip_mask}
-            out = pred_mod.forward_cached_fused(
-                self.params, self._serving_plan(), batch, self.cfg)
-        elif self._cache is not None:
-            batch = {"rt_idx": torch.as_tensor(tok, device=dev),
-                     "context_tokens": torch.as_tensor(ctx, device=dev),
-                     "clip_mask": clip_mask}
-            out = pred_mod.forward_cached(self.params, self._cache.table,
-                                          batch, self.cfg, self.use_context)
+        batch = self._host_batch(tok, ctx, mask)
+        if self._mesh is not None:
+            outs = self._predict_sharded(batch)
         else:
-            batch = {"clip_tokens": torch.as_tensor(tok, device=dev),
-                     "context_tokens": torch.as_tensor(ctx, device=dev),
-                     "clip_mask": clip_mask}
-            out = pred_mod.forward(self.params, batch, self.cfg,
-                                   self.use_context)
-        self._pending.append((out, n_real))
+            outs = [self._predict({k: v.to(self.device)
+                                   for k, v in batch.items()})]
+        self._pending.append((outs, n_real))
         shape = tok.shape[0]
         self._fam_batches.labels(instance=self.instance, shape=shape).inc()
         self._c_pad.inc(shape - n_real)
@@ -496,20 +487,70 @@ class BatchedPredictor:
             self._retire()
         self._g_in_flight.set(len(self._pending))
 
-    def _serving_plan(self):
-        """Cross K/V plan for the cache table's current contents.  The
-        table is written in place, so its identity never changes: the plan
-        keys on the cache's write counter instead."""
+    def _host_batch(self, tok, ctx, mask) -> dict:
+        """One dispatch's rows as host tensors.  The fused step's context
+        is deduped on the host over the whole batch (on a mesh, before
+        the split: every shard sees the batch's U), and attends over each
+        row's unique tokens with multiplicity weights."""
+        if self._fused:
+            uniq, counts = std_mod.dedupe_context_tokens(ctx)
+            batch = {"rt_idx": tok, "ctx_uniq": uniq, "ctx_count": counts}
+        else:
+            key = "rt_idx" if self._cache is not None else "clip_tokens"
+            batch = {key: tok, "context_tokens": ctx}
+        batch["clip_mask"] = mask
+        return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+    def _predict(self, batch) -> torch.Tensor:
+        if self._fused:
+            return pred_mod.forward_cached_fused(
+                self.params, self._serving_plan(), batch, self.cfg)
+        if self._cache is not None:
+            return pred_mod.forward_cached(self.params, self._cache.table,
+                                           batch, self.cfg, self.use_context)
+        return pred_mod.forward(self.params, batch, self.cfg,
+                                self.use_context)
+
+    def _predict_sharded(self, batch) -> List[torch.Tensor]:
+        """The batch's rows split over the mesh; each shard copies its
+        rows from the host to its device.  ``bucket_sizes`` keeps every
+        bucket a multiple of the mesh size, and a pool smaller than the
+        mesh was padded to a full set of shards (``_shard_map`` raises on
+        a ragged split)."""
+        mesh = self._mesh
+        if self._fused:
+            return pred_mod.sharded_forward_cached_fused(
+                self._params_r, self._serving_plan(sharded=True), batch,
+                self.cfg, mesh)
+        if self._cache is not None:
+            tables = tuple(self._cache.table_on(d) for d in mesh.devices)
+            return pred_mod.sharded_forward_cached(
+                self._params_r, tables, batch, self.cfg, self.use_context,
+                mesh)
+        return pred_mod.sharded_predict_step(self._params_r, batch, self.cfg,
+                                             self.use_context, mesh)
+
+    def _serving_plan(self, sharded: bool = False):
+        """Cross K/V plan for the cache table's current contents (with
+        ``sharded``, its per-shard copies).  The table is written in
+        place, so its identity never changes: the plan keys on the cache's
+        write counter instead."""
         if self._plan is None or self._plan_version != self._cache.version:
             self._plan = pred_mod.serving_plan(self.params,
                                                self._cache.table, self.cfg)
+            self._plan_r = (self._mesh.replicate(self._plan)
+                            if self._mesh is not None else None)
             self._plan_version = self._cache.version
-        return self._plan
+        return self._plan_r if sharded else self._plan
 
     def _retire(self) -> None:
         with self.obs.span("predict.retire", instance=self.instance):
-            out, n_real = self._pending.popleft()
-            out = out[:n_real].cpu().numpy()                  # blocks
+            outs, n_real = self._pending.popleft()
+            if len(outs) == 1:
+                out = outs[0][:n_real].cpu().numpy()          # blocks
+            else:                     # the shards' outputs in row order
+                out = np.concatenate([o.cpu().numpy()
+                                      for o in outs])[:n_real]
             if self._faults is not None:
                 # nan_output chaos: the retired batch comes back
                 # non-finite; the service's guard must catch it
@@ -532,7 +573,10 @@ class BatchedPredictor:
             pad = bucket - n
             if pad:
                 # zero rows: an all-<PAD> token row / the cache's pad slot,
-                # with a zero mask that excludes the row entirely
+                # with a zero mask that excludes the row entirely.  On a
+                # mesh the bucket floor is max(8, n_shards): a pool
+                # smaller than the mesh pads to a full set of shards, and
+                # the [:n_real] in _retire drops the pads
                 tok = np.concatenate(
                     [tok, np.zeros((pad,) + tok.shape[1:], tok.dtype)])
                 ctx = np.concatenate(
@@ -629,18 +673,22 @@ class SimulationEngine:
     Every knob arrives through one ``EngineConfig``; ``device`` (default
     ``"cuda"``) is where the parameters, the RT table and every batch
     live.  Without a card the caller must pass ``device="cpu"``, which
-    runs the kernels' plain versions.  ``config.sampling`` switches runs
-    to the analytical-ML fusion path (``sampling=None`` keeps the full
-    path bitwise).
+    runs the kernels' plain versions.  A non-empty ``config.mesh_shape``
+    shards every predict dispatch and every RT-cache encode pass over the
+    data mesh (``mesh``, or ``make_data_mesh(n, device)``: n cards on
+    ``cuda``, n shards on the CPU), equal to the unsharded engine.
+    ``config.sampling`` switches runs to the analytical-ML fusion path
+    (``sampling=None`` keeps the full path bitwise).
     """
 
     def __init__(self, params, cfg, vocab: std_mod.Vocab,
                  config: Optional[EngineConfig] = None, *,
                  timing_params: Optional[timing.TimingParams] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 mesh: Optional[DataMesh] = None):
         config = config or EngineConfig()
-        reject_unported(config, "SimulationEngine")
         self.device = resolve_device(device)
+        self.mesh = resolve_mesh(config.n_shards, self.device, mesh)
         self.config = config
         self.obs = Observability.from_config(config.observability)
         self.instance = self.obs.metrics.next_instance("engine")
@@ -682,8 +730,10 @@ class SimulationEngine:
         # table never goes stale; new programs just append unseen rows.
         # With rt_store_dir the cache loads (or later persists) the table
         # under a (params, cfg, l_token, vocab, framework/device) key.
+        # The cache shares the engine's mesh: encode passes shard too.
         self._rt_cache = (RTCache(self.params, self.cfg, config.l_token,
                                   device=self.device,
+                                  n_shards=config.n_shards, mesh=self.mesh,
                                   store_dir=config.rt_store_dir,
                                   store_extra=vocab.signature(),
                                   fault_injector=self._faults,
@@ -698,10 +748,11 @@ class SimulationEngine:
     def from_config(cls, params, cfg, vocab: std_mod.Vocab,
                     config: Optional[EngineConfig] = None, *,
                     timing_params: Optional[timing.TimingParams] = None,
-                    device: DeviceLike = "cuda") -> "SimulationEngine":
+                    device: DeviceLike = "cuda",
+                    mesh: Optional[DataMesh] = None) -> "SimulationEngine":
         """Canonical constructor: every public entry point routes here."""
         return cls(params, cfg, vocab, config, timing_params=timing_params,
-                   device=device)
+                   device=device, mesh=mesh)
 
     def submit(self, bench: progen.Benchmark) -> None:
         self._queue.append(bench)
@@ -714,7 +765,7 @@ class SimulationEngine:
         return BatchedPredictor(self.params, self.cfg, config=self.config,
                                 rt_cache=self._rt_cache,
                                 fault_injector=self._faults, obs=self.obs,
-                                device=self.device)
+                                device=self.device, mesh=self.mesh)
 
     def _feed_trace(self, trace, token_table, static_ids,
                     pred: BatchedPredictor, job: _Job,

@@ -332,6 +332,75 @@ def forward_cached_fused(params, plan, batch, cfg):
     return F.softplus(cpi) * n_inst
 
 
+# --------------------------------------------------------------------------- #
+# Sharded inference over the data mesh (EngineConfig.mesh_shape)
+# --------------------------------------------------------------------------- #
+#
+# Clips and static RT rows are row-independent, so a batch split into the
+# mesh's n equal contiguous shards computes each row as the whole batch
+# would, and the per-shard outputs, taken in shard order, are the batch's.
+# ``params``, ``rt_table`` and ``plan`` arrive as per-shard copies
+# (``DataMesh.replicate``: shards on one device share one copy).  Each
+# shard copies its rows to its device and runs on its own stream, which
+# first waits on its device's current stream; after the last shard every
+# device's current stream waits on its shards' streams, so the caller
+# uses the outputs, and frees or rewrites what the shards read, in stream
+# order.  The fused step's batch is deduped over the whole batch before
+# it is split (the caller's ``dedupe_context_tokens``): every shard sees
+# the batch's U.
+
+def _shard_map(fn, mesh, batch: dict, *replicas) -> list:
+    """fn(*(r[i] for r in replicas), rows i of batch) on each shard i;
+    the outputs in shard order."""
+    n = mesh.n_shards
+    total = next(iter(batch.values())).shape[0]
+    if total < n or total % n:
+        raise ValueError(f"{total} rows do not split into {n} equal "
+                         "non-empty shards")
+    step = total // n
+    outs = []
+    for i in range(n):
+        with mesh.shard(i):
+            dev = mesh.devices[i]
+            part = {k: v[i * step:(i + 1) * step].to(dev)
+                    for k, v in batch.items()}
+            outs.append(fn(*(r[i] for r in replicas), part))
+    mesh.join()
+    return outs
+
+
+def sharded_predict_step(params, batch, cfg, use_context: bool, mesh):
+    """``predict_step`` over the mesh (monolithic path: batch carries
+    clip_tokens)."""
+    return _shard_map(lambda p, b: predict_step(p, b, cfg, use_context),
+                      mesh, batch, params)
+
+
+def sharded_forward_cached(params, rt_table, batch, cfg, use_context: bool,
+                           mesh):
+    """``forward_cached`` over the mesh; each shard gathers from its
+    device's copy of the RT table."""
+    return _shard_map(
+        lambda p, t, b: forward_cached(p, t, b, cfg, use_context),
+        mesh, batch, params, rt_table)
+
+
+def sharded_forward_cached_fused(params, plan, batch, cfg, mesh):
+    """``forward_cached_fused`` over the mesh: rt_idx, ctx_uniq,
+    ctx_count and clip_mask split by row; params and plan copied."""
+    return _shard_map(lambda p, s, b: forward_cached_fused(p, s, b, cfg),
+                      mesh, batch, params, plan)
+
+
+def sharded_encode_instructions(params, token_rows, cfg, mesh):
+    """``encode_instructions`` with the static rows split over the mesh:
+    rows encode independently, so the shards' outputs concatenated are
+    the unsharded table's rows.  On the card each shard's rows still run
+    in passes of ``ENCODE_CHUNK``."""
+    return _shard_map(lambda p, b: encode_instructions(p, b["rows"], cfg),
+                      mesh, {"rows": token_rows}, params)
+
+
 # Inference precision: fp32 is the reference mode; bf16 casts the fp32
 # master params at dispatch (``_w``) with f32 softmax and accumulation in
 # the kernels; int8 is storage precision — weights are per-channel

@@ -33,6 +33,16 @@ and cold-encode) and crashes a persist at ``ckpt.save``'s ``pre_publish``,
 after the files are written and before the atomic publish
 (``crash_persist``: the previous generation stays the store's).
 
+Mesh (``n_shards``, ``EngineConfig.mesh_shape``).  An encode pass splits
+its rows over the data mesh (``predictor.sharded_encode_instructions``),
+every shard at least ``ENCODE_STABLE_MIN`` rows, and on the card each
+shard's rows still run in the encoder's passes of ``ENCODE_CHUNK``: the
+table is byte-identical to the unsharded one.  It is written on the first
+shard's device; after every write each other distinct device of the mesh
+gets a fresh copy (``table_on``), taken at the same ``version``.  The store
+key names no mesh, so a store written under a mesh loads without one, and
+the other way round.
+
 Threads.  The serving layer runs flushes on worker threads, and a flush
 its watchdog abandoned may still run beside the retry on a sibling rung
 that shares this cache.  ``ensure_rows``, ``persist`` and the store load
@@ -58,6 +68,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.core import predictor as pred_mod
 from repro_torch.core.standardize import dedupe_token_rows
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import DataMesh, resolve_mesh
 from repro_torch.obs import SPAN_SECONDS_TOTAL, Observability
 
 PAD_ROW_ID = 0
@@ -97,18 +108,23 @@ def rt_store_key(params, cfg, l_token: Optional[int] = None,
     h.update(extra.encode())
     return h.hexdigest()[:32]
 
-# Every encode pass runs at least this many rows (the reference's XLA-CPU
-# row-stability class).  The port keeps the bucket ladder so an encode
-# pass sees the same shapes as the reference's.
+# Every encode pass, and every shard of one, runs at least this many rows
+# (the reference's XLA-CPU row-stability class).  The port keeps the
+# bucket ladder so an encode pass sees the same shapes as the reference's.
 ENCODE_STABLE_MIN = 32
 
 
-def encode_bucket(n: int) -> int:
+def encode_bucket(n: int, align: int = 1) -> int:
     """Pad target for an encode pass: next power of two >=
-    max(n, ENCODE_STABLE_MIN), bounding pass shapes to ~log2(n_static)."""
+    max(n, ENCODE_STABLE_MIN), bounding pass shapes to ~log2(n_static).
+    ``align`` (the mesh's shard count x ENCODE_STABLE_MIN) rounds the
+    bucket up to a multiple, so every shard gets an equal share of at
+    least ENCODE_STABLE_MIN rows."""
     b = ENCODE_STABLE_MIN
     while b < n:
         b *= 2
+    if align > 1:
+        b = (b + align - 1) // align * align
     return b
 
 
@@ -198,7 +214,9 @@ class RTCache:
     ``ensure_rows`` returns global int32 row ids, encoding unseen rows in
     one bucketed pass; ``table`` is the (capacity, E) tensor
     ``forward_cached`` gathers from.  Capacity doubles when full (a new
-    tensor); ``version`` increments on every write.  With ``store_dir``
+    tensor); ``version`` increments on every write.  ``n_shards`` > 0 (or
+    ``mesh``) splits encode passes over the data mesh and keeps a copy of
+    the table on each of its devices.  With ``store_dir``
     the cache first adopts the table persisted under its content key, if
     any, and ``persist`` writes it back.  ``fault_injector`` (a
     ``serving.faults.FaultInjector`` or None) may corrupt the store read
@@ -207,10 +225,16 @@ class RTCache:
 
     def __init__(self, params, cfg, l_token: Optional[int] = None, *,
                  capacity: int = 4096, device: DeviceLike = "cuda",
+                 n_shards: int = 0, mesh: Optional[DataMesh] = None,
                  store_dir: Optional[str] = None, store_extra: str = "",
                  fault_injector=None,
                  obs: Optional[Observability] = None):
         self.device = resolve_device(device)
+        self._mesh = resolve_mesh(n_shards, self.device, mesh)
+        # the parameters' copy on each shard's device
+        self._params_r = (self._mesh.replicate(params)
+                          if self._mesh is not None else None)
+        self._replicas: Dict[torch.device, torch.Tensor] = {}
         self.params = params
         self.cfg = cfg
         self.l_token = l_token
@@ -265,6 +289,28 @@ class RTCache:
         if self._table is None:
             raise RuntimeError("RT cache is empty (no rows ensured)")
         return self._table
+
+    def table_on(self, device: torch.device) -> torch.Tensor:
+        """The table's copy on ``device``: the table itself on its own
+        device, else the mesh's copy there."""
+        table = self.table
+        if table.device == device:
+            return table
+        copy = self._replicas.get(device)
+        if copy is None:
+            raise ValueError(f"RT cache on {table.device} keeps no copy on "
+                             f"{device} (its mesh does not cover it)")
+        return copy
+
+    def _replicate(self) -> None:
+        """A fresh copy of the table on every other device of the mesh,
+        after a write (the plan keys on ``version``, which the caller
+        bumps with it)."""
+        if self._mesh is None:
+            return
+        self._replicas = {d: self._table.to(d)
+                          for d in self._mesh.distinct_devices
+                          if d != self._table.device}
 
     def ensure_rows(self, rows: np.ndarray,
                     keys: Optional[Sequence[bytes]] = None) -> np.ndarray:
@@ -322,13 +368,22 @@ class RTCache:
         # (a service's flush thread or the caller's) grows it; every
         # other use of it only reads
         k = rows.shape[0]
-        bucket = encode_bucket(k)
+        # sharded: every shard gets >= ENCODE_STABLE_MIN rows, as the
+        # reference's row-stability class asks of each device
+        align = (self._mesh.n_shards * ENCODE_STABLE_MIN
+                 if self._mesh is not None else 1)
+        bucket = encode_bucket(k, align)
         if bucket != k:
             rows = np.concatenate(
                 [rows, np.zeros((bucket - k, self.l_token), np.int32)])
-        rt = pred_mod.encode_instructions(
-            self.params, torch.as_tensor(rows, device=self.device),
-            self.cfg)[:k]
+        if self._mesh is None:
+            rt = pred_mod.encode_instructions(
+                self.params, torch.as_tensor(rows, device=self.device),
+                self.cfg)[:k]
+        else:
+            outs = pred_mod.sharded_encode_instructions(
+                self._params_r, torch.as_tensor(rows), self.cfg, self._mesh)
+            rt = torch.cat([o.to(self.device) for o in outs])[:k]
         lo = self._n
         while lo + k > self._capacity:
             self._capacity *= 2
@@ -339,9 +394,12 @@ class RTCache:
                 table[:lo] = self._table[:lo]
             self._table = table
         self._table[lo:lo + k] = rt
+        self._replicate()
         self.version += 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # build time stays in stats
+        if self._mesh is not None:
+            self._mesh.synchronize()            # build time stays in stats
+        elif self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         self._index.update(pending)
         self._n += k
         self._c_encoded.inc(k)
@@ -405,6 +463,7 @@ class RTCache:
             self._table = torch.zeros((self._capacity, e), dtype=table.dtype,
                                       device=self.device)
             self._table[:n] = table.to(self.device)
+            self._replicate()
             self.version += 1
             self._index = {k: i for i, k in enumerate(keys)}
             self._n = n
@@ -416,6 +475,7 @@ class RTCache:
                 "falling back to cold encode", stacklevel=2)
             self._index = {}
             self._table = None
+            self._replicas = {}
             self._n = 0
             self._persisted_rows = 0
             self._g_loaded.set(0)

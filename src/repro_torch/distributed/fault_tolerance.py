@@ -14,7 +14,7 @@ detection (port of ``repro/distributed/fault_tolerance.py``).
     synchronized at its end.
 
 The reference's ``rescale_state`` (an elastic restart onto a mesh of
-another size) belongs with the mesh: ROADMAP port queue item 6.
+another size) belongs with the mesh: ROADMAP port queue item 6b.
 """
 from __future__ import annotations
 

@@ -9,10 +9,14 @@ variants of the suite at N cores each (per-core and summed predictions),
 and ``--rt-store-dir DIR`` loads the RT table from a persistent store
 there, and persists it after the run.  ``--subsample FRACTION`` predicts
 only a stratified sample of each benchmark's clips and prints each total
-with its 95% bootstrap CI.  ``--service`` serves the suite's clips as
-requests through the fault-tolerant ``SimulationService`` (deadlines,
-watchdog, degradation ladder; ``--faults`` injects chaos on the real
-path).  ``--metrics-port`` serves Prometheus text at ``/metrics``,
+with its 95% bootstrap CI.  ``--mesh N`` shards every predict dispatch and
+RT-cache encode pass over an N-shard data mesh: N cards with ``--device
+cuda``, N shards on the CPU with ``--device cpu``; only ``--arch capsim``
+takes it.  ``--engine-config`` takes an ``EngineConfig`` as a JSON object
+or a path to one; the flags override its fields.  ``--service`` serves
+the suite's clips as requests through the fault-tolerant
+``SimulationService`` (deadlines, watchdog, degradation ladder;
+``--faults`` injects chaos on the real path).  ``--metrics-port`` serves Prometheus text at ``/metrics``,
 ``--trace-out`` writes a Chrome/Perfetto trace and ``--flight-dir`` keeps
 the service's demotion postmortems.  ``--arch mamba2-780m``, the dense
 decoders (``olmo-1b``, ``qwen3-4b``, ``internlm2-20b``,
@@ -43,16 +47,28 @@ def parse_faults(spec):
 
 
 def _build_engine_config(args):
-    """The flags as one ``EngineConfig``."""
+    """``--engine-config`` (a JSON object, or a path to one) with the
+    flags' fields over it, as one ``EngineConfig``."""
     from repro_torch.core.engine_config import (EngineConfig,
                                                 ObservabilityConfig,
                                                 SamplingConfig)
+    if args.engine_config:
+        text = args.engine_config
+        if not text.lstrip().startswith("{"):
+            with open(text) as fh:
+                text = fh.read()
+        config = EngineConfig.from_json(text)
+    else:
+        config = EngineConfig()
     kw = dict(
         interval_size=args.interval_size, warmup=0, max_checkpoints=1,
         l_min=100, batch_size=args.batch_size, with_oracle=False,
         rt_cache=not args.no_rt_cache, precision=args.precision,
-        multicore=args.multicore, rt_store_dir=args.rt_store_dir,
-        fused_serving=args.fused_serving)
+        multicore=args.multicore, fused_serving=args.fused_serving)
+    if args.rt_store_dir:
+        kw["rt_store_dir"] = args.rt_store_dir
+    if args.mesh:
+        kw["mesh_shape"] = (args.mesh,)
     if args.faults:
         kw["faults"] = parse_faults(args.faults)
         kw["fault_seed"] = args.fault_seed
@@ -65,7 +81,7 @@ def _build_engine_config(args):
     if args.trace_out or args.flight_dir:
         kw["observability"] = ObservabilityConfig(
             trace=bool(args.trace_out), flight_dir=args.flight_dir)
-    return EngineConfig(**kw)
+    return config.replace(**kw)
 
 
 def _start_metrics(args):
@@ -140,6 +156,8 @@ def serve_capsim(args) -> None:
             print(line)
         served = f"{len(results)} benchmarks"
     stats = engine.last_stats
+    if engine.mesh is not None:
+        served += f" over a {engine.mesh.n_shards}-shard mesh"
     print(f"served {served} on {device} "
           f"({stats.n_clips} clips, {stats.n_batches} device batches, "
           f"{stats.n_pad} pad rows) in {wall:.1f}s "
@@ -313,7 +331,7 @@ def serve_lm(args) -> None:
           f"{gen.tokens.tolist()}")
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="capsim",
                     help="capsim (the engine), or mamba2-780m, olmo-1b, "
@@ -348,6 +366,16 @@ def main() -> None:
                          "load-or-rebuild the (row -> RT vector) table "
                          "keyed on (params, config, vocab, framework and "
                          "device), persisted after each run")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="shard inference over an N-shard data mesh "
+                         "(predict dispatch + RT-cache encode passes; "
+                         "equal to unsharded): N cards on cuda, N "
+                         "shards on the CPU with --device cpu.  0 = no "
+                         "mesh")
+    ap.add_argument("--engine-config", default=None, metavar="JSON",
+                    help="EngineConfig as a JSON object or a path to a "
+                         "JSON file; individual flags override its "
+                         "fields")
     ap.add_argument("--subsample", type=float, default=None,
                     metavar="FRACTION",
                     help="analytical-ML fusion: predict only a "
@@ -398,7 +426,10 @@ def main() -> None:
                          "device_error nan_output slow_flush "
                          "corrupt_rt_read crash_persist)")
     ap.add_argument("--fault-seed", type=int, default=0)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    if args.arch != "capsim" and (args.mesh or args.engine_config):
+        ap.error(f"--mesh and --engine-config are the CAPSim engine's; "
+                 f"--arch {args.arch} builds no mesh")
     if args.arch == "capsim" and args.service:
         serve_service(args)
     elif args.arch == "capsim":

@@ -17,7 +17,7 @@ Everything runs on one device: ``--device`` defaults to ``cuda``, where
 the attention goes through the flash kernel and Mamba2's scan through
 the SSD kernel, forward and backward; ``--device cpu`` runs their plain
 versions.  The reference builds its test mesh over the local devices,
-one on a single card; data parallelism is ROADMAP port queue item 6.
+one on a single card; data parallelism is ROADMAP port queue item 6b.
 """
 from __future__ import annotations
 

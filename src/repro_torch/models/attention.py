@@ -21,7 +21,7 @@ Two paths share one set of weights:
                  place, at ``cache_pos``.
 
 The sequence-parallel prefill and the ``shard_map`` flash-decoding are
-multi-device paths (ROADMAP port queue item 6).
+multi-device paths (ROADMAP port queue item 6b).
 """
 from __future__ import annotations
 

@@ -22,7 +22,7 @@ mesh.
 A token's output depends on the batch it came in: the capacity counts
 all B·S tokens, and positions run over the flattened batch.  The
 reference's expert-parallel ``shard_map`` path (per-device capacity) is
-a multi-device path (ROADMAP port queue item 6).
+a multi-device path (ROADMAP port queue item 6b).
 """
 from __future__ import annotations
 

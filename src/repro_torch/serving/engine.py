@@ -16,7 +16,10 @@ across flushes, so a steady request stream pays the instruction encoder
 only for never-before-seen static rows.  The engine holds one backend for
 its whole lifetime, so under ``fused_serving`` the serving plan is rebuilt
 only when the table grows.  ``config.sampling`` switches flushes to the
-analytical-ML fusion path with token-derived features.
+analytical-ML fusion path with token-derived features.  A non-empty
+``config.mesh_shape`` shards every flush's device batches and the RT
+cache's encode passes over the data mesh (``launch/mesh.py``), equal to
+the unsharded engine.
 
 The production front-end that puts a queue, deadlines and graceful
 degradation on top is ``repro_torch.serving.service.SimulationService``.
@@ -34,11 +37,11 @@ from repro_torch.core import analytical
 from repro_torch.core import context as ctx_mod
 from repro_torch.core import predictor as pred_mod
 from repro_torch.core import sampler as sampler_mod
-from repro_torch.core.engine import (BatchedPredictor, params_to_device,
-                                     reject_unported)
+from repro_torch.core.engine import BatchedPredictor, params_to_device
 from repro_torch.core.engine_config import EngineConfig
 from repro_torch.core.rt_cache import RTCache, RTCacheStats
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import resolve_mesh
 from repro_torch.obs import Observability
 
 
@@ -115,13 +118,15 @@ class PredictorEngine:
     sample of each request's clips runs through the predictor, the rest
     extrapolate from token-derived features, and each ``Result`` carries
     a bootstrap CI); ``config.faults`` builds a fault injector the
-    backend consults at dispatch and retire."""
+    backend consults at dispatch and retire; ``config.mesh_shape``
+    shards the backend and the RT cache over one data mesh
+    (``make_data_mesh(n, device)``)."""
 
     def __init__(self, params, cfg, config: Optional[EngineConfig] = None,
                  *, device: DeviceLike = "cuda"):
         config = config or EngineConfig()
-        reject_unported(config, "PredictorEngine")
         self.device = resolve_device(device)
+        self.mesh = resolve_mesh(config.n_shards, self.device)
         self.config = config
         self.obs = Observability.from_config(config.observability)
         self.instance = self.obs.metrics.next_instance("pengine")
@@ -133,11 +138,13 @@ class PredictorEngine:
         self.cfg = pred_mod.inference_config(cfg, config.precision)
         # params are pinned for the engine's lifetime, so the RT table
         # survives across flushes: only unseen static rows ever encode;
-        # with rt_store_dir it also survives process restarts
+        # with rt_store_dir it also survives process restarts.  The cache
+        # shares the engine's mesh: encode passes shard too.
         if config.rt_cache:
             from repro_torch.core.standardize import build_vocab
             self._cache = RTCache(params, self.cfg, config.l_token,
                                   device=self.device,
+                                  n_shards=config.n_shards, mesh=self.mesh,
                                   store_dir=config.rt_store_dir,
                                   store_extra=build_vocab().signature(),
                                   obs=self.obs)
@@ -178,7 +185,8 @@ class PredictorEngine:
                                              rt_cache=self._cache,
                                              fault_injector=self._faults,
                                              obs=self.obs,
-                                             device=self.device)
+                                             device=self.device,
+                                             mesh=self.mesh)
         return self._backend
 
     def flush(self) -> List[Result]:

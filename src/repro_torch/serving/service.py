@@ -79,11 +79,11 @@ import torch
 from repro_torch.core import analytical
 from repro_torch.core import predictor as pred_mod
 from repro_torch.core import sampler as sampler_mod
-from repro_torch.core.engine import (BatchedPredictor, params_to_device,
-                                     reject_unported)
+from repro_torch.core.engine import BatchedPredictor, params_to_device
 from repro_torch.core.engine_config import EngineConfig
 from repro_torch.core.rt_cache import RTCache
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import DataMesh, resolve_mesh
 from repro_torch.obs import Observability
 from repro_torch.serving.engine import Request, validate_request
 from repro_torch.serving.faults import FaultInjector
@@ -335,9 +335,11 @@ class _Tier:
                  cache: Optional[RTCache],
                  injector: Optional[FaultInjector],
                  obs: Optional[Observability] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 mesh: Optional[DataMesh] = None):
         self.name = name
         self.device = device
+        self.mesh = mesh
         self.config = config
         self.params = params
         self.cfg = cfg
@@ -351,7 +353,7 @@ class _Tier:
             self._backend = BatchedPredictor(
                 self.params, self.cfg, config=self.config,
                 rt_cache=self.cache, fault_injector=self._injector,
-                obs=self._obs, device=self.device)
+                obs=self._obs, device=self.device, mesh=self.mesh)
         return self._backend
 
     def invalidate_backend(self) -> None:
@@ -392,8 +394,10 @@ class SimulationService:
 
     The service manages precision/fusion itself via the degradation
     ladder — the base config's ``precision``/``fused_serving`` fields
-    are overridden per rung; batching, scale, store and fault fields
-    pass through.
+    are overridden per rung; batching, scale, mesh, store and fault
+    fields pass through.  Every rung and its RT cache shard over one data
+    mesh (``make_data_mesh(n, device)``); the trusted auditor stays
+    unsharded.
     """
 
     def __init__(self, params, cfg, config: Optional[EngineConfig] = None,
@@ -401,8 +405,8 @@ class SimulationService:
                  fault_injector: Optional[FaultInjector] = None,
                  start_tier: int = 0, device: DeviceLike = "cuda"):
         self.config = config or EngineConfig()
-        reject_unported(self.config, "SimulationService")
         self.device = resolve_device(device)
+        self.mesh = resolve_mesh(self.config.n_shards, self.device)
         params = params_to_device(params, self.device)
         self.sla = sla or ServiceSLA()
         self.obs = Observability.from_config(self.config.observability)
@@ -435,6 +439,7 @@ class SimulationService:
                     caches[key] = RTCache(
                         tparams, rcfg, tcfg.l_token,
                         device=self.device,
+                        n_shards=tcfg.n_shards, mesh=self.mesh,
                         store_dir=tcfg.rt_store_dir,
                         store_extra=build_vocab().signature(),
                         fault_injector=self._injector,
@@ -442,10 +447,11 @@ class SimulationService:
                 cache = caches[key]
             self._tiers.append(_Tier(name, tcfg, tparams, rcfg, cache,
                                      self._injector, self.obs,
-                                     self.device))
-        # the trusted auditor: monolithic fp32, NO fault injector — spot
-        # checks must measure the tier under test, not their own chaos
-        mono_cfg = ladder[-1][1]
+                                     self.device, self.mesh))
+        # the trusted auditor: monolithic fp32, unsharded, NO fault
+        # injector — spot checks must measure the tier under test, not
+        # their own chaos
+        mono_cfg = ladder[-1][1].replace(mesh_shape=())
         self._reference = _Tier("reference", mono_cfg, params,
                                 pred_mod.inference_config(cfg, None),
                                 None, None, self.obs, self.device)

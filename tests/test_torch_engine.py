@@ -199,10 +199,21 @@ def test_rt_cache_pad_row_growth_and_index_clips(params):
 
 
 @pytest.mark.parametrize("field,value", [("mesh_shape", (2,))])
-def test_unported_config_fields_raise(params, field, value):
-    with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
-        SimulationEngine(params, TCFG, TV,
-                         EngineConfig(**{field: value}), device="cpu")
+def test_unported_config_fields_raise(params, field, value, monkeypatch):
+    """Nothing is refused as unported any more (the mesh is ported); what
+    a mesh cannot take still raises: a batch that does not split into
+    equal shards, and more cards than are visible."""
+    with pytest.raises(ValueError, match="must divide by the mesh size 2"):
+        EngineConfig(**{field: value}, batch_size=15)
+    eng = SimulationEngine(params, TCFG, TV, EngineConfig(**{field: value}),
+                           device="cpu")
+    assert eng.mesh.n_shards == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"mesh of 2 devices.*only 1 "
+                                         "visible"):
+        SimulationEngine(params, TCFG, TV, EngineConfig(**{field: value}),
+                         device="cuda")
 
 
 def test_engine_without_device_needs_a_card(params):

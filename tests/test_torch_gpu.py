@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version (the
 flash and SSD kernels' gradients too), and the engine (single-core and
-multicore, sampled, and its RT store's restart), the serving layer, the
+multicore, sampled, its RT store's restart, and on a data mesh of one
+or two cards), the serving layer, the
 Mamba2 LM, the dense decoders, the MoE and hybrid models, the frontend
 and codebook models and a train step of the CAPSim predictor and of two
 LMs on the card against the same code on the CPU.
@@ -269,6 +270,67 @@ def test_rt_store_restart_bitwise_on_card(tmp_path):
     cpu = SimulationEngine(params, cfg, vocab, ec, device="cpu")
     cpu.run_multicore(mbs)
     assert cpu.last_rt_stats.n_rows_loaded == 0
+
+
+def _mesh_runs(fused, meshes):
+    """The unsharded engine on the card, then one run per mesh: (results,
+    RT table) each."""
+    from repro_torch.launch.mesh import make_data_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = config().replace(d_model=32, num_heads=2, head_dim=16, d_ff=64,
+                           dtype="float32")
+    params = predictor.init_params(cfg, seed=0, device="cpu")
+    vocab = std_mod.build_vocab()
+    ec = EngineConfig(interval_size=2_000, warmup=200, max_checkpoints=2,
+                      l_min=32, l_clip=32, batch_size=16, precision="fp32",
+                      fused_serving=fused)
+    runs = []
+    for mesh in (None, *meshes):
+        config_ = ec if mesh is None else ec.replace(
+            mesh_shape=(mesh[0],))
+        kw = {} if mesh is None else {"mesh": make_data_mesh(*mesh[:2],
+                                                             **mesh[2])}
+        eng = SimulationEngine(params, cfg, vocab, config_, device="cuda",
+                               **kw)
+        eng.submit_names(["503.bwaves", "541.leela"])
+        res = eng.run()
+        cache = eng._rt_cache
+        runs.append((res, cache.table[:cache.n_rows].cpu()))
+    return runs
+
+
+def _mesh_close(base, other):
+    (r0, t0), (r1, t1) = base, other
+    assert torch.equal(t0, t1)                  # the table, byte for byte
+    for a, b in zip(r0, r1, strict=True):
+        assert (a.name, a.n_clips) == (b.name, b.n_clips)
+        assert abs(b.predicted_cycles - a.predicted_cycles) \
+            / abs(a.predicted_cycles) <= 1e-6
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_mesh_on_one_card_matches_unsharded(fused):
+    """Meshes (1,) and (2,) asked for on one card, each shard on its own
+    stream: the RT table byte-identical to the unsharded engine's (the
+    sharded encode keeps the 4096-row passes), predictions within the
+    service's rt gate of 1e-6 per benchmark, (1,) bitwise."""
+    _need_card()
+    one = {"on_one_device": True}
+    base, m1, m2 = _mesh_runs(fused, [(1, "cuda:0", one),
+                                      (2, "cuda:0", one)])
+    _mesh_close(base, m2)
+    _mesh_close(base, m1)
+    assert [r.predicted_cycles for r in m1[0]] == \
+        [r.predicted_cycles for r in base[0]]
+
+
+def test_mesh_on_two_cards_matches_unsharded():
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards, {torch.cuda.device_count()} "
+                    "visible")
+    base, m2 = _mesh_runs(True, [(2, "cuda", {})])
+    _mesh_close(base, m2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

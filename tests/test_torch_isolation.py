@@ -1,7 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module, and
 ``chip_smoke.py``, loads neither JAX nor anything of the ``repro``
-package, and the entry points (the training launcher among them) refuse
-to fall back to the CPU."""
+package, and the entry points (the training launcher and the data mesh
+among them) refuse to fall back to the CPU."""
 import argparse
 import subprocess
 import sys
@@ -60,11 +60,13 @@ def test_entry_points_raise_without_a_card(tmp_path):
     from repro_torch.core import predictor
     from repro_torch.core import standardize as std_mod
     from repro_torch.core.engine import SimulationEngine
+    from repro_torch.core.engine_config import EngineConfig
     from repro_torch.core.rt_cache import RTCache
     from repro_torch.core.simulate import capsim_simulate_multicore
     from repro_torch.isa import multicore
     from repro_torch.launch import serve
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_data_mesh
     from repro_torch.launch.specs import random_batch
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import PredictorEngine, SimulationService
@@ -81,6 +83,15 @@ def test_entry_points_raise_without_a_card(tmp_path):
                                                     vocab),
                   lambda: PredictorEngine(params, cfg),
                   lambda: SimulationService(params, cfg),
+                  lambda: make_data_mesh(2),
+                  lambda: make_data_mesh(2, "cuda:0", on_one_device=True),
+                  lambda: SimulationEngine(params, cfg, vocab,
+                                           EngineConfig(mesh_shape=(2,))),
+                  lambda: serve.main(["--mesh", "2", "--n-benchmarks",
+                                      "1"]),
+                  lambda: serve.main(["--engine-config",
+                                      '{"mesh_shape": [1]}',
+                                      "--n-benchmarks", "1"]),
                   lambda: train.main(["--smoke", "--steps", "1",
                                       "--ckpt-dir", str(tmp_path / "c")]),
                   lambda: train.main(["--smoke", "--steps", "1",

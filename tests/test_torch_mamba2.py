@@ -101,18 +101,28 @@ def _refuse_train_batch():
 
 
 def _refuse_mesh_shape():
-    from repro_torch.core.engine import reject_unported
+    """Ported in item 6a: ``EngineConfig(mesh_shape=(2,))`` builds an
+    engine on the CPU, its two shards sharing it."""
+    from repro_torch.configs.capsim import smoke_config
+    from repro_torch.core import predictor
+    from repro_torch.core.engine import SimulationEngine
     from repro_torch.core.engine_config import EngineConfig
-    reject_unported(EngineConfig(mesh_shape=(2,)), "SimulationEngine")
+    from repro_torch.core.standardize import build_vocab
+    cfg = smoke_config()
+    eng = SimulationEngine(predictor.init_params(cfg, device="cpu"), cfg,
+                           build_vocab(), EngineConfig(mesh_shape=(2,)),
+                           device="cpu")
+    assert eng.mesh.n_shards == 2
 
 
 @pytest.mark.parametrize("refused, item", [(_refuse_train_batch, None),
-                                           (_refuse_mesh_shape, "6")],
+                                           (_refuse_mesh_shape, None)],
                          ids=["train-batch", "mesh_shape"])
 def test_unported_archs_name_their_roadmap_item(refused, item):
     """Every arch of the zoo resolves; what the port still refuses names
-    its ROADMAP port-queue item: the device mesh (6).  Training batches
-    (item 7) are ported and build.  An unknown arch is a KeyError."""
+    its ROADMAP port-queue item.  Training batches (item 7) and the
+    CAPSim data mesh (item 6a) are ported and build.  An unknown arch is
+    a KeyError."""
     if item is None:
         refused()
     else:

@@ -385,8 +385,21 @@ def test_service_prewarm_suspends_injection(params):
 
 
 def test_service_mesh_is_not_ported(params):
-    with pytest.raises(NotImplementedError, match="mesh_shape.*item 6"):
-        _service(params, config=BASE.replace(mesh_shape=(2,)))
+    """Once the refusal of ``mesh_shape``; the mesh is ported (item 6a):
+    a service on a 2-shard CPU mesh serves typed results equal to the
+    unsharded service's, and its auditor stays unsharded."""
+    totals = {}
+    for mesh_shape in ((), (2,)):
+        svc = _service(params, config=BASE.replace(mesh_shape=mesh_shape))
+        with svc:
+            results = [svc.submit(_req(i)).result(timeout=300)
+                       for i in range(2)]
+        assert all(r.status == "ok" and r.tier == "fused_int8"
+                   for r in results)
+        totals[mesh_shape] = [r.total_cycles for r in results]
+        assert (svc.mesh is None) == (mesh_shape == ())
+        assert svc._reference.config.mesh_shape == ()
+    assert totals[()] == totals[(2,)]
 
 
 # --------------------------------------------------------------------------- #
