@@ -302,6 +302,38 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               --mesh 1 --device cuda`` and ``--engine-config`` with
               ``mesh_shape: [1]`` in subprocesses.
 
+ 20. dist     the LM zoo's multi-device paths (ROADMAP item 6b) on the one
+              card.  (a) A process group of one rank over NCCL in this
+              process, ``make_test_mesh()`` on it: qwen3-4b whole (36
+              layers, bf16, B=4 x 4096 + 16 decode steps) with
+              ``attn_impl="sp"`` and llama4-maverick's super-block (the
+              MoE layer on the expert-parallel path over one shard)
+              through ``generate`` under ``LOGICAL_RULES_DECODE``, in
+              turns with the meshless run (meshless, mesh, mesh,
+              meshless: the decode rate is host-bound and drifts), every
+              run bitwise the first (logits and tokens), the flash
+              launches one per attention layer, the expert-parallel calls
+              one per MoE layer and call.  (c) The CAPSim DP trainer at
+              full width in f32 (batch 32 x 128 instructions, 20 steps,
+              ``LOGICAL_RULES_PREDICTOR``) bitwise the single-process
+              trainer; then 2 ranks in two processes on the one card over
+              gloo where gloo all-reduces a CUDA tensor (loss per step <=
+              1e-5 relative from 1 rank), else one line saying why not.
+              (b) n shards of each body in one process at full width:
+              sequence-parallel prefill at qwen3-4b's (4, 4096, 32 / 8,
+              128), n = 2 and 4: each shard's flash kernel at Sq = S/n,
+              Skv = (m+1)·S/n against its plain version (2e-5 / 2e-2)
+              and the full causal output's rows (bitwise reported), n
+              launches, each shard timed in bf16 beside SDPA with a
+              lower-right causal mask and the bound; flash-decoding merged
+              over 2, 4 and 8 shards of 4112 positions against
+              ``decode_attention`` (f32 <= 1e-5, bf16 reported); llama4's
+              128 experts over 2, 4 and 8 model shards: routing identical
+              to the meshless path, y at a no-drop capacity within 1e-5
+              relative (bf16: f32 weights would hold 64 GB), and the
+              dropped share at the config's factor.  ``dist distinct
+              cards: not run`` on one card.
+
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (the
 attention entries also carry their main shape's bfloat16 numbers as
@@ -443,6 +475,25 @@ TRAIN_MC_CORES, TRAIN_MC_INTERVAL, TRAIN_MC_STEPS = 4, 20_000, 20
 # steps on one batch; the f32 card-vs-CPU gradient at a shorter sequence
 LM_TRAIN_RUNS = (("qwen3-4b", 2), ("mamba2-780m", 4))
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_GATE_SEQ = 1, 4096, 3, 256
+# the LM zoo's multi-device paths (ROADMAP item 6b) on the one card: (a)
+# world size 1 over NCCL, (arch, layers, batch, prompt) + decode steps;
+# (b) n shards in one process: sequence-parallel prefill at qwen3-4b's
+# (B, S, H, KV, D), flash-decoding at its decode shape (B, H, KV, D) over
+# S + DIST_DECODE positions, llama4's experts over n model shards (the
+# no-drop check at DIST_MOE_TOKENS tokens); (c) the CAPSim DP trainer at
+# full width: batch, clip length, steps, and the 2-rank gloo gate
+DIST_LM_RUNS = (("qwen3-4b", 36, 4, 4096),
+                ("llama4-maverick-400b-a17b", 2, 4, 4096))
+DIST_DECODE = 16
+DIST_ORDER = ("meshless", "mesh", "mesh", "meshless")
+DIST_SP = (4, 4096, 32, 8, 128)
+DIST_SP_SHARDS = (2, 4)
+DIST_DECODE_SHAPE = (4, 32, 8, 128)
+DIST_DECODE_SHARDS = (2, 4, 8)
+DIST_DECODE_TOL = 1e-5
+DIST_MOE_SHARDS = (2, 4, 8)
+DIST_MOE_TOKENS, DIST_MOE_TOL = 1024, 1e-5
+DIST_BATCH, DIST_CLIP, DIST_STEPS, DIST_LOSS_TOL = 32, 128, 20, 1e-5
 
 
 def require(ok: bool, what: str) -> None:
@@ -3859,6 +3910,454 @@ def check_train_lm(torch, fa_ops, wa_ops, ssd_ops):
     return flash, ssd
 
 
+DIST_STORE = "dist.store"
+
+
+def dist_capsim_cfg():
+    """The CAPSim predictor at full width in f32, as ``launch/train.py``
+    builds it."""
+    import argparse
+    from repro_torch.core.standardize import build_vocab
+    from repro_torch.launch import train as train_mod
+    return train_mod._capsim_cfg(argparse.Namespace(smoke=False),
+                                 build_vocab())
+
+
+def dist_capsim_batch(torch, cfg, step: int, device):
+    """Global batch ``step`` of the data-parallel CAPSim runs: DIST_BATCH
+    clips of DIST_CLIP instructions with <PAD> tails, drawn from a numpy
+    seed (every rank draws the same)."""
+    import numpy as np
+    rng = np.random.RandomState(100 + step)
+    V, T, B, L = cfg.vocab_size, cfg.clip_tokens, DIST_BATCH, DIST_CLIP
+    tok = rng.randint(1, V, (B, L, T))
+    tok[np.arange(T) >= rng.randint(2, T + 1, (B, L))[..., None]] = 0
+    batch = {"clip_tokens": tok,
+             "context_tokens": rng.randint(1, V, (B, cfg.context_tokens)),
+             "clip_mask": np.ones((B, L), np.float32),
+             "time": rng.uniform(50.0, 5000.0, B).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def dist_capsim_run(torch, cfg, mesh, device):
+    """DIST_STEPS SGD-momentum steps of the CAPSim trainer from seed 0 on
+    the global batches, under ``LOGICAL_RULES_PREDICTOR`` on ``mesh``
+    (None: no mesh).  Returns (losses, final state)."""
+    from repro_torch.core import predictor
+    from repro_torch.distributed.sharding import (LOGICAL_RULES_PREDICTOR,
+                                                  use_mesh_and_rules)
+    from repro_torch.training import train_loop as ttl
+    tcfg = ttl.TrainConfig(optimizer="sgdm", base_lr=1e-3, warmup_steps=2,
+                           total_steps=DIST_STEPS)
+    state = ttl.init_train_state(predictor.init_params(cfg, seed=0,
+                                                       device=device), tcfg)
+    step = ttl.make_train_step(
+        lambda p, b: predictor.mape_loss(p, b, cfg), tcfg)
+    losses = []
+    with use_mesh_and_rules(mesh, LOGICAL_RULES_PREDICTOR):
+        for i in range(DIST_STEPS):
+            state, m = step(state, dist_capsim_batch(torch, cfg, i, device))
+            losses.append(m["loss"])
+    return [float(x) for x in losses], state
+
+
+def dist_gloo_child() -> int:
+    """One rank of the 2-rank CAPSim trainer on the one card over gloo
+    (``check_dist`` starts two): first whether gloo takes a CUDA tensor
+    for ``all_reduce`` (if not, it says so and stops), then the run;
+    rank 0 writes the losses."""
+    import os
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import make_mesh
+    rank = int(os.environ["RANK"])
+    dist.init_process_group("gloo", init_method=os.environ["INIT"],
+                            rank=rank, world_size=2)
+    try:
+        t = torch.ones(4, device="cuda")
+        try:
+            dist.all_reduce(t)
+        except RuntimeError as e:
+            print(f"GLOO_NO_CUDA {str(e).splitlines()[0]}")
+            return 0
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh = make_mesh((2, 1), ("data", "model"), "cuda:0")
+        losses, _ = dist_capsim_run(torch, dist_capsim_cfg(), mesh,
+                                    mesh.device)
+        if rank == 0:
+            print("LOSSES " + json.dumps(losses))
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_gloo_on_one_card(ref_losses):
+    """The 2-rank gloo run in two processes on the one card; its losses
+    against the 1-rank run's (<= DIST_LOSS_TOL relative), or one line
+    saying why it did not run."""
+    import os
+    store = ROOT / "build" / "dist_gloo.store"
+    store.unlink(missing_ok=True)
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            "import chip_smoke; sys.exit(chip_smoke.dist_gloo_child())")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "RANK": str(r), "INIT": f"file://{store}"})
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(all(p.returncode == 0 for p in procs),
+            "dist gloo ranks failed:\n" + "\n".join(o[-2000:] for o in outs))
+    if "GLOO_NO_CUDA" in outs[0]:
+        why = outs[0].split("GLOO_NO_CUDA", 1)[1].strip().splitlines()[0]
+        print(f"dist dp capsim 2 ranks gloo on one card: not run (gloo "
+              f"here does not all_reduce a CUDA tensor: {why})")
+        return
+    losses = json.loads(outs[0].split("LOSSES ", 1)[1].splitlines()[0])
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    print(f"dist dp capsim 2 ranks gloo on one card ({DIST_BATCH // 2} "
+          f"clips a rank): {len(losses)} steps in "
+          f"{time.perf_counter() - t0:.1f} s (both processes' start "
+          f"included); loss per step vs 1 rank max rel gap {gap:.3e} "
+          f"(<= {DIST_LOSS_TOL}); last loss {losses[-1]:.6f}")
+    require(gap <= DIST_LOSS_TOL, f"dist gloo losses off by {gap}")
+
+
+def dist_world_one(torch, fa_ops, mesh):
+    """(a) and (c) at world size 1 over NCCL: qwen3-4b whole with
+    ``attn_impl="sp"`` and llama4-maverick's super-block through
+    ``generate`` under ``make_test_mesh()`` and ``LOGICAL_RULES_DECODE``
+    (the MoE layers on the expert-parallel path over one shard) against
+    their meshless runs, bitwise; the CAPSim DP trainer the same way.
+    Returns the flash launches of these runs."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed.sharding import (LOGICAL_RULES_DECODE,
+                                                  use_mesh_and_rules)
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.specs import random_batch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+
+    total = 0
+    ep_calls = [0]
+    local_experts = moe_mod.local_experts
+
+    def counted_experts(*a, **kw):
+        ep_calls[0] += 1
+        return local_experts(*a, **kw)
+    moe_mod.local_experts = counted_experts
+    try:
+        for arch, layers, B, S in DIST_LM_RUNS:
+            cfg = moe_cfg(get_config, arch, layers)
+            t0 = time.perf_counter()
+            params = tfm.init_params(cfg, seed=0, device="cuda")
+            batch = random_batch(cfg, ShapeConfig(f"prefill_{S}", S, B,
+                                                  "prefill"), "prefill",
+                                 seed=0, device="cuda")
+            generate(params, cfg, {"tokens": batch["tokens"][:1, :256]}, 1)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            # in turns (meshless, mesh, mesh, meshless): the host-bound
+            # decode rate drifts between runs of one call
+            runs = []
+            for what in DIST_ORDER:
+                rules = LOGICAL_RULES_DECODE if what == "mesh" else None
+                run_cfg = cfg.replace(attn_impl="sp") if rules else cfg
+                ep_calls[0] = 0
+                fa_ops.flash_attention.launches = 0
+                with use_mesh_and_rules(mesh if rules else None, rules):
+                    g = generate(params, run_cfg, batch, DIST_DECODE)
+                n = fa_ops.flash_attention.launches
+                total += n
+                runs.append((what, g, n, ep_calls[0]))
+            g0 = runs[0][1]
+            same = all(torch.equal(g.logits, g0.logits)
+                       and torch.equal(g.tokens, g0.tokens)
+                       for _, g, _, _ in runs)
+            n_attn = sum(m == "attn" for m, _ in cfg.pattern()) \
+                * cfg.num_repeats
+            n_moe = sum(f == "moe" for _, f in cfg.pattern()) \
+                * cfg.num_repeats
+
+            def rate(side, key):
+                vals = [getattr(g, key) for w, g, _, _ in runs if w == side]
+                return sum(vals) / len(vals)
+            launches = {(w, n) for w, _, n, _ in runs}
+            calls = {(w, e) for w, _, _, e in runs}
+            print(f"dist world1 {arch} ({cfg.num_layers} layers, bf16, B={B}"
+                  f" x {S} + {DIST_DECODE} decode steps; init + warm-up "
+                  f"{init_s:.1f} s): mesh {mesh.shape} attn_impl=sp under "
+                  f"LOGICAL_RULES_DECODE vs meshless, runs "
+                  f"{'/'.join(DIST_ORDER)}: bitwise={same} (logits and "
+                  f"tokens of every run); flash launches "
+                  f"{sorted(launches)} (expected {n_attn} a run); "
+                  f"expert-parallel layer calls {sorted(calls)} (expected "
+                  f"{n_moe * (1 + DIST_DECODE)} a mesh run); prefill s "
+                  f"mesh / meshless {rate('mesh', 'prefill_seconds'):.4f} / "
+                  f"{rate('meshless', 'prefill_seconds'):.4f}; decode "
+                  f"ms/step each run " + ", ".join(
+                      f"{w} {1e3 * g.decode_seconds / DIST_DECODE:.3f}"
+                      for w, g, _, _ in runs))
+            require(same, f"dist world1 {arch}: mesh run not bitwise")
+            require(all(n == n_attn for _, n in launches),
+                    f"dist world1 {arch}: flash launches {launches}, "
+                    f"expected {n_attn}")
+            require(calls == {("mesh", n_moe * (1 + DIST_DECODE)),
+                              ("meshless", 0)},
+                    f"dist world1 {arch}: expert-parallel calls {calls}")
+            del g, g0
+            del params, batch, runs
+            torch.cuda.empty_cache()
+    finally:
+        moe_mod.local_experts = local_experts
+
+    cfg = dist_capsim_cfg()
+    fa_ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    l1, s1 = dist_capsim_run(torch, cfg, mesh, "cuda")
+    t1 = time.perf_counter()
+    n = fa_ops.flash_attention.launches
+    total += n
+    l0, s0 = dist_capsim_run(torch, cfg, None, "cuda")
+    same = l0 == l1 and all(torch.equal(a, b) for a, b in
+                            zip(_leaves(s0), _leaves(s1)))
+    print(f"dist dp capsim world1 nccl (full width f32, batch {DIST_BATCH} "
+          f"x {DIST_CLIP} instructions, {DIST_STEPS} steps, "
+          f"LOGICAL_RULES_PREDICTOR): bitwise the single-process trainer="
+          f"{same} (losses and state); flash launches {n} (12 a forward); "
+          f"{DIST_STEPS / (t1 - t0):.2f} steps/s; loss {l1[0]:.5f} -> "
+          f"{l1[-1]:.5f}")
+    require(same, "dist dp capsim world1: not bitwise")
+    require(n == 12 * DIST_STEPS, f"dist dp capsim: {n} flash launches")
+    dist_gloo_on_one_card(l1)
+    return total
+
+
+def dist_shards(torch, fa_ops):
+    """(b) One process, n shards on the one card at full width: each
+    sequence-parallel shard of qwen3-4b's prefill attention (the flash
+    kernel at Sq = S/n, Skv = (m+1)·S/n) against its plain version and
+    the full causal output's rows, timed beside SDPA with a lower-right
+    causal mask and the bound; flash-decoding merged over n shards
+    against ``decode_attention``; llama4's 128 experts over n model
+    shards.  Returns (flash launches, timing rows, {dtype: max err})."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as att
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import init_from_seed
+
+    B, S, H, KV, D = DIST_SP
+    G = H // KV
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    launches, rows, errs = 0, [], {}
+    for dtype in ("bfloat16", "float32"):
+        tdt, tol = getattr(torch, dtype), (BF16_TOL if dtype == "bfloat16"
+                                           else F32_TOL)
+        q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=tdt)
+        k, v = (torch.randn(B, S, KV, D, generator=gen, device="cuda",
+                            dtype=tdt) for _ in range(2))
+        full = att.causal_attention(q, k, v)
+        errs[dtype] = 0.0
+        if dtype == "bfloat16":
+            # the unsharded run in this call: the shards' yardstick
+            qb, kf, vf = (q, k.repeat_interleave(G, 2),
+                          v.repeat_interleave(G, 2))
+            full_ms = cuda_ms(torch, lambda: fa_ops.flash_attention(
+                qb, kf, vf, causal=True), iters=10)
+            qt, kt, vt = (t.transpose(1, 2) for t in (qb, kf, vf))
+            row = {"shape": "sp_full", "dtype": dtype, "ms": full_ms,
+                   "plain_ms": None,
+                   "library_ms": cuda_ms(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, is_causal=True), iters=10)}
+            row["bound_ms"], row["bound_by"] = bound(B, S, S, H, D, dtype,
+                                                     False, causal=True)
+            rows.append(row)
+            print(f"dist sp {dtype} unsharded: flash kernel at Sq=Skv={S} "
+                  f"(B={B} H={H} D={D}, causal) kernel_ms={full_ms:.4f} "
+                  f"library_ms={row['library_ms']:.4f} (sdpa is_causal) "
+                  f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+            del qt, kt, vt, kf, vf
+        for n in DIST_SP_SHARDS:
+            s_loc = S // n
+            fa_ops.flash_attention.launches = 0
+            outs = att.sp_shards(q, k, v, n)
+            got = fa_ops.flash_attention.launches
+            launches += got
+            require(got == n, f"dist sp n={n}: {got} flash launches")
+            for m, o in enumerate(outs):
+                rows_m = slice(m * s_loc, (m + 1) * s_loc)
+                kv = (m + 1) * s_loc
+                qm = q[:, rows_m]
+                kb, vb = (t[:, :kv].repeat_interleave(G, 2) for t in (k, v))
+                plain = fa_ops.flash_attention_plain(qm, kb, vb, causal=True)
+                err = (o.float() - plain.float()).abs().max().item()
+                gap = (o.float() - full[:, rows_m].float()).abs().max().item()
+                same = bool(torch.equal(o, full[:, rows_m]))
+                errs[dtype] = max(errs[dtype], err)
+                line = (f"dist sp {dtype} n={n} shard {m}: flash kernel at "
+                        f"Sq={s_loc} Skv={kv} (B={B} H={H} D={D}, causal, q "
+                        f"offset {m * s_loc}) vs plain max abs {err:.3e} "
+                        f"(<= {tol}); vs the full causal output's rows "
+                        f"{gap:.3e}, bitwise={same}")
+                require(err <= tol and gap <= tol, line)
+                if dtype == "bfloat16":
+                    kt, vt, qt = (t.transpose(1, 2) for t in (kb, vb, qm))
+                    mask = causal_lower_right(s_loc, kv)
+                    qc = qm.contiguous()
+                    row = {"shape": f"sp{n}_shard{m}", "dtype": dtype,
+                           "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(
+                               qm, kb, vb, causal=True), iters=10),
+                           "contiguous_q_ms": cuda_ms(
+                               torch, lambda: fa_ops.flash_attention(
+                                   qc, kb, vb, causal=True), iters=10),
+                           "shard_ms": cuda_ms(torch, lambda:
+                                               att.sp_shard_attention(
+                                                   qm, k, v, m), iters=10),
+                           "plain_ms": cuda_ms(
+                               torch, lambda: fa_ops.flash_attention_plain(
+                                   qm, kb, vb, causal=True),
+                               iters=3, warmup=1, rounds=2),
+                           "library_ms": cuda_ms(
+                               torch, lambda: F.scaled_dot_product_attention(
+                                   qt, kt, vt, attn_mask=mask), iters=10)}
+                    row["bound_ms"], row["bound_by"] = bound(
+                        B, s_loc, kv, H, D, dtype, False, causal=True)
+                    rows.append(row)
+                    line += (f"; kernel_ms={row['ms']:.4f} (q a contiguous "
+                             f"copy: {row['contiguous_q_ms']:.4f}) "
+                             f"shard_ms (K/V "
+                             f"repeat included)={row['shard_ms']:.4f} "
+                             f"plain_ms={row['plain_ms']:.4f} library_ms="
+                             f"{row['library_ms']:.4f} (sdpa lower-right "
+                             f"causal) bound_ms={row['bound_ms']:.4f} "
+                             f"({row['bound_by']})")
+                    del kt, vt, qt, qc
+                print(line)
+                del plain, kb, vb
+            if dtype == "bfloat16":
+                shard_ms = [r["ms"] for r in rows[-n:]]
+                print(f"dist sp {dtype} n={n}: the shards' kernel ms sum "
+                      f"{sum(shard_ms):.4f} = {sum(shard_ms) / full_ms:.3f} x "
+                      f"the unsharded run's; each shard's share of the "
+                      f"causal pairs (2m+1)/n^2 against its share of the "
+                      f"time: " + ", ".join(
+                          f"{(2 * m + 1) / n ** 2:.3f}/"
+                          f"{t / sum(shard_ms):.3f}"
+                          for m, t in enumerate(shard_ms)))
+        del q, k, v, full, outs
+        torch.cuda.empty_cache()
+
+    B, H, KV, D = DIST_DECODE_SHAPE
+    S_max = DIST_SP[1] + DIST_DECODE
+    pos = S_max - 12
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        q = torch.randn(B, 1, H, D, generator=gen, device="cuda", dtype=tdt)
+        kc, vc = (torch.randn(B, S_max, KV, D, generator=gen, device="cuda",
+                              dtype=tdt) for _ in range(2))
+        want = att.decode_attention(q, kc, vc, pos).float()
+        for n in DIST_DECODE_SHARDS:
+            got = att.flash_decode_shards(q, kc, vc, pos, n).float()
+            gap = (got - want).abs().max().item()
+            print(f"dist decode {dtype} n={n}: merged shards of "
+                  f"{S_max // n} positions (B={B} H={H} KV={KV} D={D}, "
+                  f"cache_pos {pos}) vs decode_attention max abs {gap:.3e}"
+                  + (f" (<= {DIST_DECODE_TOL})" if dtype == "float32"
+                     else " (reported)"))
+            if dtype == "float32":
+                require(gap <= DIST_DECODE_TOL, f"dist decode n={n}: {gap}")
+        del q, kc, vc
+
+    cfg = get_config("llama4-maverick-400b-a17b")
+    t0 = time.perf_counter()
+    params = init_from_seed(moe_mod.moe_specs(cfg), 0, cfg.param_dtype,
+                            torch.device("cuda"))
+    torch.cuda.synchronize()
+    print(f"dist moe llama4 layer: {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token} d_model={cfg.d_model} d_ff={cfg.d_ff} "
+          f"bf16 (f32 weights would hold 64 GB), init "
+          f"{time.perf_counter() - t0:.2f} s on the card")
+    dt = params["w_up"].dtype
+    x = torch.randn(1, DIST_MOE_TOKENS, cfg.d_model, generator=gen,
+                    device="cuda", dtype=dt)
+    wide = cfg.replace(capacity_factor=float(cfg.num_experts))
+    y0, _, _ = moe_mod.moe_forward(params, x, wide)
+    ref = moe_mod.route(params["router"], x.reshape(-1, cfg.d_model),
+                        cfg.experts_per_token, wide.capacity_factor)
+    require(bool(ref.keep.all()), "dist moe: the wide capacity dropped")
+    for n in DIST_MOE_SHARDS:
+        parts = moe_mod.moe_shards(params, x, wide, n)
+        y = sum(p.y for p in parts).reshape(x.shape)
+        same_route = all(torch.equal(p.routing.idx, ref.idx) for p in parts)
+        gap = ((y.float() - y0.float()).abs().max()
+               / y0.float().abs().max()).item()
+        print(f"dist moe n_model={n}: {cfg.num_experts // n} experts a "
+              f"shard, {DIST_MOE_TOKENS} tokens, capacity factor "
+              f"{wide.capacity_factor:g} (no drop): routing identical to "
+              f"the meshless path={same_route}; y vs meshless max rel "
+              f"{gap:.3e} (<= {DIST_MOE_TOL}), bitwise="
+              f"{bool(torch.equal(y, y0))}")
+        require(same_route and gap <= DIST_MOE_TOL, f"dist moe n={n}")
+        del parts, y
+    del x, y0
+    x = torch.randn(MOE_BATCH, MOE_PROMPT, cfg.d_model, generator=gen,
+                    device="cuda", dtype=dt)
+    for n in (1,) + DIST_MOE_SHARDS:
+        parts = moe_mod.moe_shards(params, x, cfg, n)
+        keep = parts[0].routing.keep
+        print(f"dist moe n_model={n} at the config's capacity factor "
+              f"{cfg.capacity_factor} ({x.shape[0]} x {x.shape[1]} tokens, "
+              f"capacity {parts[0].routing.cap} a expert): dropped share "
+              f"{1 - keep.float().mean().item():.4f} (the capacity counts "
+              "one device's tokens, B·S/dp with dp = 1 here, so every n "
+              "drops the same pairs)")
+        del parts
+    del params, x
+    torch.cuda.empty_cache()
+    return launches, rows, errs
+
+
+def check_dist(torch, fa_ops):
+    """The LM zoo's multi-device paths (ROADMAP item 6b) on the one card:
+    a process group of one rank over NCCL in this process with
+    ``make_test_mesh()`` on it ((a) and (c) at world size 1, bitwise the
+    meshless runs; the 2-rank CAPSim trainer over gloo in two processes
+    on the card), then n shards of each body in one process at full
+    width (b).  Returns (flash launches, flash timing rows, errs)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    store = ROOT / "build" / DIST_STORE
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh("cuda")
+        print(f"dist group: backend {dist.get_backend()} world "
+              f"{dist.get_world_size()}; make_test_mesh() {mesh.shape} "
+              f"{mesh.axis_names} on {mesh.device}, device mesh "
+              f"{mesh.device_mesh}")
+        launches = dist_world_one(torch, fa_ops, mesh)
+    finally:
+        dist.destroy_process_group()
+    n, rows, errs = dist_shards(torch, fa_ops)
+    print(f"dist distinct cards: not run ({torch.cuda.device_count()} card "
+          "visible; NCCL takes one rank a card)")
+    return launches + n, rows, errs
+
+
 def _named(tree, prefix=""):
     """(name, leaf) in sorted key order (``tree_leaves``' order)."""
     for k in sorted(tree):
@@ -4061,6 +4560,13 @@ def main() -> int:
     for name, n in check_mesh(torch, fa_ops, wa_ops).items():
         launches[name] += n
     phase("mesh")
+    n, dist_rows, dist_errs = check_dist(torch, fa_ops)
+    launches["flash_attention"] += n
+    rows["flash_attention"] += dist_rows
+    for dtype, err in dist_errs.items():
+        errs["flash_attention"][dtype] = max(
+            errs["flash_attention"][dtype], err)
+    phase("dist")
     print("phases: " + ", ".join(f"{name} {sec:.1f} s"
                                  for name, sec in phase_s.items()))
 

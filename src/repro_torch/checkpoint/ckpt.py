@@ -197,9 +197,12 @@ class CheckpointManager:
     """Async, keep-last-K checkpointing for the training loop.  ``wait``
     returns once the save in flight (if any) is on disk."""
 
-    def __init__(self, ckpt_dir: str, *, keep: int = 3):
+    def __init__(self, ckpt_dir: str, *, keep: int = 3,
+                 writer: bool = True):
         self.dir = Path(ckpt_dir)
         self.keep = keep
+        # data-parallel ranks other than 0 restore but never write
+        self.writer = writer
         self._thread: Optional[threading.Thread] = None
 
     def wait(self) -> None:
@@ -208,6 +211,8 @@ class CheckpointManager:
             self._thread = None
 
     def save(self, state, step: int) -> None:
+        if not self.writer:
+            return
         self.wait()                                     # one in flight
         # on the host *now*, so training can go on with the device state
         host_state = _host_copy(state)

@@ -6,15 +6,17 @@ norms, the Mamba2 mixer, the attention mixer (heads, ``qk_norm``, RoPE
 and Qwen2-VL's M-RoPE sections), the dense FFN's activation, the MoE
 FFN's routing (experts, top-k, capacity factor, the interleave), the
 modality frontend stubs (``frontend``, ``frontend_len``) and MusicGen's
-parallel codebooks (``num_codebooks``).  Left out: the sliding window
-and the logit soft-cap (``attn_window``, ``attn_logit_softcap``), which
-no config of the zoo sets; the shape lists (``shape_names``,
-``skipped_shapes``, ``skip_reason``); the implementation selectors
-(``attn_impl``, ``ssm_impl``: the port always calls its kernels'
-wrappers, which launch the CUDA kernel on a CUDA tensor and run the
-plain PyTorch version on a CPU tensor), the XLA execution knobs
-(``remat``, ``scan_layers``, ``attn_chunk``) and the CAPSim predictor
-extras, whose config is ``configs/capsim.py``.
+parallel codebooks (``num_codebooks``), and ``attn_impl`` with the
+reference's values: ``"sp"`` selects the sequence-parallel prefill
+route (``models/attention.py``), every other value the kernel route.
+Left out: the sliding window and the logit soft-cap (``attn_window``,
+``attn_logit_softcap``), which no config of the zoo sets; the shape
+lists (``shape_names``, ``skipped_shapes``, ``skip_reason``);
+``ssm_impl`` (the port always calls the SSD wrapper, which launches the
+CUDA kernel on a CUDA tensor and runs the plain PyTorch version on a CPU
+tensor), the XLA execution knobs (``remat``, ``scan_layers``,
+``attn_chunk``) and the CAPSim predictor extras, whose config is
+``configs/capsim.py``.
 
 ``get_config``/``get_smoke_config`` resolve ``--arch`` names: ``capsim``
 and every model of the LM zoo (``mamba2-780m``; the dense decoders
@@ -90,6 +92,9 @@ class ArchConfig:
     frontend: str = "none"           # none | vision | audio
     frontend_len: int = 0            # number of precomputed frontend embeddings
     num_codebooks: int = 1           # musicgen: parallel EnCodec streams
+
+    # --- implementation ---
+    attn_impl: str = "chunked"       # chunked | pallas: the kernel route; sp: sequence-parallel
 
     # --- numerics ---
     dtype: str = "bfloat16"

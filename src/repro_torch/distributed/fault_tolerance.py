@@ -12,9 +12,12 @@ detection (port of ``repro/distributed/fault_tolerance.py``).
     time.
   - ``timed_step`` returns a step's wall seconds, the CUDA device
     synchronized at its end.
-
-The reference's ``rescale_state`` (an elastic restart onto a mesh of
-another size) belongs with the mesh: ROADMAP port queue item 6b.
+  - ``rescale_state`` implements elastic scaling: checkpoints are
+    mesh-agnostic host arrays, so resuming on another device count
+    places each leaf by its sharding on the new mesh: replicated leaves
+    whole, sharded leaves cut to the rank's block.  The data-parallel
+    trainer splits each global batch by ``shard_range``, so a run
+    checkpointed at 2 ranks resumes at 1 or 4 with the same batches.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 
 from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import take_spec_block
 from repro_torch.training.optimizer import tree_leaves, tree_map
 
 
@@ -115,6 +119,25 @@ class ResilientTrainer:
             if installed_here:
                 self.uninstall_signal_handler()
         return state, step
+
+
+# --------------------------------------------------------------------------- #
+# Elastic rescale
+# --------------------------------------------------------------------------- #
+
+def rescale_state(host_state, new_shardings):
+    """Place a host state tree (numpy arrays or CPU tensors, a
+    checkpoint's) onto a differently sized mesh: each leaf cut by its
+    ``sharding.NamedSharding``'s spec to this rank's block (whole where
+    the spec replicates) and moved to the mesh's device.  Every sharding
+    is logical (rules), not by device index, so this is all an elastic
+    scale-up or -down needs."""
+    def place(a, s):
+        block = take_spec_block(a, s.spec, s.mesh)
+        t = block if isinstance(block, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(block))
+        return t.to(s.mesh.device).clone()
+    return tree_map(place, host_state, new_shardings)
 
 
 # --------------------------------------------------------------------------- #

@@ -306,18 +306,27 @@ def generate(params: dict, cfg, batch: dict, decode_steps: int,
 
 
 def serve_lm(args) -> None:
+    """The LM zoo's smoke config: a prefill of B=2 x 32 tokens and greedy
+    decode steps, under the reference's ``make_test_mesh()`` and
+    ``LOGICAL_RULES_DECODE`` (one device: the MoE layers take the
+    expert-parallel path over one shard, the attention its one-shard
+    fallbacks, with the tokens of the meshless path)."""
     from repro_torch.configs import ShapeConfig, get_smoke_config
     from repro_torch.device import resolve_device
+    from repro_torch.distributed.sharding import (LOGICAL_RULES_DECODE,
+                                                  use_mesh_and_rules)
+    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.specs import random_batch
     from repro_torch.models import transformer as tfm
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch)
     B, S = 2, 64
-    params = tfm.init_params(cfg, seed=0, device=device)
-    batch = random_batch(cfg, ShapeConfig("p", S // 2, B, "prefill"),
-                         "prefill", device=device)
-    gen = generate(params, cfg, batch, args.decode_steps, device)
+    with use_mesh_and_rules(make_test_mesh(device), LOGICAL_RULES_DECODE):
+        params = tfm.init_params(cfg, seed=0, device=device)
+        batch = random_batch(cfg, ShapeConfig("p", S // 2, B, "prefill"),
+                             "prefill", device=device)
+        gen = generate(params, cfg, batch, args.decode_steps, device)
     what = []
     if "frontend" in batch:
         what.append(f"the first {batch['frontend'].shape[1]} frontend "

@@ -1,9 +1,9 @@
 """GQA attention of the LM zoo, PyTorch port of ``repro/models/attention.py``
-(``attn_specs`` :36-47, the flash route :90-92, ``flash_decode``'s
-single-device branch :184-214, ``init_cache_specs`` :239-248 and
+(``attn_specs`` :36-47, the flash route :90-92, ``sp_prefill_attention``
+:99-149, ``flash_decode`` :158-232, ``init_cache_specs`` :239-248 and
 ``attention_forward`` :251-315).
 
-Two paths share one set of weights:
+Three paths share one set of weights:
 
   train/prefill  full-sequence causal attention.  K/V heads are repeated
                  to the H query heads as the reference repeats them
@@ -13,15 +13,32 @@ Two paths share one set of weights:
                  tensor, its plain version on a CPU tensor.  That is the
                  reference's ``attn_impl="pallas"`` route; its chunked XLA
                  path computes the same function.
-  decode         one query token against the KV cache: a masked softmax
-                 over the cache with -1e30 past ``cache_pos``, scores in
-                 f32 and p rounded to the value dtype, in plain PyTorch
-                 (the reference reaches no Pallas kernel here either).
-                 The new key and value are written into the cache in
-                 place, at ``cache_pos``.
-
-The sequence-parallel prefill and the ``shard_map`` flash-decoding are
-multi-device paths (ROADMAP port queue item 6b).
+  sequence-      (``attn_impl="sp"``, or whenever the rank's rows are a
+  parallel       slice of the sequence: ``LOGICAL_RULES_PREFILL_SP``)
+                 each 'model' shard m holds query rows [m·s_loc, (m+1)·
+                 s_loc); it all-gathers the GQA K/V heads over 'model'
+                 and runs the causal flash kernel on its rows against keys
+                 [0, (m+1)·s_loc): the kernel aligns q to the end of kv,
+                 which is the reference's ``q_start = m·s_loc``, and the
+                 keys past the shard's last row, which its causal mask
+                 would discard, are not passed (``sp_shard_attention``).
+                 With replicated rows the rank takes its own query rows
+                 and all-gathers the output, as the reference's
+                 ``shard_map`` does.
+  decode         one query token against the KV cache.  A cache whose
+                 sequence is split over mesh axes (``cache_seq``:
+                 'model' under ``LOGICAL_RULES_DECODE``, the whole mesh
+                 under ``_DECODE_LONG``) runs flash-decoding: each shard's
+                 partial softmax over its slice (``flash_decode_partial``:
+                 the max, the sum and the f32 accumulator against its own
+                 max) merged by ``all_reduce`` MAX and SUM.  Otherwise
+                 (no mesh, one shard, a length the shards do not divide)
+                 ``decode_attention``: a masked softmax over the cache with
+                 -1e30 past ``cache_pos``, scores in f32 and p rounded to
+                 the value dtype, in plain PyTorch (the reference reaches
+                 no Pallas kernel here either).  The new key and value
+                 are written into the cache in place, at ``cache_pos``,
+                 by the rank whose slice holds it.
 """
 from __future__ import annotations
 
@@ -30,6 +47,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import current_layout, current_mesh
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import (ParamSpec, apply_rope, dense_spec,
                                        rms_norm)
@@ -40,21 +59,22 @@ NEG_SCORE = -1e30
 def attn_specs(cfg) -> dict:
     d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs = {
-        "wq": dense_spec(d, H * Dh),
-        "wk": dense_spec(d, KV * Dh),
-        "wv": dense_spec(d, KV * Dh),
-        "wo": dense_spec(H * Dh, d),
+        "wq": dense_spec(d, H * Dh, ("embed", "qkv")),
+        "wk": dense_spec(d, KV * Dh, ("embed", "kv")),
+        "wv": dense_spec(d, KV * Dh, ("embed", "kv")),
+        "wo": dense_spec(H * Dh, d, ("qkv", "embed")),
     }
     if cfg.qk_norm:
-        specs["q_norm"] = ParamSpec((Dh,), std=0.0, dtype="float32")
-        specs["k_norm"] = ParamSpec((Dh,), std=0.0, dtype="float32")
+        specs["q_norm"] = ParamSpec((Dh,), (None,), std=0.0, dtype="float32")
+        specs["k_norm"] = ParamSpec((Dh,), (None,), std=0.0, dtype="float32")
     return specs
 
 
 def init_cache_specs(cfg, batch: int, max_seq: int) -> dict:
     KV, Dh = cfg.num_kv_heads, cfg.head_dim
-    return {"k": ParamSpec((batch, max_seq, KV, Dh)),
-            "v": ParamSpec((batch, max_seq, KV, Dh))}
+    axes = ("cache_batch", "cache_seq", "cache_kv", "cache_head_dim")
+    return {"k": ParamSpec((batch, max_seq, KV, Dh), axes),
+            "v": ParamSpec((batch, max_seq, KV, Dh), axes)}
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor,
@@ -82,6 +102,121 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache)
     return o.reshape(B, 1, H, Dh)
+
+
+def sp_shard_attention(q: torch.Tensor, k_full: torch.Tensor,
+                       v_full: torch.Tensor, m: int) -> torch.Tensor:
+    """One sequence-parallel shard's body: its query rows q (B, s_loc, H,
+    Dh), rows [m·s_loc, (m+1)·s_loc) of the sequence, against the
+    gathered k/v (B, S, KV, Dh); causal flash over keys [0, (m+1)·
+    s_loc), the kernel's end alignment giving the offset m·s_loc."""
+    kv = (m + 1) * q.shape[1]
+    return causal_attention(q, k_full[:, :kv], v_full[:, :kv])
+
+
+def sp_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cfg) -> torch.Tensor:
+    """Sequence-parallel prefill attention on the rank's rows.  q: (B, S,
+    H, Dh); k/v: (B, S, KV, Dh), the KV heads repeated only after the
+    gather.  Returns (B, S, H, Dh), laid out as q."""
+    mesh, lay = current_mesh(), current_layout()
+    if lay.seq:
+        if lay.seq != ("model",):
+            raise NotImplementedError(f"a sequence split over {lay.seq}")
+        return sp_shard_attention(q, coll.all_gather(k, mesh, lay.seq, 1),
+                                  coll.all_gather(v, mesh, lay.seq, 1),
+                                  mesh.index(lay.seq))
+    S = q.shape[1]
+    n_sp = (mesh.size("model") if mesh is not None
+            and "model" in mesh.axis_names else 1)
+    if n_sp <= 1 or S % n_sp != 0:
+        return causal_attention(q, k, v)
+    m, s_loc = mesh.index("model"), S // n_sp
+    o = sp_shard_attention(q[:, m * s_loc:(m + 1) * s_loc], k, v, m)
+    return coll.all_gather(o, mesh, ("model",), 1)
+
+
+def sp_shards(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              n: int) -> list:
+    """Sequence-parallel attention as n shards in one process: each
+    shard's output rows, ``sp_shard_attention`` on the whole K/V (what
+    the gather gives each rank)."""
+    s_loc = q.shape[1] // n
+    return [sp_shard_attention(q[:, m * s_loc:(m + 1) * s_loc], k, v, m)
+            for m in range(n)]
+
+
+def flash_decode_partial(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cache_pos: int, shard: int):
+    """One flash-decoding shard's body over its cache slice k/v (B, s_loc,
+    KV, Dh), positions [shard·s_loc, (shard+1)·s_loc); qg (B, KV, G, Dh).
+    Returns (m, l, o): the f32 row max of its valid scores (-inf where it
+    has none), the sum of exp(s - m) and the f32 accumulator of p·v, p
+    rounded to the value dtype (B, KV, G[, Dh])."""
+    s_loc = k.shape[1]
+    kpos = shard * s_loc + torch.arange(s_loc, device=qg.device)
+    valid = kpos <= cache_pos
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) \
+        * (1.0 / math.sqrt(qg.shape[-1]))
+    s = s.masked_fill(~valid, float("-inf"))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    p = p.masked_fill(~valid, 0.0)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
+    return m, p.sum(dim=-1), o
+
+
+def merge_decode(m, l, o, reduce, out_dtype: torch.dtype) -> torch.Tensor:
+    """Merge the shards' partials: ``reduce(x, op)`` joins a partial over
+    the shards ("max" or "sum"; ``all_reduce`` across ranks, or a
+    reduction over a stacked leading dim in one process)."""
+    m_all = reduce(m, "max")
+    w = torch.exp(m - m_all)                  # 0 for a shard with no key
+    l_all = reduce(l * w, "sum")
+    o_all = reduce(o * w[..., None], "sum")
+    return (o_all / torch.clamp(l_all, min=1e-30)[..., None]).to(out_dtype)
+
+
+def stacked(x: torch.Tensor, op: str) -> torch.Tensor:
+    """``merge_decode``'s reduction over shards stacked on dim 0 (n
+    shards in one process)."""
+    return x.amax(0) if op == "max" else x.sum(0)
+
+
+def flash_decode_shards(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, cache_pos: int,
+                        n: int) -> torch.Tensor:
+    """Flash-decoding as n shards of the cache's sequence in one process
+    (one device holding every shard): the shard bodies of
+    ``flash_decode``, merged over a stacked dim."""
+    B, _, H, Dh = q.shape
+    KV = k_cache.shape[2]
+    if k_cache.shape[1] % n:
+        raise ValueError(f"{k_cache.shape[1]} cache positions do not "
+                         f"divide into {n} shards")
+    qg = q.reshape(B, KV, H // KV, Dh)
+    parts = [flash_decode_partial(qg, k, v, cache_pos, i) for i, (k, v) in
+             enumerate(zip(k_cache.chunk(n, 1), v_cache.chunk(n, 1)))]
+    m, l, o = (torch.stack(t) for t in zip(*parts))
+    return merge_decode(m, l, o, stacked, v_cache.dtype).reshape(
+        B, 1, H, Dh)
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cache_pos: int) -> torch.Tensor:
+    """q: (B, 1, H, Dh); caches (B, S, KV, Dh), the rank's slice of the
+    sequence where ``current_layout().cache_seq`` names axes (merged
+    across them), else the whole cache (``decode_attention``)."""
+    mesh, axes = current_mesh(), current_layout().cache_seq
+    if mesh is None or not axes:
+        return decode_attention(q, k_cache, v_cache, cache_pos)
+    B, _, H, Dh = q.shape
+    KV = k_cache.shape[2]
+    m, l, o = flash_decode_partial(q.reshape(B, KV, H // KV, Dh), k_cache,
+                                   v_cache, cache_pos, mesh.index(axes))
+    out = merge_decode(m, l, o, lambda x, op: coll.all_reduce(
+        x, mesh, axes, op), v_cache.dtype)
+    return out.reshape(B, 1, H, Dh)
 
 
 def attention_forward(params: dict, x: torch.Tensor,
@@ -115,16 +250,23 @@ def attention_forward(params: dict, x: torch.Tensor,
     if mode == "decode":
         if cache is None or S != 1:
             raise ValueError("decode takes one token and a KV cache")
+        mesh, axes = current_mesh(), current_layout().cache_seq
+        s_loc = cache["k"].shape[1]
         pos = int(cache_pos)
-        if not 0 <= pos < cache["k"].shape[1]:
+        if not 0 <= pos < s_loc * (mesh.size(axes) if axes else 1):
             raise ValueError(f"cache_pos {pos} outside the cache's "
-                             f"{cache['k'].shape[1]} positions")
-        cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
-        o = decode_attention(q, cache["k"], cache["v"], pos)
+                             f"positions")
+        local = pos - (mesh.index(axes) * s_loc if axes else 0)
+        if 0 <= local < s_loc:          # the rank whose slice holds pos
+            cache["k"][:, local] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, local] = v[:, 0].to(cache["v"].dtype)
+        o = flash_decode(q, cache["k"], cache["v"], pos)
         new_cache = cache
     else:
-        o = causal_attention(q, k, v)
+        if cfg.attn_impl == "sp" or current_layout().seq:
+            o = sp_prefill_attention(q, k, v, cfg)
+        else:
+            o = causal_attention(q, k, v)
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
     return o.reshape(B, S, H * Dh) @ params["wo"], new_cache

@@ -36,18 +36,24 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    # the reference's logical axis names, one per dimension (None: no
+    # names, as the CAPSim predictor's specs, which replicate)
+    logical_axes: Optional[Tuple[Optional[str], ...]] = None
     std: float = 0.0          # 0.0 -> zeros; <0 -> ones; >0 -> normal(std)
     dtype: Optional[str] = None  # override param dtype (e.g. fp32 norms)
 
 
-def dense_spec(d_in: int, d_out: int, scale: float = 1.0) -> ParamSpec:
-    return ParamSpec((d_in, d_out), std=scale / math.sqrt(d_in))
+def dense_spec(d_in: int, d_out: int, axes=None,
+               scale: float = 1.0) -> ParamSpec:
+    return ParamSpec((d_in, d_out), axes, std=scale / math.sqrt(d_in))
 
 
 def specs_with_leading_stack(specs: dict, n: int) -> dict:
     """Prepend a 'layers' dimension of size n to every spec of the tree."""
     if isinstance(specs, ParamSpec):
-        return ParamSpec((n,) + specs.shape, std=specs.std,
+        axes = (None if specs.logical_axes is None
+                else ("layers",) + specs.logical_axes)
+        return ParamSpec((n,) + specs.shape, axes, std=specs.std,
                          dtype=specs.dtype)
     return {k: specs_with_leading_stack(s, n) for k, s in specs.items()}
 
@@ -94,12 +100,27 @@ def _leaf_key(seed: int, path: str) -> int:
     return int.from_bytes(digest.digest(), "little", signed=True)
 
 
+def _global_index(zc: torch.Tensor, block, shape) -> None:
+    """Turn the local flat indices in ``zc`` of a block (``block``: one
+    (start, size) a dimension) into the indices of the same elements in
+    the whole tensor of ``shape``, in place."""
+    rem = zc.clone()
+    zc.zero_()
+    stride = 1
+    for (start, size), full in reversed(list(zip(block, shape))):
+        zc.add_((rem % size + start) * stride)
+        rem.div_(size, rounding_mode="floor")
+        stride *= full
+
+
 def _seeded_normal(out: torch.Tensor, key: int, std: float,
-                   table: torch.Tensor) -> None:
+                   table: torch.Tensor, block=None, shape=None) -> None:
     """Fill ``out`` with normal·std: element i takes the quantile that the
     top 16 bits of hash(i, key) pick, times std in f32, cast to out's
     dtype.  Integer ops, a gather and one f32 product are exact on every
-    device, so the CPU and the card give the same bits."""
+    device, so the CPU and the card give the same bits.  With ``block``
+    (one (start, size) a dimension of the whole ``shape``), ``out`` is
+    that block and i the element's index in the whole tensor."""
     flat = out.view(-1)
     z = torch.empty(min(_CHUNK, flat.numel()), dtype=torch.int64,
                     device=out.device)
@@ -108,6 +129,8 @@ def _seeded_normal(out: torch.Tensor, key: int, std: float,
         hi = min(lo + _CHUNK, flat.numel())
         zc, tc = z[:hi - lo], tmp[:hi - lo]
         torch.arange(lo, hi, out=zc)
+        if block is not None:
+            _global_index(zc, block, shape)
         zc.mul_(_GOLDEN).add_(key)
         for shift, mul in ((30, _MIX1), (27, _MIX2), (31, None)):
             torch.bitwise_right_shift(zc, shift, out=tc)
@@ -120,28 +143,47 @@ def _seeded_normal(out: torch.Tensor, key: int, std: float,
 
 
 def init_from_seed(specs, seed: int, param_dtype: str,
-                   device: torch.device):
+                   device: torch.device, blocks=None):
     """Materialize a spec tree on ``device`` by the rule of
     ``init_from_specs``, with normal·std drawn by a counter hash of
     (seed, the leaf's path, the element's index) instead of a generator:
     every element is drawn on the device on its own, and a seed gives the
     same bits on every device.  Each draw is one of 2^16 normal quantiles
     (|z| <= 4.32), finer than a bfloat16 parameter resolves.  The LM zoo's
-    init (``transformer.init_params``)."""
+    init (``transformer.init_params``).
+
+    ``blocks``, a tree like ``specs`` whose leaves are None (the whole
+    tensor) or one (start, size) a dimension, draws only that block of a
+    leaf: the same bits as cutting it from the whole draw (a rank's
+    expert shard under a mesh)."""
     table = _normal_quantiles(device)
 
-    def build(s, path: str):
+    def build(s, path: str, blk):
         if not isinstance(s, ParamSpec):
-            return {k: build(s[k], f"{path}/{k}") for k in sorted(s)}
+            return {k: build(s[k], f"{path}/{k}",
+                             None if blk is None else blk.get(k))
+                    for k in sorted(s)}
         dt = torch_dtype(s.dtype or param_dtype)
+        shape = s.shape if blk is None else tuple(n for _, n in blk)
         if s.std == 0.0:
-            return torch.zeros(s.shape, dtype=dt, device=device)
+            return torch.zeros(shape, dtype=dt, device=device)
         if s.std < 0:
-            return torch.ones(s.shape, dtype=dt, device=device)
-        out = torch.empty(s.shape, dtype=dt, device=device)
-        _seeded_normal(out, _leaf_key(seed, path), s.std, table)
+            return torch.ones(shape, dtype=dt, device=device)
+        out = torch.empty(shape, dtype=dt, device=device)
+        _seeded_normal(out, _leaf_key(seed, path), s.std, table, blk,
+                       s.shape)
         return out
-    return build(specs, "")
+    return build(specs, "", blocks)
+
+
+def shardings_from_specs(specs, mesh, rules):
+    """The reference's ``NamedSharding`` of every leaf: its logical axes
+    resolved by ``rules`` on ``mesh`` (``sharding.logical_sharding``)."""
+    from repro_torch.distributed.sharding import logical_sharding
+    if isinstance(specs, ParamSpec):
+        return logical_sharding(specs.logical_axes, mesh=mesh, rules=rules)
+    return {k: shardings_from_specs(v, mesh, rules)
+            for k, v in specs.items()}
 
 
 def params_from_numpy(tree, device: DeviceLike = "cuda") -> dict:
@@ -204,7 +246,8 @@ def norm(x: torch.Tensor, params: dict, cfg) -> torch.Tensor:
 def norm_spec(cfg) -> dict:
     if cfg.nonparametric_norm:
         return {}
-    return {"scale": ParamSpec((cfg.d_model,), std=0.0, dtype="float32")}
+    return {"scale": ParamSpec((cfg.d_model,), ("embed",), std=0.0,
+                               dtype="float32")}
 
 
 def activation(h: torch.Tensor, kind: str) -> torch.Tensor:

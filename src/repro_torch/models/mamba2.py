@@ -35,19 +35,20 @@ def ssm_specs(cfg) -> dict:
     d_inner, nheads = ssm_dims(cfg)
     ds, w = cfg.ssm_state, cfg.ssm_conv_width
     return {
-        "wz": dense_spec(d, d_inner),
-        "wx": dense_spec(d, d_inner),
-        "wB": dense_spec(d, ds),
-        "wC": dense_spec(d, ds),
-        "wdt": dense_spec(d, nheads),
-        "conv_x": ParamSpec((w, d_inner), std=0.5),
-        "conv_B": ParamSpec((w, ds), std=0.5),
-        "conv_C": ParamSpec((w, ds), std=0.5),
-        "A_log": ParamSpec((nheads,), std=-1.0, dtype="float32"),
-        "dt_bias": ParamSpec((nheads,), std=0.0, dtype="float32"),
-        "D": ParamSpec((nheads,), std=-1.0, dtype="float32"),
-        "gate_norm": ParamSpec((d_inner,), std=0.0, dtype="float32"),
-        "out_proj": dense_spec(d_inner, d),
+        "wz": dense_spec(d, d_inner, ("embed", "ssm_inner")),
+        "wx": dense_spec(d, d_inner, ("embed", "ssm_inner")),
+        "wB": dense_spec(d, ds, ("embed", None)),
+        "wC": dense_spec(d, ds, ("embed", None)),
+        "wdt": dense_spec(d, nheads, ("embed", None)),
+        "conv_x": ParamSpec((w, d_inner), (None, "ssm_inner"), std=0.5),
+        "conv_B": ParamSpec((w, ds), (None, None), std=0.5),
+        "conv_C": ParamSpec((w, ds), (None, None), std=0.5),
+        "A_log": ParamSpec((nheads,), (None,), std=-1.0, dtype="float32"),
+        "dt_bias": ParamSpec((nheads,), (None,), std=0.0, dtype="float32"),
+        "D": ParamSpec((nheads,), (None,), std=-1.0, dtype="float32"),
+        "gate_norm": ParamSpec((d_inner,), ("ssm_inner",), std=0.0,
+                               dtype="float32"),
+        "out_proj": dense_spec(d_inner, d, ("ssm_inner", "embed")),
     }
 
 
@@ -88,10 +89,12 @@ def init_ssm_cache_specs(cfg, batch: int) -> dict:
     d_inner, nheads = ssm_dims(cfg)
     ds, w = cfg.ssm_state, cfg.ssm_conv_width
     return {
-        "conv_x": ParamSpec((batch, w - 1, d_inner)),
-        "conv_B": ParamSpec((batch, w - 1, ds)),
-        "conv_C": ParamSpec((batch, w - 1, ds)),
+        "conv_x": ParamSpec((batch, w - 1, d_inner),
+                            ("cache_batch", None, "act_ssm")),
+        "conv_B": ParamSpec((batch, w - 1, ds), ("cache_batch", None, None)),
+        "conv_C": ParamSpec((batch, w - 1, ds), ("cache_batch", None, None)),
         "state": ParamSpec((batch, nheads, cfg.ssm_head_dim, ds),
+                           ("cache_batch", "act_ssm", None, None),
                            dtype="float32"),
     }
 

@@ -18,6 +18,39 @@ load-balance and router z losses that training minimizes.
 Decode writes each attention layer's new key and value into the caches
 it is given, in place, and returns those caches; an SSM layer's new
 state is a new tensor.
+
+Under a mesh (``distributed/sharding.use_mesh_and_rules``) every rank
+runs the forward on its own rows, and the active ``Layout``
+(``sharding.use_layout``, from ``sharding.layout``) says which mesh axes
+split them: the batch over
+the DP axes, the sequence over 'model' under
+``LOGICAL_RULES_PREFILL_SP`` (the rank's tokens are its slice, with
+global positions), the decode cache's sequence over 'model' (or the
+whole mesh under ``_DECODE_LONG``).  Norms, the dense FFN and the
+logits are local.  The reference's GSPMD moves data between layouts
+without saying so; the port does it with explicit collectives, in these
+places:
+
+- sequence-parallel attention all-gathers K/V over 'model'
+  (``attention.sp_prefill_attention``), and flash-decoding merges its
+  shards' partials (``attention.flash_decode``);
+- the MoE's tokens replicate over 'model' (its ``shard_map`` token spec):
+  a sequence-sharded residual is all-gathered over 'model' before the
+  expert-parallel layer and cut back to the rank's rows after
+  (``moe.moe_forward``), which also sums the experts' outputs over
+  'model' and the load-balance statistics over the DP axes;
+- an SSM layer's scan runs over the whole sequence: a sequence-sharded
+  input is all-gathered, scanned, and the rank's slice kept
+  (``_block_forward``; jamba under SP rules);
+- ``place_caches`` moves a prefill's sequence-sharded caches into the
+  decode cache's own blocks (directly where both split S the same way).
+
+``init_params(mesh=...)`` draws only the rank's expert shard, (E /
+n_model, d / n_data, f) as the reference's ``shard_map`` takes it, and
+``place_caches`` leaves each rank its block of the batch and of the KV
+cache's sequence.  Every other parameter and cache is whole on every
+rank: the port materializes a sharding only where it shards.
+``param_shardings``/``cache_shardings`` return the reference's specs.
 """
 from __future__ import annotations
 
@@ -27,11 +60,16 @@ from typing import Optional
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import (Layout, block_bounds,
+                                              current_layout, current_mesh,
+                                              take_spec_block)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as ssm_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamSpec, activation, dense_spec,
                                        init_from_seed, norm, norm_spec,
+                                       shardings_from_specs,
                                        specs_with_leading_stack, torch_dtype)
 
 NEG_LOGIT = -1e30
@@ -44,9 +82,11 @@ NEG_LOGIT = -1e30
 def _ffn_specs(cfg) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.activation == "swiglu":
-        return {"w_gate": dense_spec(d, f), "w_up": dense_spec(d, f),
-                "w_down": dense_spec(f, d)}
-    return {"w_up": dense_spec(d, f), "w_down": dense_spec(f, d)}
+        return {"w_gate": dense_spec(d, f, ("embed", "mlp")),
+                "w_up": dense_spec(d, f, ("embed", "mlp")),
+                "w_down": dense_spec(f, d, ("mlp", "embed"))}
+    return {"w_up": dense_spec(d, f, ("embed", "mlp")),
+            "w_down": dense_spec(f, d, ("mlp", "embed"))}
 
 
 def _block_specs(cfg, mixer: str, ffn: str) -> dict:
@@ -75,15 +115,22 @@ def model_specs(cfg) -> dict:
     (C, V_pad, d) and an untied unembedding (C, d, V_pad)."""
     d, V = cfg.d_model, padded_vocab(cfg)
     books = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    book_axes = ("codebook",) if books else ()
     std = 1.0 / math.sqrt(d)
-    specs: dict = {"embed": ParamSpec(books + (V, d), std=std)}
+    # tied tables are the unembedding too ('vocab', TP over 'model');
+    # untied input tables replicate ('vocab_in')
+    vocab_axis = "vocab" if cfg.tie_embeddings else "vocab_in"
+    specs: dict = {"embed": ParamSpec(books + (V, d),
+                                      book_axes + (vocab_axis, "embed"),
+                                      std=std)}
     specs["blocks"] = {
         f"i{j}": specs_with_leading_stack(_block_specs(cfg, mixer, ffn),
                                           cfg.num_repeats)
         for j, (mixer, ffn) in enumerate(cfg.pattern())}
     specs["final_norm"] = norm_spec(cfg)
     if not cfg.tie_embeddings:
-        specs["unembed"] = ParamSpec(books + (d, V), std=std)
+        specs["unembed"] = ParamSpec(books + (d, V),
+                                     book_axes + ("embed", "vocab"), std=std)
     return specs
 
 
@@ -97,13 +144,45 @@ def cache_specs(cfg, batch: int, max_seq: int) -> dict:
         for j, (mixer, _) in enumerate(cfg.pattern())}
 
 
-def init_params(cfg, seed: int = 0, device: DeviceLike = "cuda") -> dict:
+def expert_placement(cfg) -> dict:
+    """The spec of each stacked expert leaf as the rank holds it under a
+    mesh (the reference's ``shard_map`` in_specs, a leading None for the
+    layers): {block: {name: spec}}."""
+    from repro_torch.models.moe import EXPERT_SPECS
+    return {f"i{j}": {name: (None,) + spec
+                      for name, spec in EXPERT_SPECS.items()}
+            for j, (_, ffn) in enumerate(cfg.pattern()) if ffn == "moe"}
+
+
+def init_params(cfg, seed: int = 0, device: DeviceLike = "cuda",
+                mesh=None) -> dict:
     """Seeded random parameters by the reference's spec rule (zeros for
     the norm scales, ones for ``A_log``/``D``, normal·std), drawn on
     ``device`` by ``layers.init_from_seed``: a seed gives the same
-    parameters on every device (not the reference's numbers)."""
-    return init_from_seed(model_specs(cfg), seed, cfg.param_dtype,
-                          resolve_device(device))
+    parameters on every device (not the reference's numbers).  With a
+    mesh, each MoE layer's experts are drawn as the rank's shard only
+    (``expert_placement``), the bits of that block of the whole draw."""
+    specs = model_specs(cfg)
+    blocks = None
+    if mesh is not None:
+        blocks = {"blocks": {
+            j: {"ffn": {name: block_bounds(
+                specs["blocks"][j]["ffn"][name].shape, spec, mesh)
+                for name, spec in leaves.items()}}
+            for j, leaves in expert_placement(cfg).items()}}
+    return init_from_seed(specs, seed, cfg.param_dtype,
+                          resolve_device(device), blocks)
+
+
+def param_shardings(cfg, mesh, rules) -> dict:
+    """The reference's sharding of every parameter (its logical axes
+    under ``rules`` on ``mesh``)."""
+    return shardings_from_specs(model_specs(cfg), mesh, rules)
+
+
+def cache_shardings(cfg, batch: int, max_seq: int, mesh, rules) -> dict:
+    return shardings_from_specs(cache_specs(cfg, batch, max_seq), mesh,
+                                rules)
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype: Optional[str] = None,
@@ -119,24 +198,41 @@ def init_cache(cfg, batch: int, max_seq: int, dtype: Optional[str] = None,
     return zeros(cache_specs(cfg, batch, max_seq))
 
 
-def place_caches(cfg, caches: dict, max_seq: int) -> dict:
+def place_caches(cfg, caches: dict, max_seq: int,
+                 src: Optional[Layout] = None,
+                 dst: Optional[Layout] = None) -> dict:
     """A prefill's caches as decode caches of ``max_seq`` positions: each
     attention layer's (R, B, S, KV, Dh) k/v copied to positions [0, S) of
     a zero cache (the reference's ``serve_lm`` placement); SSM caches (a
-    hybrid's too) as they are."""
+    hybrid's too) as they are.  Under a mesh, ``src`` is the prefill's
+    layout and ``dst`` the decode's (same batch rows): where both split
+    the sequence over the same axes and S = max_seq, each rank's prefill
+    slice is its decode block; otherwise the sequence is all-gathered,
+    placed, and the rank's block of ``dst.cache_seq`` kept."""
+    src, dst, mesh = src or Layout(), dst or Layout(), current_mesh()
+    if src.batch != dst.batch:
+        raise ValueError(f"prefill rows {src} and decode rows {dst} split "
+                         "the batch differently")
     out = dict(caches)
     for j, (mixer, _) in enumerate(cfg.pattern()):
         if mixer != "attn":
             continue
         out[f"i{j}"] = {}
-        for name, src in caches[f"i{j}"].items():
-            R, B, S = src.shape[:3]
+        for name, x in caches[f"i{j}"].items():
+            S = x.shape[2] * (mesh.size(src.seq) if src.seq else 1)
             if S > max_seq:
                 raise ValueError(f"a prefill of {S} tokens does not fit "
                                  f"{max_seq} cache positions")
-            dst = src.new_zeros((R, B, max_seq) + tuple(src.shape[3:]))
-            dst[:, :, :S] = src
-            out[f"i{j}"][name] = dst
+            if src.seq and src.seq == dst.cache_seq and S == max_seq:
+                out[f"i{j}"][name] = x
+                continue
+            x = coll.all_gather(x, mesh, src.seq, 2)
+            R, B = x.shape[:2]
+            full = x.new_zeros((R, B, max_seq) + tuple(x.shape[3:]))
+            full[:, :, :S] = x
+            out[f"i{j}"][name] = full if not dst.cache_seq else \
+                take_spec_block(full, (None, None, dst.cache_seq), mesh
+                                ).clone()
     return out
 
 
@@ -171,8 +267,13 @@ def _block_forward(bparams, x, cfg, mode, cache, positions=None,
         y, new_cache = attn_mod.attention_forward(
             bparams["mixer"], h, positions, cfg, mode, cache, cache_pos)
     else:
-        y, new_cache = ssm_mod.ssm_forward(bparams["mixer"], h, cfg, mode,
-                                           cache)
+        # the scan runs over the whole sequence: gather, scan, keep the
+        # rank's slice (the prefill state is the whole sequence's)
+        mesh, seq = current_mesh(), current_layout().seq
+        y, new_cache = ssm_mod.ssm_forward(
+            bparams["mixer"], coll.all_gather(h, mesh, seq, 1), cfg, mode,
+            cache)
+        y = coll.take_block(y, mesh, seq, 1)
     x = x + y
     lb = z = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "moe":
@@ -256,10 +357,19 @@ def forward(params, batch, cfg, mode: str, caches=None, cache_pos=None):
     positions.  Without them positions are ``arange(F + S)`` for
     train/prefill (an M-RoPE config needs them there: ``apply_rope``
     raises) and ``cache_pos`` (the decode position, an int; in all three
-    streams for M-RoPE) for decode; the SSM cache does not read them."""
+    streams for M-RoPE) for decode; the SSM cache does not read them.
+
+    Under a mesh, the active ``sharding.Layout`` says which axes split
+    the rows given: the batch, the caches and the returned logits are
+    the rank's block.  A sequence-sharded batch takes no frontend (its
+    embeddings would have to be split with the tokens)."""
+    lay = current_layout()
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
     if cfg.frontend != "none" and "frontend" in batch:
+        if lay.seq:
+            raise NotImplementedError(
+                "a frontend under a sequence-sharded layout")
         x = torch.cat([batch["frontend"].to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
     if "positions" in batch:
@@ -269,7 +379,9 @@ def forward(params, batch, cfg, mode: str, caches=None, cache_pos=None):
         positions = torch.full(shape, int(cache_pos), dtype=torch.long,
                                device=x.device)
     else:
-        positions = torch.arange(S, device=x.device).expand(B, S)
+        start = current_mesh().index(lay.seq) * S if lay.seq else 0
+        positions = torch.arange(start, start + S,
+                                 device=x.device).expand(B, S)
     x, new_caches, lb, z = _stack_forward(params, x, cfg, mode, caches,
                                           positions, cache_pos)
     x = norm(x, params["final_norm"], cfg)

@@ -20,6 +20,19 @@ ranges: ``train/forward`` (the loss), ``train/backward`` (the gradients;
 the autograd engine launches their kernels from its own thread, outside
 this range) and ``train/update`` (clipping, compression, the schedule
 and the optimizer).
+
+Data parallelism.  Under a mesh (``sharding.use_mesh_and_rules``), the
+step is given the global batch on every rank and takes the rank's rows
+(``data/dataset.shard_range`` of the leading axis) over the ``batch``
+rule's mesh axes, the loss running under that ``Layout``; where those
+axes do not divide the batch, the whole batch runs on every rank, as
+``shard_logical`` drops the constraint.  The gradients are averaged
+over the ranks (``all_reduce``) before clipping and compression, in the
+reference's order, so every rank takes the same optimizer step; the
+loss and aux are averaged likewise.  Every parameter is whole on every
+rank: a mesh with 'model' > 1 (tensor and expert parallelism in
+training, GSPMD's FSDP weight layouts) is ROADMAP item 6c and raises.
+A world of one rank runs today's single-device step unchanged.
 """
 from __future__ import annotations
 
@@ -29,8 +42,11 @@ from typing import Callable
 import torch
 from torch.profiler import record_function
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.compression import (compress_decompress,
                                                  init_error_feedback)
+from repro_torch.distributed.sharding import (Layout, axis_rules, current_mesh,
+                                              entry_axes, fit_spec, use_layout)
 from repro_torch.training.optimizer import (Optimizer, get_optimizer,
                                             tree_leaves, tree_map)
 from repro_torch.training.schedule import constant, warmup_cosine
@@ -116,10 +132,47 @@ def _split(batch, n: int) -> list:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
-    """loss_fn(params, batch) -> (scalar, aux dict)."""
-    opt = tcfg.make_optimizer()
-    sched = tcfg.make_schedule()
+def data_axes(mesh, batch_size: int) -> tuple:
+    """The mesh axes a global batch of ``batch_size`` rows splits over:
+    the active ``batch`` rule's, fitted to the size (() when they do not
+    divide it, or split nothing)."""
+    if mesh is None:
+        return ()
+    axes = entry_axes(fit_spec(axis_rules(("batch",), mesh=mesh),
+                               (batch_size,), mesh)[0])
+    return axes if mesh.size(axes) > 1 else ()
+
+
+def _batch_dim(key: str, x) -> int:
+    """The batch axis of a batch entry: M-RoPE's (3, B, S) positions
+    carry it second, every other entry first."""
+    return 1 if key == "positions" and x.dim() == 3 else 0
+
+
+def batch_size(batch: dict) -> int:
+    k, v = next(iter(batch.items()))
+    return v.shape[_batch_dim(k, v)]
+
+
+def rank_rows(batch: dict, mesh, axes: tuple) -> dict:
+    """The rank's rows of every array of a global batch: its
+    ``shard_range`` of the batch axis over ``axes``."""
+    from repro_torch.data.dataset import shard_range
+    if not axes:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        dim = _batch_dim(k, v)
+        lo, hi = shard_range(v.shape[dim], mesh.index(axes),
+                             mesh.size(axes))
+        out[k] = v.narrow(dim, lo, hi - lo)
+    return out
+
+
+def make_grad_fn(loss_fn: Callable, tcfg: TrainConfig):
+    """(params, global batch) -> (loss, aux, grads): the rank's rows,
+    microbatched, then averaged over the data-parallel ranks (the module
+    docstring); one device's without a mesh."""
     acc_dt = getattr(torch, tcfg.accum_dtype)
 
     def microbatched_grads(params, batch):
@@ -142,9 +195,36 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
         return (loss_sum * inv, tree_map(lambda a: a * inv, aux_sum),
                 tree_map(lambda g: g * inv, gsum))
 
+    def grad_fn(params, batch):
+        mesh = current_mesh()
+        if mesh is not None and "model" in mesh.axis_names \
+                and mesh.size("model") > 1:
+            raise NotImplementedError(
+                "training with 'model' > 1 (tensor and expert parallel "
+                "gradients, FSDP layouts) is ROADMAP item 6c")
+        axes = data_axes(mesh, batch_size(batch))
+        with use_layout(Layout(batch=axes)):
+            loss, aux, grads = microbatched_grads(
+                params, rank_rows(batch, mesh, axes))
+        if axes:
+            grads = tree_map(lambda g: coll.all_mean(g, mesh, axes), grads)
+            loss = coll.all_mean(loss, mesh, axes)
+            aux = tree_map(lambda a: coll.all_mean(a, mesh, axes), aux)
+        return loss, aux, grads
+
+    return grad_fn
+
+
+def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
+    """loss_fn(params, batch) -> (scalar, aux dict).  Under a mesh the
+    step is data-parallel (the module docstring)."""
+    opt = tcfg.make_optimizer()
+    sched = tcfg.make_schedule()
+    grad_fn = make_grad_fn(loss_fn, tcfg)
+
     def train_step(state, batch):
         params = state["params"]
-        loss, aux, grads = microbatched_grads(params, batch)
+        loss, aux, grads = grad_fn(params, batch)
         new_state = dict(state)
         with record_function("train/update"):
             grads, gnorm = _clip_by_global_norm(grads, tcfg.grad_clip)

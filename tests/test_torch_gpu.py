@@ -811,3 +811,60 @@ def test_weighted_attention_refuses_a_gradient_on_card():
     with torch.no_grad():
         out = wa_ops.weighted_attention(q, k, v, w)
     assert out.shape == q.shape
+
+
+# ---- the LM zoo's multi-device shard bodies, n shards on the one card ---- #
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sp_shards_on_card_match_the_full_causal_rows(dtype):
+    """Each sequence-parallel shard: the flash kernel at Sq = S/n and Skv
+    = (m+1)·S/n against its plain version and against the full causal
+    output's rows."""
+    from repro_torch.models import attention as att
+    _need_card()
+    tdt, tol = getattr(torch, dtype), TOL[dtype]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(2, 256, 8, 64, generator=g, device="cuda", dtype=tdt)
+    k, v = (torch.randn(2, 256, 2, 64, generator=g, device="cuda",
+                        dtype=tdt) for _ in range(2))
+    full = att.causal_attention(q, k, v).float()
+    for n in (2, 4):
+        s_loc = 256 // n
+        for m, o in enumerate(att.sp_shards(q, k, v, n)):
+            rows = slice(m * s_loc, (m + 1) * s_loc)
+            kv = (m + 1) * s_loc
+            plain = fa_ops.flash_attention_plain(
+                q[:, rows], k[:, :kv].repeat_interleave(4, 2),
+                v[:, :kv].repeat_interleave(4, 2), causal=True)
+            assert (o.float() - plain.float()).abs().max().item() <= tol
+            assert (o.float() - full[:, rows]).abs().max().item() <= tol
+
+
+def test_decode_and_moe_shards_on_card_match_unsharded():
+    """Flash-decoding merged over 2, 4 and 8 shards against
+    ``decode_attention``, and the expert-parallel MoE over 2 and 4 model
+    shards against the meshless layer, in f32 on the card."""
+    from repro_torch.models import attention as att
+    from repro_torch.models import moe as moe_mod
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(4, 1, 8, 64, generator=g, device="cuda")
+    kc, vc = (torch.randn(4, 64, 2, 64, generator=g, device="cuda")
+              for _ in range(2))
+    want = att.decode_attention(q, kc, vc, 37)
+    for n in (2, 4, 8):
+        got = att.flash_decode_shards(q, kc, vc, 37, n)
+        assert (got - want).abs().max().item() <= 1e-5
+    cfg = get_smoke_config("llama4-maverick-400b-a17b").replace(
+        num_experts=8, capacity_factor=8.0)
+    params = tfm.init_params(cfg, seed=2, device="cuda")["blocks"]["i1"][
+        "ffn"]
+    params = {k: v[0] for k, v in params.items()}
+    x = torch.randn(2, 16, cfg.d_model, generator=g, device="cuda")
+    y0, _, _ = moe_mod.moe_forward(params, x, cfg)
+    for n in (2, 4):
+        parts = moe_mod.moe_shards(params, x, cfg, n)
+        y = sum(p.y for p in parts).reshape(x.shape)
+        assert all(torch.equal(p.routing.idx, parts[0].routing.idx)
+                   for p in parts)
+        assert (y - y0).abs().max().item() <= 1e-5 * y0.abs().max().item()
