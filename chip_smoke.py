@@ -334,6 +334,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               dropped share at the config's factor.  ``dist distinct
               cards: not run`` on one card.
 
+ 21. tp       GSPMD's weight layouts as per-rank blocks (ROADMAP item
+              6c; ``tools/tp_phase.py`` runs it alone).  The meshless
+              runs in this process, then two gloo ranks in two processes
+              sharing the card, mesh (1, 2), tensor parallelism over
+              'model' under ``LOGICAL_RULES_DECODE``: qwen3-4b whole,
+              Mamba2-780m whole and llama4-maverick's super-block with
+              its 128 experts (64 a rank) at full width in bf16 through
+              ``generate`` (B=1 x 4096 + 16 decode steps), each rank's
+              resident parameter bytes below the meshless run's, its
+              flash and SSD launches one per attention / SSM layer (the
+              counters reset before and read after in the rank), greedy
+              tokens beside the meshless run's (bf16: reported); the f32
+              cuts (qwen3-4b 2 layers, Mamba2 4, llama4 with 8 experts)
+              <= 1e-4 from the meshless run with tokens equal; training
+              with 'model' = 2 (qwen3-4b 2 layers, Mamba2 4, 1 x 4096)
+              and with FSDP rows on (2, 1): f32 loss <= 1e-5 and every
+              gathered gradient <= 1e-4 relative norm from the meshless
+              step (bf16 reported).  Then n = 2, 4, 8 tensor-parallel
+              shards in one process: the flash kernel at qwen3-4b's
+              (4, 4096, 32/n, 128) over 8/n KV heads, the SSD scan at
+              Mamba2's 48/n and jamba's 256/n heads, each against its
+              plain version and timed in bf16 beside 1/n of the
+              unsharded kernel, SDPA and the bound; the attention and
+              SSM layers' n shards summed against the unsharded layer
+              in f32 (<= 1e-4).
+
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (the
 attention entries also carry their main shape's bfloat16 numbers as
@@ -494,6 +520,29 @@ DIST_DECODE_TOL = 1e-5
 DIST_MOE_SHARDS = (2, 4, 8)
 DIST_MOE_TOKENS, DIST_MOE_TOL = 1024, 1e-5
 DIST_BATCH, DIST_CLIP, DIST_STEPS, DIST_LOSS_TOL = 32, 128, 20, 1e-5
+# GSPMD's weight layouts (ROADMAP item 6c): (a) two gloo ranks sharing
+# the card, mesh (1, 2), TP over 'model' under LOGICAL_RULES_DECODE at
+# full width in bf16, (arch, layers, experts) with B x prompt + decode
+# steps through generate, and the f32 gates' cuts (prompt and decode
+# steps of their own); (b) training with 'model' = 2 under
+# LOGICAL_RULES_TRAIN, (arch, layers) at 1 x TP_TRAIN_SEQ, then FSDP
+# rows on a (2, 1) mesh at TP_FSDP_BATCH x TP_FSDP_SEQ; (c) n TP shards in
+# one process: flash at qwen3-4b's (B, S, H, KV, D) with H/n and KV/n
+# heads, the SSD scan at Mamba2's and jamba's prefill shapes with H/n
+TP_RUNS = (("qwen3-4b", None, None), ("mamba2-780m", None, None),
+           ("llama4-maverick-400b-a17b", 2, None))
+TP_BATCH, TP_PROMPT, TP_DECODE = 1, 4096, 16
+TP_GATES = (("qwen3-4b", 2, None), ("mamba2-780m", 4, None),
+            ("llama4-maverick-400b-a17b", 2, 8))
+TP_GATE_PROMPT, TP_GATE_DECODE = 1024, 4
+TP_TRAIN = (("qwen3-4b", 2), ("mamba2-780m", 4))
+TP_TRAIN_SEQ, TP_FSDP_BATCH, TP_FSDP_SEQ = 4096, 2, 1024
+TP_GATE_TOL, TP_LOSS_TOL, TP_GRAD_TOL = 1e-4, 1e-5, 1e-4
+TP_SHARDS = (2, 4, 8)
+TP_FLASH = (4, 4096, 32, 8, 128)
+TP_SSD = (("mamba2", 4, 4096, 48, 64, 128, 256),
+          ("jamba", 4, 4096, 256, 64, 128, 256))
+TP_STORE = "tp.store"
 
 
 def require(ok: bool, what: str) -> None:
@@ -4358,6 +4407,455 @@ def check_dist(torch, fa_ops):
     return launches + n, rows, errs
 
 
+# --------------------------------------------------------------------- #
+# tp: GSPMD's weight layouts as per-rank blocks (ROADMAP item 6c)
+# --------------------------------------------------------------------- #
+
+def tp_cfg(arch, layers, experts, dtype=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    if experts:
+        cfg = cfg.replace(num_experts=experts)
+    return cfg.replace(dtype=dtype, param_dtype=dtype) if dtype else cfg
+
+
+def tp_tokens(torch, cfg, B: int, S: int):
+    """A seeded prompt (the same on every rank and in the parent)."""
+    gen = torch.Generator().manual_seed(41)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+
+
+def tp_generate(torch, cfg, mesh, rules, B, S, steps):
+    """init_params (the rank's blocks on a mesh, whole without) and
+    ``generate`` of a seeded prompt under ``rules``, the launch counters
+    reset just before and read just after.  Returns (Generation, resident
+    parameter bytes, (flash, SSD) launches)."""
+    from repro_torch.distributed.sharding import use_mesh_and_rules
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as tfm
+    with use_mesh_and_rules(mesh, rules):
+        params = tfm.init_params(cfg, seed=0, device="cuda", mesh=mesh)
+        nbytes = sum(t.numel() * t.element_size() for _, t in _named(params))
+        tok = tp_tokens(torch, cfg, B, S)
+        generate(params, cfg, {"tokens": tok[:, :64]}, 1,
+                 device="cuda")                                 # warm-up
+        torch.cuda.synchronize()
+        fa_ops.flash_attention.launches = 0
+        ssd_ops.ssd_scan.launches = 0
+        g = generate(params, cfg, {"tokens": tok}, steps, device="cuda")
+        n = (fa_ops.flash_attention.launches, ssd_ops.ssd_scan.launches)
+    del params
+    torch.cuda.empty_cache()
+    return g, nbytes, n
+
+
+def tp_grads(torch, cfg, mesh, rules, B, S):
+    """(loss, {leaf: whole gradient}) of ``loss_fn`` on a seeded batch
+    through ``make_grad_fn`` under ``rules`` (the rank's blocks on a
+    mesh, gathered after)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.specs import random_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import train_loop as ttl
+    batch = random_batch(cfg, ShapeConfig("train", S, B, "train"), "train",
+                         seed=7, device="cuda")
+    with sh.use_mesh_and_rules(mesh, rules):
+        params = tfm.init_params(cfg, seed=1, device="cuda", mesh=mesh)
+        loss, _, grads = ttl.make_grad_fn(
+            lambda p, b: tfm.loss_fn(p, b, cfg), ttl.TrainConfig())(
+                params, batch)
+        if mesh is not None:
+            grads = sh.gather_tree(sh.inherit_marks(grads, params))
+    del params
+    return float(loss), dict(_named(grads))
+
+
+def tp_child() -> int:
+    """One of the two gloo ranks of the tp phase on the one card (the
+    parent starts both): (a) the TP_RUNS and TP_GATES generate runs under
+    LOGICAL_RULES_DECODE on mesh (1, 2), (b) the TP_TRAIN gradients under
+    LOGICAL_RULES_TRAIN on (1, 2), then on (2, 1) with FSDP rows, each
+    against the meshless gradient that rank 0 computes after; rank 0
+    writes what the parent prints and checks to ``TP_OUT``."""
+    import os
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.distributed.sharding import (LOGICAL_RULES_DECODE,
+                                                  LOGICAL_RULES_TRAIN)
+    from repro_torch.launch.mesh import make_mesh
+    rank = int(os.environ["RANK"])
+    dist.init_process_group("gloo", init_method=os.environ["INIT"],
+                            rank=rank, world_size=2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"), "cuda:0")
+        for arch, layers, experts in TP_RUNS:
+            cfg = tp_cfg(arch, layers, experts)
+            t0 = time.perf_counter()
+            g, nbytes, n = tp_generate(torch, cfg, mesh,
+                                       LOGICAL_RULES_DECODE, TP_BATCH,
+                                       TP_PROMPT, TP_DECODE)
+            per_rank = [None, None]
+            dist.all_gather_object(per_rank, nbytes)
+            out[f"run/{arch}"] = {
+                "tokens": g.tokens.cpu(), "bytes": nbytes, "launches": n,
+                "rank_bytes": per_rank, "first": g.logits[:, 0].float().cpu(),
+                "prefill_s": g.prefill_seconds,
+                "decode_ms": 1e3 * g.decode_seconds / TP_DECODE,
+                "seconds": time.perf_counter() - t0,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            torch.cuda.reset_peak_memory_stats()
+        for arch, layers, experts in TP_GATES:
+            cfg = tp_cfg(arch, layers, experts, "float32")
+            g, nbytes, n = tp_generate(torch, cfg, mesh,
+                                       LOGICAL_RULES_DECODE, 1,
+                                       TP_GATE_PROMPT, TP_GATE_DECODE)
+            out[f"gate/{arch}"] = {"tokens": g.tokens.cpu(),
+                                   "logits": g.logits.float().cpu(),
+                                   "bytes": nbytes, "launches": n}
+        for where, m, B, S in (("tp", mesh, 1, TP_TRAIN_SEQ),
+                               ("fsdp", None, TP_FSDP_BATCH, TP_FSDP_SEQ)):
+            if m is None:
+                m = make_mesh((2, 1), ("data", "model"), "cuda:0")
+            for arch, layers in TP_TRAIN:
+                for dtype in ("float32", "bfloat16"):
+                    if where == "fsdp" and dtype == "bfloat16":
+                        continue
+                    cfg = tp_cfg(arch, layers, None, dtype)
+                    loss, grads = tp_grads(torch, cfg, m, LOGICAL_RULES_TRAIN,
+                                           B, S)
+                    dist.barrier()
+                    if rank == 0:
+                        loss0, want = tp_grads(torch, cfg, None, None, B, S)
+                        rel = {k: rel_norm_err(grads[k], want[k])
+                               for k in want}
+                        worst = max(rel, key=rel.get)
+                        out[f"train/{where}/{arch}/{dtype}"] = {
+                            "loss": loss, "meshless_loss": loss0,
+                            "leaves": len(rel), "worst": worst,
+                            "worst_rel": rel[worst]}
+                        del want
+                    del grads
+                    torch.cuda.empty_cache()
+                    dist.barrier()
+        if rank == 0:
+            torch.save(out, os.environ["TP_OUT"])
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_ranks(torch):
+    """The two gloo ranks of ``tp_child`` in two processes on the card;
+    returns what rank 0 wrote."""
+    import os
+    out = ROOT / "build" / "tp_ranks.pt"
+    store = ROOT / "build" / TP_STORE
+    store.parent.mkdir(parents=True, exist_ok=True)
+    for f in (out, store):
+        f.unlink(missing_ok=True)
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            "import chip_smoke; sys.exit(chip_smoke.tp_child())")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "RANK": str(r), "INIT": f"file://{store}",
+             "TP_OUT": str(out)}) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(all(p.returncode == 0 for p in procs),
+            "tp ranks failed:\n" + "\n".join(o[-3000:] for o in outs))
+    print(f"tp ranks: 2 gloo processes on the card, {time.perf_counter() - t0:.1f}"
+          " s with their start")
+    return torch.load(out)
+
+
+def tp_meshless(torch):
+    """The meshless runs the ranks are held to, in this process: each of
+    TP_RUNS (bf16) and TP_GATES (f32) through ``generate``."""
+    runs = {}
+    for arch, layers, experts in TP_RUNS:
+        cfg = tp_cfg(arch, layers, experts)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g, nbytes, n = tp_generate(torch, cfg, None, None, TP_BATCH,
+                                   TP_PROMPT, TP_DECODE)
+        runs[f"run/{arch}"] = {
+            "tokens": g.tokens.cpu(), "bytes": nbytes, "launches": n,
+            "first": g.logits[:, 0].float().cpu(),
+            "prefill_s": g.prefill_seconds,
+            "decode_ms": 1e3 * g.decode_seconds / TP_DECODE,
+            "seconds": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    for arch, layers, experts in TP_GATES:
+        cfg = tp_cfg(arch, layers, experts, "float32")
+        g, nbytes, n = tp_generate(torch, cfg, None, None, 1,
+                                   TP_GATE_PROMPT, TP_GATE_DECODE)
+        runs[f"gate/{arch}"] = {"tokens": g.tokens.cpu(),
+                                "logits": g.logits.float().cpu(),
+                                "bytes": nbytes, "launches": n}
+    return runs
+
+
+def tp_shards_check(torch, fa_ops, ssd_ops):
+    """(c) n TP shards in one process at full width: the flash kernel at
+    qwen3-4b's prefill with H/n query and KV/n KV heads and the SSD scan
+    at Mamba2's and jamba's prefill shapes with H/n heads, each against
+    its plain version (both dtypes), timed in bf16 beside 1/n of the
+    unsharded kernel, SDPA (flash) and the bound; then each layer's n
+    shards' row-parallel outputs summed (``attention.tp_shards``,
+    ``mamba2.tp_shards``) against the unsharded layer in f32.  Returns
+    ({kernel: timing rows}, {kernel: {dtype: max abs err}})."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as att
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models.layers import init_from_seed
+
+    rows = {"flash_attention": [], "ssd": []}
+    errs = {"flash_attention": {}, "ssd": {}}
+    gen = torch.Generator().manual_seed(43)
+    B, S, H, KV, D = TP_FLASH
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+        q = torch.randn(B, S, H, D, generator=gen).to("cuda", tdt)
+        k, v = (torch.randn(B, S, KV, D, generator=gen).to("cuda", tdt)
+                for _ in range(2))
+        full_ms = None
+        if dtype == "bfloat16":
+            kf, vf = (t.repeat_interleave(H // KV, 2) for t in (k, v))
+            full_ms = cuda_ms(torch, lambda: fa_ops.flash_attention(
+                q, kf, vf, causal=True), iters=10)
+            del kf, vf
+        errs["flash_attention"][dtype] = 0.0
+        for n in TP_SHARDS:
+            hl, kl = H // n, KV // n
+            qs, ks, vs = q[:, :, :hl], k[:, :, :kl], v[:, :, :kl]
+            kb, vb = (t.repeat_interleave(hl // kl, 2) for t in (ks, vs))
+            o = fa_ops.flash_attention(qs, kb, vb, causal=True)
+            plain = fa_ops.flash_attention_plain(qs, kb, vb, causal=True)
+            err = (o.float() - plain.float()).abs().max().item()
+            errs["flash_attention"][dtype] = max(
+                errs["flash_attention"][dtype], err)
+            line = (f"tp flash {dtype} n={n}: kernel at B={B} S={S} H={hl} "
+                    f"(KV {kl} repeated) D={D} causal vs plain max abs "
+                    f"{err:.3e} (<= {tol})")
+            require(err <= tol, line)
+            if dtype == "bfloat16":
+                qt, kt, vt = (t.transpose(1, 2) for t in (qs, kb, vb))
+                row = {"shape": f"tp{n}_qwen3_prefill", "dtype": dtype,
+                       "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(
+                           qs, kb, vb, causal=True), iters=10),
+                       "plain_ms": cuda_ms(
+                           torch, lambda: fa_ops.flash_attention_plain(
+                               qs, kb, vb, causal=True),
+                           iters=3, warmup=1, rounds=2),
+                       "library_ms": cuda_ms(
+                           torch, lambda: F.scaled_dot_product_attention(
+                               qt, kt, vt, is_causal=True), iters=10)}
+                row["bound_ms"], row["bound_by"] = bound(B, S, S, hl, D,
+                                                         dtype, False,
+                                                         causal=True)
+                rows["flash_attention"].append(row)
+                line += (f"; kernel_ms={row['ms']:.4f} (unsharded "
+                         f"{full_ms:.4f} / {n} = {full_ms / n:.4f}) "
+                         f"plain_ms={row['plain_ms']:.4f} library_ms="
+                         f"{row['library_ms']:.4f} (sdpa is_causal) "
+                         f"bound_ms={row['bound_ms']:.4f} "
+                         f"({row['bound_by']})")
+                del qt, kt, vt
+            print(line)
+            del o, plain, kb, vb
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    for label, Bt, S, H, P, N, q in TP_SSD:
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            full = ssd_inputs(torch, gen, Bt, S, H, P, N, tdt)
+            full_ms = cuda_ms(torch, lambda: ssd_ops.ssd_scan(
+                *full, chunk=q), iters=5, warmup=1) \
+                if dtype == "bfloat16" else None
+            errs["ssd"].setdefault(dtype, 0.0)
+            for n in TP_SHARDS:
+                hl = H // n
+                x, dt, Bm, Cm, A = full
+                args = (x[:, :, :hl], dt[:, :, :hl], Bm, Cm, A[:hl])
+                y, st = ssd_ops.ssd_scan(*args, chunk=q)
+                yp, sp = ssd_ops.ssd_scan_plain(*args, chunk=q)
+                ey, es = rel_err(y, yp), rel_err(st, sp)
+                errs["ssd"][dtype] = max(errs["ssd"][dtype], float(max(
+                    (y.float() - yp.float()).abs().max(),
+                    (st - sp).abs().max())))
+                line = (f"tp ssd {label} {dtype} n={n}: kernel at Bt={Bt} "
+                        f"S={S} H={hl} P={P} N={N} chunk={q} (a head slice "
+                        f"of the {H}-head input, its strides) vs plain "
+                        f"rel_err_y={ey:.3e} rel_err_state={es:.3e}")
+                require(ey <= SSD_TOL[dtype] and es <= SSD_STATE_TOL[dtype],
+                        line)
+                if dtype == "bfloat16":
+                    row = {"shape": f"tp{n}_{label}_prefill", "dtype": dtype,
+                           "ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan(
+                               *args, chunk=q), iters=5, warmup=1),
+                           "plain_ms": cuda_ms(
+                               torch, lambda: ssd_ops.ssd_scan_plain(
+                                   *args, chunk=q), iters=2, warmup=1,
+                               rounds=1),
+                           "library_ms": None}
+                    row["bound_ms"], row["bound_by"] = ssd_bound(
+                        Bt, S, hl, P, N, q, dtype)
+                    rows["ssd"].append(row)
+                    line += (f"; kernel_ms={row['ms']:.4f} (unsharded "
+                             f"{full_ms:.4f} / {n} = {full_ms / n:.4f}) "
+                             f"plain_ms={row['plain_ms']:.4f} "
+                             f"library_ms=none bound_ms="
+                             f"{row['bound_ms']:.4f} ({row['bound_by']})")
+                print(line)
+                del y, st, yp, sp
+            del full
+            torch.cuda.empty_cache()
+
+    # the layers: n shards' partial outputs summed vs the unsharded layer
+    cfg = get_config("qwen3-4b").replace(dtype="float32",
+                                         param_dtype="float32")
+    p = init_from_seed(att.attn_specs(cfg), 5, "float32",
+                       torch.device("cuda"))
+    x = torch.randn(1, TP_FLASH[1], cfg.d_model, generator=gen).cuda()
+    pos = torch.arange(x.shape[1], device="cuda")[None]
+    with torch.no_grad():
+        want, _ = att.attention_forward(p, x, pos, cfg, "train")
+        for n in TP_SHARDS:
+            got = sum(att.tp_shards(p, x, pos, cfg, n))
+            rel = rel_err(got, want)
+            line = (f"tp attention layer f32 n={n} (qwen3-4b width, 1 x "
+                    f"{x.shape[1]}): the shards' row-parallel outputs "
+                    f"summed vs the unsharded layer rel {rel:.3e} (<= "
+                    f"{TP_GATE_TOL})")
+            print(line)
+            require(rel <= TP_GATE_TOL, line)
+    del p, x, want, got
+    cfg = get_config("mamba2-780m").replace(dtype="float32",
+                                            param_dtype="float32")
+    p = init_from_seed(m2.ssm_specs(cfg), 5, "float32", torch.device("cuda"))
+    x = torch.randn(1, TP_FLASH[1], cfg.d_model, generator=gen).cuda()
+    with torch.no_grad():
+        want, _ = m2.ssm_forward(p, x, cfg, "train")
+        for n in TP_SHARDS:
+            got = sum(m2.tp_shards(p, x, cfg, n))
+            rel = rel_err(got, want)
+            line = (f"tp ssm layer f32 n={n} (mamba2-780m width, 1 x "
+                    f"{x.shape[1]}, {m2.ssm_dims(cfg)[1] // n} heads a "
+                    f"shard): the shards' gate norm and out_proj summed vs "
+                    f"the unsharded layer rel {rel:.3e} (<= {TP_GATE_TOL})")
+            print(line)
+            require(rel <= TP_GATE_TOL, line)
+    del p, x, want, got
+    torch.cuda.empty_cache()
+    return rows, errs
+
+
+def check_tp(torch, fa_ops, ssd_ops):
+    """GSPMD's weight layouts (ROADMAP item 6c) on the one card: the
+    meshless runs here, (a) and (b) on two gloo ranks (``tp_ranks``),
+    then (c) n TP shards in one process.  Returns ({kernel: main-path
+    launches of the ranks' runs}, timing rows, errs)."""
+    ref = tp_meshless(torch)
+    got = tp_ranks(torch)
+    launches = {"flash_attention": 0, "ssd": 0}
+    for arch, layers, experts in TP_RUNS:
+        cfg = tp_cfg(arch, layers, experts)
+        a, b = got[f"run/{arch}"], ref[f"run/{arch}"]
+        n_attn = sum(m == "attn" for m, _ in cfg.pattern()) * cfg.num_repeats
+        n_ssm = sum(m == "ssm" for m, _ in cfg.pattern()) * cfg.num_repeats
+        same = bool(torch.equal(a["tokens"], b["tokens"]))
+        agree = (a["tokens"] == b["tokens"]).float().mean().item()
+        # the prefill's last row: the TP run's gap to the meshless run
+        # beside the meshless run's margin between its two top logits
+        V = cfg.vocab_size
+        top2 = b["first"][..., :V].topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]).min().item()
+        gap = (a["first"] - b["first"])[..., :V].abs().max().item()
+        launches["flash_attention"] += a["launches"][0]
+        launches["ssd"] += a["launches"][1]
+        line = (f"tp {arch} ({cfg.num_layers} layers, {cfg.num_experts or 0}"
+                f" experts, bf16, B={TP_BATCH} x {TP_PROMPT} + {TP_DECODE} "
+                f"decode steps, LOGICAL_RULES_DECODE on mesh (1, 2), 2 gloo "
+                f"ranks on one card): the ranks hold " + " / ".join(
+                    f"{x / 2**30:.3f}" for x in a["rank_bytes"])
+                + f" GiB of parameters vs {b['bytes'] / 2**30:.3f} GiB "
+                f"meshless ({a['bytes'] / b['bytes']:.3f}); launches a rank "
+                f"flash="
+                f"{a['launches'][0]} ssd={a['launches'][1]} (expected "
+                f"{n_attn}/{n_ssm}; meshless {b['launches']}); greedy tokens "
+                f"equal the meshless run's={same} ({agree:.3f} of "
+                f"{a['tokens'].numel()} agree, bf16: reported; the "
+                f"prefill's last logits max abs gap {gap:.4e}, rel "
+                f"{live_rel(a['first'], b['first'], V):.3e}, beside the "
+                f"meshless top-2 margin {margin:.4e}); prefill s "
+                f"{a['prefill_s']:.3f} vs meshless {b['prefill_s']:.3f}, "
+                f"decode ms/step {a['decode_ms']:.2f} vs {b['decode_ms']:.2f}"
+                f"; rank 0 peak {a['peak_gib']:.2f} GiB vs meshless "
+                f"{b['peak_gib']:.2f} GiB")
+        print(line)
+        require(max(a["rank_bytes"]) < b["bytes"], line)
+        require(a["launches"] == (n_attn, n_ssm), line)
+    for arch, layers, experts in TP_GATES:
+        cfg = tp_cfg(arch, layers, experts, "float32")
+        a, b = got[f"gate/{arch}"], ref[f"gate/{arch}"]
+        rel = live_rel(a["logits"], b["logits"], cfg.vocab_size)
+        same = bool(torch.equal(a["tokens"], b["tokens"]))
+        launches["flash_attention"] += a["launches"][0]
+        launches["ssd"] += a["launches"][1]
+        line = (f"tp gate {arch} f32 ({cfg.num_layers} layers, "
+                f"{cfg.num_experts or 0} experts, 1 x {TP_GATE_PROMPT} + "
+                f"{TP_GATE_DECODE} decode steps, TP over 2 ranks): logits "
+                f"vs the meshless run on the card rel {rel:.3e} (<= "
+                f"{TP_GATE_TOL}), greedy tokens equal={same}; parameter "
+                f"bytes a rank {a['bytes']} vs {b['bytes']}")
+        print(line)
+        require(rel <= TP_GATE_TOL and same and a["bytes"] < b["bytes"],
+                line)
+    for key, r in got.items():
+        if not key.startswith("train/"):
+            continue
+        _, where, arch, dtype = key.split("/")
+        gap = abs(r["loss"] - r["meshless_loss"]) / abs(r["meshless_loss"])
+        what = ("'model' = 2 on mesh (1, 2), 1 x "
+                f"{TP_TRAIN_SEQ}" if where == "tp" else
+                f"FSDP rows over 'data' on mesh (2, 1), {TP_FSDP_BATCH} x "
+                f"{TP_FSDP_SEQ}")
+        line = (f"tp train {arch} {dtype} ({dict(TP_TRAIN)[arch]} layers, "
+                f"LOGICAL_RULES_TRAIN, {what}): loss {r['loss']:.6f} vs "
+                f"meshless {r['meshless_loss']:.6f} rel {gap:.3e}; "
+                f"{r['leaves']} gradient leaves gathered, worst "
+                f"{r['worst']} rel norm {r['worst_rel']:.3e}")
+        if dtype == "float32":
+            line += f" (<= {TP_LOSS_TOL} / {TP_GRAD_TOL})"
+            print(line)
+            require(gap <= TP_LOSS_TOL and r["worst_rel"] <= TP_GRAD_TOL,
+                    line)
+        else:
+            print(line + " (bf16: reported)")
+    rows, errs = tp_shards_check(torch, fa_ops, ssd_ops)
+    return launches, rows, errs
+
+
 def _named(tree, prefix=""):
     """(name, leaf) in sorted key order (``tree_leaves``' order)."""
     for k in sorted(tree):
@@ -4567,6 +5065,13 @@ def main() -> int:
         errs["flash_attention"][dtype] = max(
             errs["flash_attention"][dtype], err)
     phase("dist")
+    tp_launches, tp_rows, tp_errs = check_tp(torch, fa_ops, ssd_ops)
+    for name, n in tp_launches.items():
+        launches[name] += n
+        rows[name] += tp_rows[name]
+        for dtype, err in tp_errs[name].items():
+            errs[name][dtype] = max(errs[name][dtype], err)
+    phase("tp")
     print("phases: " + ", ".join(f"{name} {sec:.1f} s"
                                  for name, sec in phase_s.items()))
 

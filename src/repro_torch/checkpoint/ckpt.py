@@ -29,6 +29,13 @@ bit for bit.  ``restore`` returns tensors on the device the caller names.
 time, and keeps the newest K steps: the state is copied to the host
 before the writer thread starts, so training may go on with the
 device's tensors.
+
+A sharded state (leaves held as blocks, ``sharding.mark``) is gathered
+to whole leaves on every rank before the writer (rank 0) writes it, so a
+checkpoint is layout-free, as the reference's ``np.asarray(leaf)``
+makes it (:101); ``restore`` cuts each leaf to the block its
+``state_like`` leaf is marked with, so a checkpoint of one mesh
+restores on another.
 """
 from __future__ import annotations
 
@@ -164,8 +171,10 @@ def read_manifest(step: int, ckpt_dir: str, *, host: int = 0) -> dict:
 def restore(state_like, step: int, ckpt_dir: str, *, host: int = 0,
             device: DeviceLike = "cuda"):
     """Rebuild the tree from disk as tensors on ``device``.  ``state_like``
-    gives the tree's keys (its leaves' values are not read); each leaf
-    must have the shape and dtype its manifest entry records."""
+    gives the tree's keys and, where a leaf is a marked block, the block
+    of the whole stored leaf to keep (under the active mesh); its values
+    are not read.  Each stored leaf must have the shape and dtype its
+    manifest entry records."""
     dev = resolve_device(device)
     final = Path(ckpt_dir) / f"step_{step:08d}"
     entries = read_manifest(step, ckpt_dir, host=host)["entries"]
@@ -173,6 +182,9 @@ def restore(state_like, step: int, ckpt_dir: str, *, host: int = 0,
     if sorted(keys) != sorted(entries):
         raise ValueError(f"checkpoint tree mismatch: "
                          f"{set(keys) ^ set(entries)}")
+    from repro_torch.distributed.sharding import (current_mesh, mark,
+                                                  split_axes, split_of,
+                                                  take_dims_block)
     leaves = {}
     for key in keys:
         entry = entries[key]
@@ -183,7 +195,13 @@ def restore(state_like, step: int, ckpt_dir: str, *, host: int = 0,
             raise ValueError(f"{key}: stored {arr.dtype}{list(arr.shape)} "
                              f"!= manifest {entry['dtype']}{entry['shape']}")
         t = torch.from_numpy(arr)
-        leaves[key] = (t.view(torch.bfloat16) if bf16 else t).to(dev)
+        t = t.view(torch.bfloat16) if bf16 else t
+        like = keys[key]
+        if isinstance(like, torch.Tensor) and split_axes(like):
+            dims = split_of(like)
+            t = mark(take_dims_block(t, dims, current_mesh()).to(dev)
+                     .clone(), dims)
+        leaves[key] = t.to(dev)
 
     def build(tree, prefix=""):
         if not isinstance(tree, dict):
@@ -211,6 +229,12 @@ class CheckpointManager:
             self._thread = None
 
     def save(self, state, step: int) -> None:
+        """Every rank calls it: a sharded state is gathered (a
+        collective) before the writer copies it."""
+        from repro_torch.distributed.sharding import gather_tree, split_axes
+        if any(isinstance(x, torch.Tensor) and split_axes(x)
+               for x in _flatten(state).values()):
+            state = gather_tree(state)
         if not self.writer:
             return
         self.wait()                                     # one in flight

@@ -1,60 +1,105 @@
 """The collectives that join the LM zoo's shard bodies across ranks, over
 ``launch/mesh.py``'s ``Mesh`` groups (the reference's ``lax.all_gather``,
-``psum``, ``pmax`` and ``pmean`` inside ``shard_map``).
+``psum``, ``pmax`` and ``pmean`` inside ``shard_map``, and the
+collectives GSPMD inserts for its weight layouts).
 
 Each takes the mesh and a tuple of axes; over axes of total size 1 (and
 on a local mesh) it returns its input untouched, so a world of one rank
 computes bit for bit what the meshless path computes.  Shards are
-ordered by their row-major combined coordinate over the axes.
+ordered by their row-major combined coordinate over the axes.  A
+bfloat16 tensor crosses the wire as float32 (exact for a gather; a sum
+accumulates in f32 and is cast back).
 
-No gradient flows through them: the zoo's data-parallel trainer
-(``training/train_loop.py``) averages whole gradients after the
-backward, and every collective a trainable forward reaches there runs
-on values whose gradient is the rank's own (``mean_local_grad``).
-Gradients through the expert-parallel and sequence-parallel collectives
-(training with 'model' > 1) are ROADMAP item 6c: a tensor that requires
-a gradient raises here.
+Gradients.  ``all_gather`` and the ``all_reduce`` sum are autograd
+functions with their exact adjoints: a gather's gradient is the
+reduce-scatter of its output's (the gradient summed over the shards,
+this rank's block kept), a sum's gradient is the sum of its output's.
+So each rank's backward gives the gradient of the sum of every rank's
+loss, where a value that several ranks compute alike carries a share
+of its gradient on each of them: ``training/train_loop.py`` sums each
+parameter's gradient over the ranks that hold the same block and
+divides by the world size (the mean of the ranks' losses).  The row-
+and column-parallel products need no other operator: Megatron's
+identity-forward / all-reduce-backward copy is the adjoint of a sum
+that this convention already takes.  A max has no gradient here
+(its callers reduce values that need none), and ``mean_local_grad``
+keeps each rank's own gradient.
 """
 from __future__ import annotations
 
 import torch
 
 
-def _group(x: torch.Tensor, mesh, axes):
-    if mesh is None or mesh.size(axes) == 1:
-        return None
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "gradients through the expert- and sequence-parallel "
-            "collectives (training with 'model' > 1) are ROADMAP item 6c")
-    return mesh.group(axes)
+def _live(mesh, axes) -> bool:
+    return mesh is not None and mesh.size(axes) > 1
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    return (x.float() if x.dtype == torch.bfloat16 else x).contiguous()
+
+
+def _gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+    w = _wire(x)
+    parts = [torch.empty_like(w) for _ in range(mesh.size(axes))]
+    dist.all_gather(parts, w, group=mesh.group(axes))
+    return torch.cat(parts, dim=dim).to(x.dtype)
+
+
+def _reduce(x: torch.Tensor, mesh, axes, op: str) -> torch.Tensor:
+    import torch.distributed as dist
+    out = _wire(x).clone()
+    dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
+                             "max": dist.ReduceOp.MAX}[op],
+                    group=mesh.group(axes))
+    return out.to(x.dtype)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _reduce(g, ctx.mesh, ctx.axes, "sum")
+        return take_block(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _reduce(x, mesh, axes, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.mesh, ctx.axes, "sum"), None, None
 
 
 def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """The shards' ``x`` concatenated along ``dim`` in shard order (the
-    reference's ``all_gather(..., tiled=True)``)."""
-    import torch.distributed as dist
-    group = _group(x, mesh, axes)
-    if group is None:
+    reference's ``all_gather(..., tiled=True)``); its gradient is the
+    reduce-scatter of the output's."""
+    if not _live(mesh, axes):
         return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.size(axes))]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    return _AllGather.apply(x, mesh, tuple(axes), dim)
 
 
 def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"
                ) -> torch.Tensor:
-    """A new tensor: ``x`` summed (``psum``) or maxed (``pmax``) over the
-    shards of ``axes``."""
-    import torch.distributed as dist
-    group = _group(x, mesh, axes)
-    if group is None:
+    """A new tensor: ``x`` summed (``psum``; its gradient is the summed
+    gradient) or maxed (``pmax``; no gradient) over the shards of
+    ``axes``."""
+    if not _live(mesh, axes):
         return x
-    out = x.clone().contiguous()
-    dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
-                             "max": dist.ReduceOp.MAX}[op], group=group)
-    return out
+    if op == "sum":
+        return _AllReduceSum.apply(x, mesh, tuple(axes))
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("all_reduce max has no gradient: reduce a "
+                         "detached tensor")
+    return _reduce(x, mesh, axes, op)
 
 
 def all_mean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -65,8 +110,9 @@ def all_mean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
 
 def mean_local_grad(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """``pmean(x)`` in value, with the gradient of the rank's own ``x``:
-    a data-parallel loss built on it, averaged over the ranks with its
-    gradients, then has the gradient of the global loss."""
+    equal to ``pmean``'s where every shard's gradient of the mean is the
+    same (the MoE's load-balance statistics, which every rank's loss
+    reads alike)."""
     if mesh is None or mesh.size(axes) == 1:
         return x
     return x + (all_mean(x.detach(), mesh, axes) - x.detach())

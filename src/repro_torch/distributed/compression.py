@@ -9,7 +9,8 @@ int8 per-tensor-scaled quantization:
 The quantize->dequantize pair is applied to the gradients right before
 the optimizer, so convergence is what a run that sends the int8 payload
 would see.  ``torch.round`` rounds half to even, as ``jnp.round`` does,
-so the codes are the reference's bit for bit.
+so the codes are the reference's bit for bit.  A gradient held as a
+block (``sharding.mark``) is scaled by the whole tensor's ``max|g|``.
 """
 from __future__ import annotations
 
@@ -25,21 +26,30 @@ def init_error_feedback(params) -> Any:
                                           device=p.device), params)
 
 
-def quantize(g: torch.Tensor):
-    """(int8 codes, f32 scale) of one f32 tensor."""
-    scale = torch.clamp(g.abs().max() / 127.0, min=1e-12)
+def quantize(g: torch.Tensor, axes=(), mesh=None):
+    """(int8 codes, f32 scale) of one f32 tensor; where ``g`` is a block
+    of a tensor split over mesh ``axes``, ``max|g|`` is the whole
+    tensor's (a ``pmax`` over the blocks)."""
+    from repro_torch.distributed.collectives import all_reduce
+    scale = torch.clamp(all_reduce(g.abs().max(), mesh, axes, "max")
+                        / 127.0, min=1e-12)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def compress_decompress(grads, error_fb) -> Tuple[Any, Any]:
-    """Returns (effective_grads, new_error_fb)."""
+def compress_decompress(grads, error_fb, splits=None) -> Tuple[Any, Any]:
+    """Returns (effective_grads, new_error_fb).  ``splits``: a tree like
+    the gradients of the axes each dimension of a block is split over
+    (``sharding.split_of``), None where every leaf is whole."""
+    from repro_torch.distributed.sharding import current_mesh
+    mesh = current_mesh()
 
-    def one(g, e):
+    def one(g, e, dims=()):
         g = g.float() + e
-        q, scale = quantize(g)
+        q, scale = quantize(g, tuple(a for d in dims for a in d), mesh)
         deq = q.float() * scale
         return deq, g - deq
 
-    out = tree_map(one, grads, error_fb)
+    out = (tree_map(one, grads, error_fb) if splits is None
+           else tree_map(one, grads, error_fb, splits))
     return tree_unzip(out, 0), tree_unzip(out, 1)

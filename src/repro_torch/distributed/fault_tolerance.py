@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.device import DeviceLike
-from repro_torch.distributed.sharding import take_spec_block
+from repro_torch.distributed.sharding import (mark, split_dims,
+                                              take_dims_block)
 from repro_torch.training.optimizer import tree_leaves, tree_map
 
 
@@ -128,15 +129,17 @@ class ResilientTrainer:
 def rescale_state(host_state, new_shardings):
     """Place a host state tree (numpy arrays or CPU tensors, a
     checkpoint's) onto a differently sized mesh: each leaf cut by its
-    ``sharding.NamedSharding``'s spec to this rank's block (whole where
-    the spec replicates) and moved to the mesh's device.  Every sharding
-    is logical (rules), not by device index, so this is all an elastic
+    ``sharding.NamedSharding``'s spec, fitted to its shape, to this
+    rank's block (whole where the spec replicates), moved to the mesh's
+    device and marked with the axes that split it.  Every sharding is
+    logical (rules), not by device index, so this is all an elastic
     scale-up or -down needs."""
     def place(a, s):
-        block = take_spec_block(a, s.spec, s.mesh)
-        t = block if isinstance(block, torch.Tensor) else \
-            torch.from_numpy(np.ascontiguousarray(block))
-        return t.to(s.mesh.device).clone()
+        t = a if isinstance(a, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(a))
+        dims = split_dims(t.shape, s.spec, s.mesh)
+        return mark(take_dims_block(t, dims, s.mesh).to(s.mesh.device)
+                    .clone(), dims)
     return tree_map(place, host_state, new_shardings)
 
 

@@ -26,6 +26,19 @@ entry whose axes do not divide the dimension is dropped) and ``Layout``
 / ``layout`` say which mesh axes split the rows a rank holds: the port's
 activations are the rank's own block, where the reference's are global
 arrays that XLA places.
+
+A rank's parameters (the last section).  Under a mesh a rank holds each
+parameter whole or as its block by the leaf's spec (``fit_spec`` of
+``param_shardings``): ``shard_tree`` cuts whole leaves to blocks,
+``gather_tree`` joins blocks back to whole leaves, and ``split_of``
+reads the axes each dimension of a block is split over, which
+``mark`` records on the tensor when it is cut or drawn (the optimizer,
+the gradient clipping, the data-parallel average and the checkpoint
+read them).  ``local_param`` is how the model uses a leaf: a dimension
+the layer computes on in blocks (``COMPUTED_IN_BLOCKS``: heads, FFN
+columns, vocab, SSM channels, experts) is the rank's block (cut from a
+whole leaf), any other split dimension (the FSDP ``'embed'`` rows) is
+all-gathered before the use.
 """
 from __future__ import annotations
 
@@ -318,8 +331,14 @@ def shard_logical(x, *logical_axes):
     Stated deviation: the port hands no layout to a compiler, and a
     constraint never changes a value, so this checks that one name (or
     None) is given per dimension and returns ``x`` as it is.  Where the
-    port's rows do change layout, it moves them with an explicit
-    collective (the places are listed in ``models/transformer.py``)."""
+    reference's layouts move data, the port moves it with explicit
+    collectives, listed in ``models/transformer.py``: the FSDP gathers
+    of ``local_param``, the row-parallel sums of the attention output,
+    the FFN, the SSM's ``out_proj`` and the MoE's experts, the SSM
+    gate norm's sum of squares, the vocab-parallel lookup, logsumexp,
+    label logit and argmax, the query heads' gather where the heads do
+    not divide (and before flash-decoding's merge), and the sequence
+    and token gathers of sequence-parallel prefill and the MoE."""
     if len(logical_axes) != x.dim() or not all(
             a is None or isinstance(a, str) for a in logical_axes):
         raise ValueError(f"shard_logical: {logical_axes} for a tensor of "
@@ -404,3 +423,144 @@ def take_spec_block(x, spec: Sequence, mesh):
     """``x`` (an array or tensor) cut to this rank's block by ``spec``."""
     return x[tuple(slice(a, a + n)
                    for a, n in block_bounds(x.shape, spec, mesh))]
+
+
+# --------------------------------------------------------------------------- #
+# A rank's parameters
+# --------------------------------------------------------------------------- #
+
+# logical axes a layer computes on in blocks: a split one stays the
+# rank's block (tensor and expert parallelism); any other split
+# dimension is all-gathered before use (FSDP)
+COMPUTED_IN_BLOCKS = frozenset({"qkv", "mlp", "vocab", "ssm_inner",
+                                "ssm_heads", "conv_dim", "expert"})
+
+Dims = Tuple[Tuple[str, ...], ...]
+_DIMS: dict = {}          # local_param's split_dims, by (mesh, rules, leaf)
+
+
+def split_dims(shape: Sequence[int], spec: Sequence, mesh) -> Dims:
+    """The mesh axes that split each dimension of an array of ``shape``
+    laid out by ``spec`` (fitted to the shape first), axes of size 1
+    left out: () for a whole dimension."""
+    fitted = fit_spec(tuple(spec) + (None,) * (len(shape) - len(spec)),
+                      shape, mesh)
+    return tuple(tuple(a for a in entry_axes(e) if mesh.size(a) > 1)
+                 for e in fitted)
+
+
+def mark(t, dims: Dims):
+    """Record on tensor ``t`` the axes each of its dimensions is split
+    over (``split_dims``); returns ``t``."""
+    t.split_dims = tuple(tuple(d) for d in dims)
+    return t
+
+
+def split_of(t) -> Dims:
+    """The axes each dimension of ``t`` is split over: what ``mark``
+    recorded, () for every dimension of an unmarked (whole) tensor."""
+    return getattr(t, "split_dims", ((),) * t.dim())
+
+
+def split_axes(t) -> Tuple[str, ...]:
+    """Every mesh axis that splits ``t``."""
+    return tuple(a for d in split_of(t) for a in d)
+
+
+def take_dims_block(x, dims: Dims, mesh):
+    """``x`` cut to this rank's block along every split dimension."""
+    return take_spec_block(x, tuple(d or None for d in dims), mesh)
+
+
+def _map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def shard_tree(tree, shardings):
+    """A tree of whole leaves cut to this rank's blocks by ``shardings``
+    (a like tree of ``NamedSharding``s, e.g. ``param_shardings``), each
+    spec fitted to its leaf; each block is marked."""
+    def cut(x, s):
+        dims = split_dims(x.shape, s.spec, s.mesh)
+        return mark(take_dims_block(x, dims, s.mesh).clone(), dims)
+    return _map(cut, tree, shardings)
+
+
+def gather_tree(tree, mesh=None):
+    """A tree of marked blocks all-gathered to whole leaves (unmarked
+    leaves as they are).  A collective: every rank of the mesh calls
+    it."""
+    import torch
+    from repro_torch.distributed import collectives as coll
+    mesh = mesh if mesh is not None else _CTX.mesh
+
+    def join(x):
+        for dim, axes in enumerate(split_of(x)):
+            if axes:
+                x = coll.all_gather(x, mesh, axes, dim)
+        return x
+    with torch.no_grad():
+        return _map(join, tree)
+
+
+def inherit_marks(new_tree, old_tree):
+    """Copy each old leaf's mark onto the new leaf at its place (a train
+    step's new state from the old)."""
+    def copy(n, o):
+        if hasattr(o, "split_dims") and hasattr(n, "dim"):
+            mark(n, o.split_dims)
+        return n
+    return _map(copy, new_tree, old_tree)
+
+
+def local_param(w, logical_axes: Sequence[Optional[str]],
+                shape: Sequence[int]):
+    """Leaf ``w`` of global ``shape`` as this rank computes with it under
+    the active mesh and rules: along a split dimension named in
+    ``COMPUTED_IN_BLOCKS`` the rank's block (cut when ``w`` is whole),
+    along any other dimension the whole (a block all-gathered over the
+    axes its ``mark`` names, else the active rules' axes: parameters cut
+    by one rule table serve under another, as GSPMD reshards them).
+    Without a mesh or rules, ``w``."""
+    from repro_torch.distributed import collectives as coll
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if mesh is None or not rules or logical_axes is None:
+        return w
+    key = (mesh, rules, tuple(logical_axes), tuple(shape))
+    dims = _DIMS.get(key)
+    if dims is None:
+        dims = _DIMS[key] = split_dims(
+            shape, axis_rules(logical_axes, rules, mesh), mesh)
+    held = split_of(w)
+    for d, (axes, name, full) in enumerate(zip(dims, logical_axes, shape)):
+        if w.shape[d] == full:
+            if axes and name in COMPUTED_IN_BLOCKS:
+                w = coll.take_block(w, mesh, axes, d)
+            continue
+        if name not in COMPUTED_IN_BLOCKS:
+            # an FSDP block: gathered over the axes it was cut by (its
+            # mark), else by the active rules
+            axes = held[d] or axes
+        if not axes or w.shape[d] * mesh.size(axes) != full:
+            raise ValueError(f"a leaf of {tuple(w.shape)} for "
+                             f"{tuple(shape)}: dimension {d} ({name}) is "
+                             f"neither whole nor its block over "
+                             f"{axes or 'no axes'}")
+        if name not in COMPUTED_IN_BLOCKS:
+            w = coll.all_gather(w, mesh, axes, d)
+    return w
+
+
+def spec_split(logical: str, size: int) -> Tuple[str, ...]:
+    """The mesh axes (of size > 1) that split a dimension of ``size``
+    named ``logical`` under the active mesh and rules (fitted)."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if mesh is None or not rules:
+        return ()
+    key = (mesh, rules, logical, size)
+    if key not in _DIMS:
+        _DIMS[key] = split_dims((size,), axis_rules((logical,), rules, mesh),
+                                mesh)[0]
+    return _DIMS[key]

@@ -266,6 +266,22 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _rank_rows(batch: dict, lay) -> dict:
+    """The rank's rows of a prefill batch under ``lay``: its block of the
+    batch and of the sequence (M-RoPE's (3, B, S) positions carry the
+    batch second)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import current_mesh
+    mesh = current_mesh()
+    out = {}
+    for k, v in batch.items():
+        b = 1 if k == "positions" and v.dim() == 3 else 0
+        v = coll.take_block(v, mesh, lay.batch, b)
+        out[k] = v if k == "frontend" else coll.take_block(
+            v, mesh, lay.seq, b + 1)
+    return out
+
+
 @torch.no_grad()
 def generate(params: dict, cfg, batch: dict, decode_steps: int,
              device="cuda") -> Generation:
@@ -279,30 +295,58 @@ def generate(params: dict, cfg, batch: dict, decode_steps: int,
     decode caches of ``S_total + decode_steps`` positions; an SSM cache
     does not grow with the sequence and is used as it is (a hybrid holds
     both).  An MoE layer's capacity counts the tokens of each call: the
-    prefill's B·S_total, then each decode step's B."""
+    prefill's B·S_total, then each decode step's B.
+
+    Under a mesh and rules (any of the seven tables, the parameters
+    whole or the rank's blocks) the rank prefills its rows
+    (``sharding.layout``), places the caches into the decode layout
+    (``transformer.place_caches``) and decodes its batch rows; the last
+    position's logits are gathered across the vocab blocks, so the
+    argmax crosses them and breaks ties to the lower global index, as
+    ``jnp.argmax``; the returned tokens and logits are gathered whole."""
     from repro_torch.device import resolve_device
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as sh
     from repro_torch.models import transformer as tfm
 
     dev = resolve_device(device)
     batch = {k: v.to(dev) for k, v in batch.items()}
+    mesh = sh.current_mesh()
+    B, S = batch["tokens"].shape[:2]
+    if cfg.frontend != "none" and "frontend" in batch:
+        S += batch["frontend"].shape[1]
+    pre = sh.layout(B, S)
+    dec = sh.layout(B, 1, S + decode_steps)
+    vocab, _ = tfm.vocab_block(cfg)
+
+    def last_logits(logits, seq=()):
+        last = logits[:, -1:]
+        if seq:
+            last = coll.all_gather(last, mesh, seq, 1)[:, -1:]
+        return coll.all_gather(last[:, 0], mesh, vocab, last.dim() - 2)
+
     t0 = time.perf_counter()
-    logits, caches = tfm.prefill_step(params, batch, cfg)
-    S = logits.shape[1]
-    last = [logits[:, -1].clone()]       # frees the (B, S, [C,] V) logits
+    with sh.use_layout(pre):
+        logits, caches = tfm.prefill_step(params, _rank_rows(batch, pre),
+                                          cfg)
+    last = [last_logits(logits, pre.seq).clone()]   # frees the logits
     del logits
-    caches = tfm.place_caches(cfg, caches, S + decode_steps)
+    caches = tfm.place_caches(cfg, caches, S + decode_steps, pre, dec)
     out = [last[-1].argmax(-1)]
     _sync(dev)
     t1 = time.perf_counter()
-    for i in range(decode_steps):
-        logits, caches = tfm.decode_step(
-            params, {"tokens": out[-1][:, None]}, cfg, caches, S + i)
-        last.append(logits[:, -1])
-        out.append(last[-1].argmax(-1))
+    with sh.use_layout(dec):
+        for i in range(decode_steps):
+            logits, caches = tfm.decode_step(
+                params, {"tokens": out[-1][:, None]}, cfg, caches, S + i)
+            last.append(last_logits(logits))
+            out.append(last[-1].argmax(-1))
     _sync(dev)
     t2 = time.perf_counter()
-    return Generation(torch.stack(out, 1), torch.stack(last, 1), t1 - t0,
-                      t2 - t1)
+    return Generation(coll.all_gather(torch.stack(out, 1), mesh, dec.batch,
+                                      0),
+                      coll.all_gather(torch.stack(last, 1), mesh, dec.batch,
+                                      0), t1 - t0, t2 - t1)
 
 
 def serve_lm(args) -> None:

@@ -26,9 +26,14 @@ process group.  At world size n the process group is NCCL on
 ``("data", "model")``: the CAPSim predictor trains under
 ``LOGICAL_RULES_PREDICTOR``, a zoo model under ``LOGICAL_RULES_TRAIN``,
 data-parallel (``training/train_loop.py``): every rank draws the same
-global batches and takes its ``shard_range`` of each.  Rank 0 writes the
-checkpoints and prints; every rank restores them.  Training with
-'model' > 1 is ROADMAP item 6c.
+global batches and takes its ``shard_range`` of each.  Under
+``LOGICAL_RULES_TRAIN`` a zoo model's parameters are the rank's blocks
+(``init_params(mesh=...)``: its FSDP rows over 'data', gathered at each
+use); a checkpoint is gathered to whole leaves for rank 0, which writes
+it and prints, and every rank restores its blocks.  The launcher keeps
+this (n, 1) world; training with 'model' > 1 (tensor and expert
+parallelism) runs through the library under a (data, model) mesh of
+the caller's (``training/train_loop.py``).
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
         --smoke --steps 5 --batch-size 8 --n-benchmarks 3
@@ -256,9 +261,11 @@ def train_lm(args) -> dict:
     with cluster(args.device) as mesh, \
             use_mesh_and_rules(mesh, LOGICAL_RULES_TRAIN):
         device = mesh.device
-        params = tfm.init_params(cfg, seed=args.seed, device=device)
+        params = tfm.init_params(cfg, seed=args.seed, device=device,
+                                 mesh=mesh)
         n = sum(p.numel() for p in tree_leaves(params))
-        _say(f"{args.arch}: {n / 1e6:.1f}M params (smoke={args.smoke})")
+        _say(f"{args.arch}: {n / 1e6:.1f}M params on rank 0 (smoke="
+             f"{args.smoke})")
         state = init_train_state(params, tcfg)
         step = make_train_step(lambda p, b: tfm.loss_fn(p, b, cfg), tcfg)
         trainer = ResilientTrainer(

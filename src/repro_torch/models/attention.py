@@ -48,7 +48,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.sharding import current_layout, current_mesh
+from repro_torch.distributed.sharding import (current_layout, current_mesh,
+                                              spec_split)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import (ParamSpec, apply_rope, dense_spec,
                                        rms_norm)
@@ -219,6 +220,62 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, Dh)
 
 
+def _project(params, x, q, positions, cfg, Hl: int):
+    """(q, k, v): the query columns ``q`` (x @ wq) as Hl heads and x's
+    keys and values, qk-normed and rotated."""
+    B, S, _ = x.shape
+    KV, Dh = cfg.num_kv_heads, cfg.head_dim
+    q = q.reshape(B, S, Hl, Dh)
+    k = (x @ params["wk"]).reshape(B, S, KV, Dh)
+    v = (x @ params["wv"]).reshape(B, S, KV, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    return q, k, v
+
+
+def tp_shard_attention(params: dict, x: torch.Tensor,
+                       positions: torch.Tensor, cfg, h0: int, Hl: int):
+    """One tensor-parallel shard's train/prefill body: ``params``' ``wq``
+    is its query columns, heads [h0, h0 + Hl) (whole heads reading whole
+    KV groups, ``_local_heads``), ``wo`` the matching rows, ``wk``/``wv``
+    whole.  Causal flash attention at Hl heads over the KV heads they
+    read.  Returns (its partial (B, S, d) output, before the row-parallel
+    sum; k and v (B, S, KV, Dh), the prefill cache)."""
+    B, S, _ = x.shape
+    G = cfg.num_heads // cfg.num_kv_heads
+    q, k, v = _project(params, x, x @ params["wq"], positions, cfg, Hl)
+    kv = slice(h0 // G, (h0 + Hl - 1) // G + 1)
+    o = causal_attention(q, k[:, :, kv], v[:, :, kv])
+    return o.reshape(B, S, Hl * cfg.head_dim) @ params["wo"], k, v
+
+
+def tp_shards(params: dict, x: torch.Tensor, positions: torch.Tensor,
+              cfg, n: int) -> list:
+    """Tensor-parallel prefill attention as n shards in one process (one
+    device holding every shard): each shard's partial output from whole
+    ``params`` cut to its ``wq`` columns and ``wo`` rows, to be summed."""
+    Hl, Dh = cfg.num_heads // n, cfg.head_dim
+    if not _local_heads(cfg.num_heads, cfg.num_kv_heads, n):
+        raise ValueError(f"{cfg.num_heads} heads over {cfg.num_kv_heads} "
+                         f"KV heads do not split into {n} whole shards")
+    outs = []
+    for m in range(n):
+        cols = slice(m * Hl * Dh, (m + 1) * Hl * Dh)
+        p = dict(params, wq=params["wq"][:, cols], wo=params["wo"][cols])
+        outs.append(tp_shard_attention(p, x, positions, cfg, m * Hl, Hl)[0])
+    return outs
+
+
+def _local_heads(H: int, KV: int, n: int) -> bool:
+    """Whether ``n`` tensor-parallel ranks each attend over whole query
+    heads that read whole KV groups: H divides over them, and either the
+    KV heads do too or each rank's heads share one KV head."""
+    return H % n == 0 and (KV % n == 0 or n % KV == 0)
+
+
 def attention_forward(params: dict, x: torch.Tensor,
                       positions: torch.Tensor, cfg, mode: str,
                       cache: Optional[dict] = None,
@@ -230,43 +287,79 @@ def attention_forward(params: dict, x: torch.Tensor,
     decode: S == 1; ``cache`` holds (B, S_max, KV, Dh) k/v and the query
     position is ``cache_pos``; the new k/v are written into it in place.
     Returns (out (B, S, d), the cache: this prompt's k/v for prefill, the
-    updated cache for decode, None for train)."""
+    updated cache for decode, None for train).
+
+    Tensor parallelism (``'qkv'`` split over n ranks by the active
+    rules; ``params`` as ``layers.local_params`` gives them): ``wq`` is
+    the rank's columns, ``wo`` its rows, ``wk``/``wv`` whole (``'kv'``
+    is never split), so every rank has every KV head and writes the
+    whole cache.  Where H and the KV heads divide (``_local_heads``) the
+    rank attends over its H/n query heads and the KV heads they read,
+    the flash kernel running at H/n heads.  Otherwise the rank's query
+    columns are all-gathered and it attends over all heads, then keeps
+    the columns of its ``wo`` rows: where H does not divide over n (the
+    reference drops the ``act_heads`` constraint there and a rank's
+    columns are not whole heads), under the sequence-parallel route,
+    and in decode against a cache whose sequence is split, where the
+    query heads are gathered before flash-decoding's merge so that each
+    rank's partials cover every head.  The rank's partial ``o @ wo`` is
+    summed over the n ranks (the row-parallel all-reduce)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
     B, S, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mesh, lay = current_mesh(), current_layout()
+    tp = spec_split("qkv", H * Dh)
+    n = mesh.size(tp) if tp else 1
+    sp = mode != "decode" and (cfg.attn_impl == "sp" or bool(lay.seq))
+    local = n > 1 and _local_heads(H, KV, n) and not sp and not (
+        mode == "decode" and lay.cache_seq)
 
-    q = (x @ params["wq"]).reshape(B, S, H, Dh)
-    k = (x @ params["wk"]).reshape(B, S, KV, Dh)
-    v = (x @ params["wv"]).reshape(B, S, KV, Dh)
-    if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"])
-        k = rms_norm(k, params["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    h0, Hl = (mesh.index(tp) * (H // n), H // n) if local else (0, H)
+    if local and mode != "decode":
+        out, k, v = tp_shard_attention(params, x, positions, cfg, h0, Hl)
+        return coll.all_reduce(out, mesh, tp), (
+            {"k": k, "v": v} if mode == "prefill" else None)
+
+    q = x @ params["wq"]
+    if n > 1 and not local:
+        q = coll.all_gather(q, mesh, tp, 2)
+    q, k, v = _project(params, x, q, positions, cfg, Hl)
+    # the KV heads the rank's query heads read
+    G = H // KV
+    kv = slice(h0 // G, (h0 + Hl - 1) // G + 1)
 
     new_cache = None
     if mode == "decode":
         if cache is None or S != 1:
             raise ValueError("decode takes one token and a KV cache")
-        mesh, axes = current_mesh(), current_layout().cache_seq
+        axes = lay.cache_seq
         s_loc = cache["k"].shape[1]
         pos = int(cache_pos)
         if not 0 <= pos < s_loc * (mesh.size(axes) if axes else 1):
             raise ValueError(f"cache_pos {pos} outside the cache's "
                              f"positions")
-        local = pos - (mesh.index(axes) * s_loc if axes else 0)
-        if 0 <= local < s_loc:          # the rank whose slice holds pos
-            cache["k"][:, local] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][:, local] = v[:, 0].to(cache["v"].dtype)
-        o = flash_decode(q, cache["k"], cache["v"], pos)
+        local_pos = pos - (mesh.index(axes) * s_loc if axes else 0)
+        if 0 <= local_pos < s_loc:      # the rank whose slice holds pos
+            cache["k"][:, local_pos] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, local_pos] = v[:, 0].to(cache["v"].dtype)
+        if local:
+            o = decode_attention(q, cache["k"][:, :, kv],
+                                 cache["v"][:, :, kv], pos)
+        else:
+            o = flash_decode(q, cache["k"], cache["v"], pos)
         new_cache = cache
     else:
-        if cfg.attn_impl == "sp" or current_layout().seq:
+        if sp:
             o = sp_prefill_attention(q, k, v, cfg)
         else:
             o = causal_attention(q, k, v)
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
-    return o.reshape(B, S, H * Dh) @ params["wo"], new_cache
+    o = o.reshape(B, S, Hl * Dh)
+    if n == 1:
+        return o @ params["wo"], new_cache
+    if not local:
+        o = coll.take_block(o, mesh, tp, 2)
+    return coll.all_reduce(o @ params["wo"], mesh, tp), new_cache

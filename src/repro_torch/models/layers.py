@@ -176,6 +176,50 @@ def init_from_seed(specs, seed: int, param_dtype: str,
     return build(specs, "", blocks)
 
 
+def local_params(params, specs):
+    """A layer's parameters as this rank computes with them
+    (``sharding.local_param`` of each leaf by its spec): the rank's
+    blocks of the tensor-parallel dimensions, the FSDP rows gathered.
+    As given without a mesh, or on a mesh of one device."""
+    from repro_torch.distributed.sharding import (current_mesh,
+                                                  current_rules, local_param)
+    mesh = current_mesh()
+    if mesh is None or not current_rules() or \
+            mesh.size(mesh.axis_names) == 1:
+        return params
+
+    def walk(p, s):
+        if isinstance(s, ParamSpec):
+            return local_param(p, s.logical_axes, s.shape)
+        return {k: walk(p[k], s[k]) for k in p}
+    return walk(params, specs)
+
+
+def block_bounds_tree(specs, mesh, rules):
+    """A tree like ``specs`` of this rank's block of every leaf, one
+    (start, size) a dimension (``init_from_seed``'s ``blocks``), by the
+    leaf's spec under ``rules`` fitted to its shape."""
+    from repro_torch.distributed.sharding import (axis_rules, block_bounds,
+                                                  split_dims)
+    if isinstance(specs, ParamSpec):
+        dims = split_dims(specs.shape, axis_rules(specs.logical_axes, rules,
+                                                  mesh), mesh)
+        return block_bounds(specs.shape, tuple(d or None for d in dims),
+                            mesh)
+    return {k: block_bounds_tree(v, mesh, rules) for k, v in specs.items()}
+
+
+def mark_tree(params, specs, mesh, rules):
+    """Mark every leaf drawn as its block (``block_bounds_tree``) with
+    the axes that split it (``sharding.mark``)."""
+    from repro_torch.distributed.sharding import axis_rules, mark, split_dims
+    if isinstance(specs, ParamSpec):
+        return mark(params, split_dims(
+            specs.shape, axis_rules(specs.logical_axes, rules, mesh), mesh))
+    return {k: mark_tree(params[k], v, mesh, rules)
+            for k, v in specs.items()}
+
+
 def shardings_from_specs(specs, mesh, rules):
     """The reference's ``NamedSharding`` of every leaf: its logical axes
     resolved by ``rules`` on ``mesh`` (``sharding.logical_sharding``)."""

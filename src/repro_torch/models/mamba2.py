@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import current_mesh, spec_split
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.layers import ParamSpec, dense_spec, rms_norm
 
@@ -99,14 +101,30 @@ def init_ssm_cache_specs(cfg, batch: int) -> dict:
     }
 
 
-def ssm_forward(params: dict, x: torch.Tensor, cfg, mode: str,
-                cache: Optional[dict] = None
-                ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """x: (Bt, S, d).  mode: 'prefill' (returns the decode cache),
-    'decode' (S == 1 against ``cache``) or 'train' (no cache).  Returns
-    (out (Bt, S, d), updated cache or None)."""
+def _gate_out(params: dict, g: torch.Tensor, sumsq: torch.Tensor,
+              width: int, dtype: torch.dtype, eps: float = 1e-6
+              ) -> torch.Tensor:
+    """The gate norm and ``out_proj`` of a shard's channels: ``g`` (the
+    gated y of its channels), normalized by ``sumsq``, the sum of squares
+    over all ``width`` channels, then its rows of ``out_proj``: its
+    partial output, before the row-parallel sum."""
+    y = g.float() * torch.rsqrt(sumsq / width + eps)
+    y = (y * (1.0 + params["gate_norm"].float())).to(g.dtype)
+    return (y @ params["out_proj"]).to(dtype)
+
+
+def ssm_heads(params: dict, x: torch.Tensor, cfg, mode: str,
+              cache: Optional[dict] = None, heads: Optional[slice] = None,
+              widen=None):
+    """The mixer up to its gate norm on the channels ``params`` hold:
+    ``wz``/``wx``/``conv_x`` whole or one shard's d_inner block, ``wB``,
+    ``wC``, ``wdt``, the B/C convolutions, ``dt_bias``, ``A_log`` and
+    ``D`` whole; ``heads`` the block's heads (None: all), or ``widen``
+    the gather of the conv output to every channel where the block is
+    not whole heads (its y is then every head's).  Returns (y (Bt, S,
+    channels) in x's dtype with its skip term, z of the channels
+    ``params`` hold, the cache of its heads)."""
     Bt, S, d = x.shape
-    d_inner, nheads = ssm_dims(cfg)
     Pd = cfg.ssm_head_dim
 
     z = x @ params["wz"]
@@ -116,6 +134,7 @@ def ssm_forward(params: dict, x: torch.Tensor, cfg, mode: str,
     dt = x @ params["wdt"]
     dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
     A = -torch.exp(params["A_log"].float())
+    Dp = params["D"]
 
     xin, cx = _shift_conv(xin, params["conv_x"],
                           None if cache is None else cache["conv_x"])
@@ -123,8 +142,12 @@ def ssm_forward(params: dict, x: torch.Tensor, cfg, mode: str,
                          None if cache is None else cache["conv_B"])
     Cp, cC = _shift_conv(Cp, params["conv_C"],
                          None if cache is None else cache["conv_C"])
-
-    xh = xin.view(Bt, S, nheads, Pd)
+    if heads is not None:
+        dt, A, Dp = dt[..., heads], A[heads], Dp[heads]
+    if widen is not None:
+        xin = widen(xin)
+    Hl = xin.shape[-1] // Pd
+    xh = xin.view(Bt, S, Hl, Pd)
 
     new_cache = None
     if mode == "decode":
@@ -141,8 +164,75 @@ def ssm_forward(params: dict, x: torch.Tensor, cfg, mode: str,
             new_cache = {"conv_x": cx, "conv_B": cB, "conv_C": cC,
                          "state": final_state}
 
-    y = y + xh * params["D"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(Bt, S, d_inner)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"])
-    out = (y @ params["out_proj"]).to(x.dtype)
-    return out, new_cache
+    y = y + xh * Dp.to(x.dtype)[None, None, :, None]
+    y = y.reshape(Bt, S, Hl * Pd)
+    return y, z, new_cache
+
+
+def ssm_forward(params: dict, x: torch.Tensor, cfg, mode: str,
+                cache: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x: (Bt, S, d).  mode: 'prefill' (returns the decode cache),
+    'decode' (S == 1 against ``cache``) or 'train' (no cache).  Returns
+    (out (Bt, S, d), updated cache or None).
+
+    Tensor parallelism (``'ssm_inner'`` split over n ranks; ``params``
+    as ``layers.local_params`` gives them): ``wz``, ``wx``, ``conv_x``,
+    ``gate_norm`` are the rank's d_inner/n channels and ``out_proj`` its
+    rows; ``wB``, ``wC``, ``wdt`` and the B/C convolutions are whole, and
+    the rank takes its heads' slice of ``dt``, ``A`` and ``D``.  Where the
+    heads divide over n the scan runs on the rank's nheads/n heads (the
+    caches are its heads' block: conv_x channels and state heads, as
+    ``'act_ssm'`` splits them); otherwise its conv output is
+    all-gathered, every head scanned, and its channels kept.  The gate
+    norm's sum of squares over d_inner and the row-parallel ``out_proj``
+    are summed over the n ranks."""
+    d_inner, nheads = ssm_dims(cfg)
+    mesh = current_mesh()
+    tp = spec_split("ssm_inner", d_inner)
+    n = mesh.size(tp) if tp else 1
+    if n == 1:
+        y, z, new_cache = ssm_heads(params, x, cfg, mode, cache)
+        y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"])
+        return (y @ params["out_proj"]).to(x.dtype), new_cache
+    if nheads % n == 0:
+        hl = nheads // n
+        y, z, new_cache = ssm_heads(params, x, cfg, mode, cache, slice(
+            mesh.index(tp) * hl, (mesh.index(tp) + 1) * hl))
+    else:
+        y, z, new_cache = ssm_heads(params, x, cfg, mode, cache,
+                                    widen=lambda t: coll.all_gather(
+                                        t, mesh, tp, 2))
+        y = coll.take_block(y, mesh, tp, 2)
+    g = y * F.silu(z.float()).to(y.dtype)
+    sumsq = coll.all_reduce(g.float().square().sum(dim=-1, keepdim=True),
+                            mesh, tp)
+    return coll.all_reduce(_gate_out(params, g, sumsq, d_inner, x.dtype),
+                           mesh, tp), new_cache
+
+
+def tp_shards(params: dict, x: torch.Tensor, cfg, n: int) -> list:
+    """The tensor-parallel mixer (prefill, no cache) as n shards in one
+    process: each shard's partial output from whole ``params`` cut to
+    its d_inner/n channels and nheads/n heads (the SSD kernel at nheads/n
+    heads), the gate norm's sums of squares added over the shards."""
+    d_inner, nheads = ssm_dims(cfg)
+    if nheads % n:
+        raise ValueError(f"{nheads} heads do not split into {n} shards")
+    c, hl = d_inner // n, nheads // n
+    cut = []
+    for m in range(n):
+        ch = slice(m * c, (m + 1) * c)
+        cut.append(dict(params, wz=params["wz"][:, ch],
+                        wx=params["wx"][:, ch],
+                        conv_x=params["conv_x"][:, ch],
+                        gate_norm=params["gate_norm"][ch],
+                        out_proj=params["out_proj"][ch]))
+    gs = []
+    for m, p in enumerate(cut):
+        y, z, _ = ssm_heads(p, x, cfg, "train", None,
+                            slice(m * hl, (m + 1) * hl))
+        gs.append(y * F.silu(z.float()).to(y.dtype))
+    sumsq = sum(g.float().square().sum(dim=-1, keepdim=True) for g in gs)
+    return [_gate_out(p, g, sumsq, d_inner, x.dtype)
+            for p, g in zip(cut, gs)]

@@ -29,10 +29,11 @@ meshless path is the body with ``m = 0`` and every expert local.  Under
 a mesh (``distributed/sharding.current_mesh``):
 
 - The experts shard over 'model' (``E % n_model`` must be 0, else
-  ValueError) and their d_model rows over 'data'.  A rank given the whole
-  tensors takes its experts; a rank holding its ``(E/n_model, d/n_data,
-  f)`` shard (``transformer.init_params(mesh=...)``) all-gathers the
-  data shards inside the layer, as the reference (:59-61).
+  ValueError) and, where the rules split them (FSDP), their d_model rows
+  over 'data'.  A rank given the whole tensors takes its experts; a rank
+  holding its block (``transformer.init_params(mesh=...)``) all-gathers
+  the rows inside the layer, as the reference (:59-61), and the router's
+  likewise (``local_experts``).
 - The tokens split over the DP axes ('pod', 'data') in blocks of
   ``t_loc = B·S/dp`` flattened tokens, each device with its own
   capacity; where B·S does not divide, the tokens replicate and
@@ -46,6 +47,10 @@ a mesh (``distributed/sharding.current_mesh``):
 
 A token's output depends on the batch it came in: the capacity counts
 the device's tokens, and positions run over its flattened tokens.
+
+Gradients flow through every gather and sum of the expert-parallel
+body (``distributed/collectives.py``'s adjoints), so the layer trains
+with 'model' > 1; the routing is computed alike on every 'model' rank.
 """
 from __future__ import annotations
 
@@ -56,7 +61,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.sharding import current_layout, current_mesh
+from repro_torch.distributed.sharding import (current_layout, current_mesh,
+                                              local_param)
 from repro_torch.models.layers import ParamSpec, activation
 
 
@@ -125,13 +131,6 @@ def route(router: torch.Tensor, xf: torch.Tensor, k: int,
     return Routing(scores, probs, gates, idx, pos, pos < cap, cap)
 
 
-# the reference's shard_map in_specs of the expert weights (:160-161):
-# experts over 'model', d_model rows over 'data'
-EXPERT_SPECS = {"w_gate": ("model", "data", None),
-                "w_up": ("model", "data", None),
-                "w_down": ("model", None, "data")}
-
-
 @dataclasses.dataclass
 class Partial:
     """One device's MoE before its collectives: y (T, d), this shard's
@@ -190,20 +189,16 @@ def load_balance(counts, mean_probs, tokens: int, k: int) -> torch.Tensor:
     return E * torch.sum(counts / (tokens * k) * mean_probs)
 
 
-def local_experts(params: dict, mesh, m: int, e_loc: int) -> dict:
-    """This shard's expert weights, (E_loc, d, f) / (E_loc, f, d): cut
-    from whole tensors, or the rank's stored shard with its d_model rows
-    all-gathered over 'data'."""
-    out = {}
-    for name, spec in EXPERT_SPECS.items():
-        w = params[name]
-        if w.shape[0] != e_loc:
-            w = w[m * e_loc:(m + 1) * e_loc]
-        d_dim = spec.index("data")
-        if w.shape[d_dim] != params["router"].shape[0]:
-            w = coll.all_gather(w, mesh, ("data",), d_dim)
-        out[name] = w
-    return out
+def local_experts(params: dict, cfg) -> dict:
+    """This rank's router and expert weights as its body computes with
+    them (``sharding.local_param`` by ``moe_specs``): the router whole,
+    the experts ``(E_loc, d, f)`` / ``(E_loc, f, d)``, cut from whole
+    tensors or the rank's stored block, whose d_model rows are
+    all-gathered over the axes that split them (the reference's
+    ``shard_map`` in_specs, :59-61)."""
+    specs = moe_specs(cfg)
+    return {k: local_param(params[k], s.logical_axes, s.shape)
+            for k, s in specs.items()}
 
 
 def moe_forward(params: dict, x: torch.Tensor,
@@ -244,8 +239,11 @@ def moe_forward(params: dict, x: torch.Tensor,
     xf = xg.reshape(-1, d)
     blocks = [xf] if held or dp == 1 else list(xf.split(t_loc))
     m = mesh.index("model") if n_model > 1 else 0
-    w = local_experts(params, mesh, m, E // n_model)
-    parts = [moe_shard(b, params["router"], w["w_gate"], w["w_up"],
+    w = local_experts(params, cfg)
+    if w["w_up"].shape[0] != E // n_model:
+        raise ValueError(f"{cfg.name}: experts held {w['w_up'].shape[0]}, "
+                         f"expected {E // n_model} a 'model' shard")
+    parts = [moe_shard(b, w["router"], w["w_gate"], w["w_up"],
                        w["w_down"], m=m, k=k, cf=cfg.capacity_factor,
                        activation_kind=cfg.activation) for b in blocks]
     if len(parts) == 1:

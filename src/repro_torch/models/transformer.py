@@ -22,15 +22,38 @@ state is a new tensor.
 Under a mesh (``distributed/sharding.use_mesh_and_rules``) every rank
 runs the forward on its own rows, and the active ``Layout``
 (``sharding.use_layout``, from ``sharding.layout``) says which mesh axes
-split them: the batch over
-the DP axes, the sequence over 'model' under
+split them: the batch over the DP axes, the sequence over 'model' under
 ``LOGICAL_RULES_PREFILL_SP`` (the rank's tokens are its slice, with
 global positions), the decode cache's sequence over 'model' (or the
-whole mesh under ``_DECODE_LONG``).  Norms, the dense FFN and the
-logits are local.  The reference's GSPMD moves data between layouts
-without saying so; the port does it with explicit collectives, in these
-places:
+whole mesh under ``_DECODE_LONG``).
 
+The parameters follow the active rule table.  A rank holds each leaf
+whole or as its block by the leaf's spec (``init_params(mesh=...)``
+draws only the block; ``sharding.shard_tree`` cuts one from a whole
+tree), and each layer uses it through ``layers.local_params``: a
+dimension the layer computes on in blocks is the rank's block, every
+other split dimension (the FSDP ``'embed'`` rows, norm scales
+included) is all-gathered before the use and its gradient
+reduce-scattered.  So under ``LOGICAL_RULES_TRAIN`` a rank of a (data,
+model) mesh holds 1/(n_data·n_model) of every attention and FFN weight.
+The reference's GSPMD moves data between layouts without saying so; the
+port does it with explicit collectives (``distributed/collectives.py``,
+each with its gradient), in these places:
+
+- FSDP: a leaf's rows split over 'data' (('data', 'model') under
+  ``_TRAIN_FSDP`` and ``PREFILL_SP``, ('pod', 'data') under ``_ZERO3``)
+  are all-gathered at each use (``sharding.local_param``);
+- tensor parallelism over 'model': attention's column-parallel ``wq``
+  and row-parallel ``wo`` (``attention.attention_forward``: the rank's
+  query heads, the query columns gathered where the heads do not divide
+  and before flash-decoding's merge), the dense FFN's ``w_gate``/``w_up``
+  columns and ``w_down`` rows, the SSM's ``'ssm_inner'`` channels and
+  heads with its gate norm's sum of squares and ``out_proj`` rows
+  (``mamba2.ssm_forward``): each row-parallel product all-reduced;
+- the vocabulary over 'model': a tied table's lookup is the rank's rows
+  masked and all-reduced (``_embed_tokens``), the logits are the rank's
+  vocab block (padded columns masked by their global index), and
+  ``loss_fn``'s logsumexp and label logit reduce across the blocks;
 - sequence-parallel attention all-gathers K/V over 'model'
   (``attention.sp_prefill_attention``), and flash-decoding merges its
   shards' partials (``attention.flash_decode``);
@@ -43,14 +66,12 @@ places:
   input is all-gathered, scanned, and the rank's slice kept
   (``_block_forward``; jamba under SP rules);
 - ``place_caches`` moves a prefill's sequence-sharded caches into the
-  decode cache's own blocks (directly where both split S the same way).
+  decode cache's own blocks (directly where both split S the same way),
+  and cuts an SSM cache to the decode rules' heads.
 
-``init_params(mesh=...)`` draws only the rank's expert shard, (E /
-n_model, d / n_data, f) as the reference's ``shard_map`` takes it, and
-``place_caches`` leaves each rank its block of the batch and of the KV
-cache's sequence.  Every other parameter and cache is whole on every
-rank: the port materializes a sharding only where it shards.
-``param_shardings``/``cache_shardings`` return the reference's specs.
+``param_shardings``/``cache_shardings`` return the reference's specs;
+a cache's TP dimension (the SSM's ``'act_ssm'``) is the rank's block as
+its layer computes it.
 """
 from __future__ import annotations
 
@@ -61,14 +82,18 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.sharding import (Layout, block_bounds,
+from repro_torch.distributed.sharding import (Layout, axis_rules,
                                               current_layout, current_mesh,
-                                              take_spec_block)
+                                              current_rules, local_param,
+                                              mark, spec_split, split_dims,
+                                              split_of, take_spec_block)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as ssm_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (ParamSpec, activation, dense_spec,
-                                       init_from_seed, norm, norm_spec,
+from repro_torch.models.layers import (ParamSpec, activation,
+                                       block_bounds_tree, dense_spec,
+                                       init_from_seed, local_params,
+                                       mark_tree, norm, norm_spec,
                                        shardings_from_specs,
                                        specs_with_leading_stack, torch_dtype)
 
@@ -144,34 +169,29 @@ def cache_specs(cfg, batch: int, max_seq: int) -> dict:
         for j, (mixer, _) in enumerate(cfg.pattern())}
 
 
-def expert_placement(cfg) -> dict:
-    """The spec of each stacked expert leaf as the rank holds it under a
-    mesh (the reference's ``shard_map`` in_specs, a leading None for the
-    layers): {block: {name: spec}}."""
-    from repro_torch.models.moe import EXPERT_SPECS
-    return {f"i{j}": {name: (None,) + spec
-                      for name, spec in EXPERT_SPECS.items()}
-            for j, (_, ffn) in enumerate(cfg.pattern()) if ffn == "moe"}
-
-
 def init_params(cfg, seed: int = 0, device: DeviceLike = "cuda",
                 mesh=None) -> dict:
     """Seeded random parameters by the reference's spec rule (zeros for
     the norm scales, ones for ``A_log``/``D``, normal·std), drawn on
     ``device`` by ``layers.init_from_seed``: a seed gives the same
     parameters on every device (not the reference's numbers).  With a
-    mesh, each MoE layer's experts are drawn as the rank's shard only
-    (``expert_placement``), the bits of that block of the whole draw."""
+    mesh of more than one device, under the active rules, each leaf is
+    drawn as the rank's block
+    of ``param_shardings`` (fitted to its shape), the bits of that block
+    of the whole draw, and marked with the axes that split it
+    (``sharding.mark``)."""
     specs = model_specs(cfg)
-    blocks = None
-    if mesh is not None:
-        blocks = {"blocks": {
-            j: {"ffn": {name: block_bounds(
-                specs["blocks"][j]["ffn"][name].shape, spec, mesh)
-                for name, spec in leaves.items()}}
-            for j, leaves in expert_placement(cfg).items()}}
-    return init_from_seed(specs, seed, cfg.param_dtype,
-                          resolve_device(device), blocks)
+    if mesh is None or mesh.size(mesh.axis_names) == 1:
+        return init_from_seed(specs, seed, cfg.param_dtype,
+                              resolve_device(device))
+    rules = current_rules()
+    if not rules:
+        raise ValueError("init_params(mesh=...) draws each leaf's block by "
+                         "the active rules: wrap it in use_mesh_and_rules")
+    params = init_from_seed(specs, seed, cfg.param_dtype,
+                            resolve_device(device),
+                            block_bounds_tree(specs, mesh, rules))
+    return mark_tree(params, specs, mesh, rules)
 
 
 def param_shardings(cfg, mesh, rules) -> dict:
@@ -216,6 +236,7 @@ def place_caches(cfg, caches: dict, max_seq: int,
     out = dict(caches)
     for j, (mixer, _) in enumerate(cfg.pattern()):
         if mixer != "attn":
+            out[f"i{j}"] = _place_ssm_cache(cfg, caches[f"i{j}"])
             continue
         out[f"i{j}"] = {}
         for name, x in caches[f"i{j}"].items():
@@ -236,22 +257,88 @@ def place_caches(cfg, caches: dict, max_seq: int,
     return out
 
 
+def _place_ssm_cache(cfg, cache: dict) -> dict:
+    """An SSM layer's prefill cache in the active rules' layout: a
+    dimension those rules split over 'model' (``'act_ssm'``, the
+    channels and heads) cut from a whole one; one held as a block kept
+    (the prefill ran under the same split)."""
+    mesh = current_mesh()
+    if mesh is None or not current_rules():
+        return cache
+    specs = ssm_mod.init_ssm_cache_specs(cfg, 1)
+    out = {}
+    for name, x in cache.items():
+        axes = specs[name].logical_axes
+        full = (1,) + specs[name].shape[1:]
+        dims = split_dims(full, axis_rules(axes, mesh=mesh), mesh)
+        for d, (a, n) in enumerate(zip(dims, full)):
+            if d and a and x.shape[d + 1] == n:
+                x = take_spec_block(x, (None,) * (d + 1) + (a,), mesh
+                                    ).clone()
+        out[name] = x
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Forward
 # --------------------------------------------------------------------------- #
 
+def vocab_block(cfg) -> tuple:
+    """(axes, first column) of the rank's block of the padded vocab
+    under the active rules: ((), 0) where it holds the whole."""
+    axes = spec_split("vocab", padded_vocab(cfg))
+    if not axes:
+        return (), 0
+    mesh = current_mesh()
+    return axes, mesh.index(axes) * (padded_vocab(cfg) // mesh.size(axes))
+
+
+def _table(params, cfg):
+    """The embedding table as this rank uses it: its 'embed' columns
+    gathered; with tied weights under vocab parallelism, its vocab
+    rows."""
+    spec = _layer_specs(cfg)["embed"]
+    return local_param(params["embed"], spec.logical_axes, spec.shape)
+
+
 def _embed_tokens(params, tokens, cfg):
     """(B, S) ids, or (B, S, C) with codebooks -> (B, S, d) in cfg.dtype.
     The C lookups are summed in the parameter dtype in codebook order
-    (the reference's ``sum``: ((e0 + e1) + e2) + e3), then cast."""
-    emb = params["embed"]
+    (the reference's ``sum``: ((e0 + e1) + e2) + e3), then cast.  A
+    table split over the vocab (tied weights under TP) is looked up in
+    the rank's rows, other ids giving zeros, and summed over the vocab
+    shards: each lookup exact."""
+    emb = _table(params, cfg)
+    axes, v0 = vocab_block(cfg) if cfg.tie_embeddings else ((), 0)
+
+    def look(table, ids):
+        if not axes:
+            return table[ids]
+        local = ids - v0
+        inside = (local >= 0) & (local < table.shape[0])
+        e = table[torch.where(inside, local, 0)] * inside[..., None].to(
+            table.dtype)
+        return coll.all_reduce(e, current_mesh(), axes)
     if cfg.num_codebooks > 1:
-        x = emb[0][tokens[..., 0]]
+        x = look(emb[0], tokens[..., 0])
         for c in range(1, cfg.num_codebooks):
-            x = x + emb[c][tokens[..., c]]
+            x = x + look(emb[c], tokens[..., c])
     else:
-        x = emb[tokens]
+        x = look(emb, tokens)
     return x.to(torch_dtype(cfg.dtype))
+
+
+_SPECS: dict = {}
+
+
+def _layer_specs(cfg, kind=None) -> dict:
+    """One layer's parameter specs (``_block_specs``), or the model's
+    (``model_specs``) without ``kind``, cached."""
+    key = (cfg, kind)
+    if key not in _SPECS:
+        _SPECS[key] = model_specs(cfg) if kind is None else \
+            _block_specs(cfg, *kind)
+    return _SPECS[key]
 
 
 def _block_forward(bparams, x, cfg, mode, cache, positions=None,
@@ -262,6 +349,7 @@ def _block_forward(bparams, x, cfg, mode, cache, positions=None,
     Returns (x, new cache, lb, z): the MoE FFN's auxiliary losses, f32
     zeros for another layer."""
     mixer, ffn = kind or cfg.pattern()[0]
+    bparams = local_params(bparams, _layer_specs(cfg, (mixer, ffn)))
     h = norm(x, bparams["norm1"], cfg)
     if mixer == "attn":
         y, new_cache = attn_mod.attention_forward(
@@ -288,12 +376,19 @@ def _block_forward(bparams, x, cfg, mode, cache, positions=None,
             a = activation(h @ p["w_gate"], "silu") * up
         else:
             a = activation(up, cfg.activation)
-        x = x + a @ p["w_down"]
+        # column-parallel up, row-parallel down: the rank's partial sum
+        # over its d_ff columns, all-reduced
+        x = x + coll.all_reduce(a @ p["w_down"], current_mesh(),
+                                spec_split("mlp", cfg.d_ff))
     return x, new_cache, lb, z
 
 
 def _index(tree, r: int):
-    return {k: _index(v, r) if isinstance(v, dict) else v[r]
+    """Layer ``r`` of the stacked leaves (a marked leaf's mark kept)."""
+    def one(v):
+        return mark(v[r], split_of(v)[1:]) if hasattr(v, "split_dims") \
+            else v[r]
+    return {k: _index(v, r) if isinstance(v, dict) else one(v)
             for k, v in tree.items()}
 
 
@@ -334,11 +429,20 @@ def _stack_forward(params, x, cfg, mode: str, caches=None, positions=None,
 
 
 def _logits(params, x, cfg):
-    """(B, S, V_pad) logits, or (B, S, C, V_pad) with codebooks."""
-    w = (params["embed"].transpose(-2, -1) if cfg.tie_embeddings
-         else params["unembed"])                     # ([C,] d, V_pad)
+    """(B, S, V_pad) logits, or (B, S, C, V_pad) with codebooks; under
+    vocab parallelism the rank's block of the V_pad columns."""
+    if cfg.tie_embeddings:
+        w = _table(params, cfg).transpose(-2, -1)        # ([C,] d, V)
+    else:
+        spec = _layer_specs(cfg)["unembed"]
+        w = local_param(params["unembed"], spec.logical_axes, spec.shape)
     logits = (torch.einsum("bsd,cdv->bscv", x, w) if w.dim() == 3
               else x @ w)
+    axes, v0 = vocab_block(cfg)
+    if axes:
+        # the padded columns by their global index
+        cols = v0 + torch.arange(logits.shape[-1], device=logits.device)
+        return logits.masked_fill(cols >= cfg.vocab_size, NEG_LOGIT)
     if logits.shape[-1] != cfg.vocab_size:
         # padded columns never win an argmax and carry no probability
         logits[..., cfg.vocab_size:] = NEG_LOGIT
@@ -384,7 +488,8 @@ def forward(params, batch, cfg, mode: str, caches=None, cache_pos=None):
                                  device=x.device).expand(B, S)
     x, new_caches, lb, z = _stack_forward(params, x, cfg, mode, caches,
                                           positions, cache_pos)
-    x = norm(x, params["final_norm"], cfg)
+    x = norm(x, local_params(params["final_norm"],
+                             _layer_specs(cfg)["final_norm"]), cfg)
     return _logits(params, x, cfg), new_caches, lb, z
 
 
@@ -402,18 +507,50 @@ def loss_fn(params, batch, cfg):
     labels and mask are sized to match).  The label's logit is a gather,
     which equals the reference's one-hot sum bit for bit (one value added
     to exact zeros); with codebooks the CE is averaged over them; the
-    mask is normalized by max(sum, 1).  Returns (ce + LB_COEF·lb +
+    mask is normalized by max(sum, 1), the sum over the global batch
+    where the rank holds a block of its rows (the mean of the ranks'
+    losses is then the reference's).  Returns (ce + LB_COEF·lb +
     Z_COEF·z, {"ce", "lb", "z"})."""
     logits, _, lb, z = forward(params, batch, cfg, "train")
     logits = logits.float()
     mask = batch["loss_mask"].float()
-    lab_logit = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
-    ce = torch.logsumexp(logits, dim=-1) - lab_logit
+    axes, v0 = vocab_block(cfg)
+    if axes:
+        ce = _sharded_ce(logits, batch["labels"].long(), axes, v0)
+    else:
+        lab_logit = logits.gather(-1, batch["labels"][..., None].long()
+                                  )[..., 0]
+        ce = torch.logsumexp(logits, dim=-1) - lab_logit
     if cfg.num_codebooks > 1:
         ce = ce.mean(-1)                                 # mean codebooks
-    ce = (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    rows = current_layout().batch + current_layout().seq
+    if rows:
+        # the global batch's masked mean: the data-parallel trainer
+        # averages the ranks' losses, so each is its rows' masked sum
+        # times the rank count over the global mask count
+        mesh = current_mesh()
+        den = coll.all_reduce(mask.sum(), mesh, rows).clamp(min=1.0)
+        ce = (ce * mask).sum() * mesh.size(rows) / den
+    else:
+        ce = (ce * mask).sum() / mask.sum().clamp(min=1.0)
     total = ce + LB_COEF * lb + Z_COEF * z
     return total, {"ce": ce, "lb": lb, "z": z}
+
+
+def _sharded_ce(logits, labels, axes, v0: int):
+    """logsumexp - label logit over logits split by vocab blocks: the
+    blocks' max (no gradient), their sums of exp and the label's logit
+    from the block that holds it, each reduced over ``axes``."""
+    mesh = current_mesh()
+    m = coll.all_reduce(logits.detach().amax(-1), mesh, axes, "max")
+    s = coll.all_reduce(torch.exp(logits - m[..., None]).sum(-1), mesh,
+                        axes)
+    local = labels - v0
+    inside = (local >= 0) & (local < logits.shape[-1])
+    picked = logits.gather(-1, torch.where(inside, local, 0)[..., None]
+                           )[..., 0]
+    lab = coll.all_reduce(torch.where(inside, picked, 0.0), mesh, axes)
+    return m + torch.log(s) - lab
 
 
 def prefill_step(params, batch, cfg):

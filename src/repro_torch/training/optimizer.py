@@ -11,7 +11,7 @@ AdamW (b2 = 0.95, weight decay 0.1) for the LM zoo; Adafactor for
 memory-constrained training.  Every update does its arithmetic in f32
 and casts the new parameter back to the parameter's dtype, as the
 reference does; ``lr`` is a 0-d f32 tensor (``training/schedule.py``) or
-a float.  Updates build new tensors and leave their inputs as they are.
+a float.  A state leaf keeps its parameter's ``sharding.mark``.  Updates build new tensors and leave their inputs as they are.
 The reference's ``abstract_state`` (state shapes for its AOT dry-run) is
 not needed here: the port has no dry-run.
 
@@ -26,6 +26,8 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+
+from repro_torch.distributed.sharding import inherit_marks, mark, split_of
 
 
 def tree_map(fn, *trees):
@@ -66,9 +68,9 @@ def sgd_momentum(momentum: float = 0.9, weight_decay: float = 0.0,
                for c in (momentum, weight_decay))
 
     def init(params):
-        return {"mu": tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
-                                                     device=p.device),
-                               params)}
+        return {"mu": inherit_marks(tree_map(
+            lambda p: torch.zeros(p.shape, dtype=dt, device=p.device),
+            params), params)}
 
     def update(grads, state, params, lr):
         mu = tree_map(lambda m, g: mom * m + g.to(dt), state["mu"], grads)
@@ -92,7 +94,8 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         def z(p):
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         dev = tree_leaves(params)[0].device
-        return {"mu": tree_map(z, params), "nu": tree_map(z, params),
+        return {"mu": inherit_marks(tree_map(z, params), params),
+                "nu": inherit_marks(tree_map(z, params), params),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
     def update(grads, state, params, lr):
@@ -117,17 +120,35 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
 # ------------------------------- Adafactor --------------------------------- #
 
+def _mean(x: torch.Tensor, dim: int, axes, keepdim: bool = False):
+    """``x.mean(dim)`` where dimension ``dim`` of the whole tensor is split
+    over mesh ``axes`` into equal blocks: the blocks' means averaged."""
+    m = x.mean(dim=dim, keepdim=keepdim)
+    if not axes:
+        return m
+    from repro_torch.distributed.collectives import all_mean
+    from repro_torch.distributed.sharding import current_mesh
+    return all_mean(m, current_mesh(), axes)
+
+
 def adafactor(decay: float = 0.99, eps: float = 1e-30,
               clip_threshold: float = 1.0) -> Optimizer:
-    """Factored second moment for >=2D params (row/col statistics)."""
+    """Factored second moment for >=2D params (row/col statistics).  A
+    parameter held as a block (``sharding.mark``) has its row and column
+    means, their mean and the update RMS taken over the whole tensor
+    (averaged over the axes that split the reduced dimensions), and its
+    statistics are the blocks of the whole tensor's."""
 
     def init(params):
         def make(p):
             z = dict(dtype=torch.float32, device=p.device)
+            dims = split_of(p)
             if p.dim() >= 2:
-                return {"vr": torch.zeros(p.shape[:-1], **z),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
-            return {"v": torch.zeros(p.shape, **z)}
+                return {"vr": mark(torch.zeros(p.shape[:-1], **z),
+                                   dims[:-1]),
+                        "vc": mark(torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                               **z), dims[:-2] + dims[-1:])}
+            return {"v": mark(torch.zeros(p.shape, **z), dims)}
         dev = tree_leaves(params)[0].device
         return {"v": tree_map(make, params),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -138,10 +159,12 @@ def adafactor(decay: float = 0.99, eps: float = 1e-30,
         def step(p, g, s):
             g = g.float()
             g2 = g.square() + eps
+            dims = split_of(p)
             if p.dim() >= 2:
-                vr = decay * s["vr"] + (1 - decay) * g2.mean(dim=-1)
-                vc = decay * s["vc"] + (1 - decay) * g2.mean(dim=-2)
-                denom = torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
+                vr = decay * s["vr"] + (1 - decay) * _mean(g2, -1, dims[-1])
+                vc = decay * s["vc"] + (1 - decay) * _mean(g2, -2, dims[-2])
+                denom = torch.clamp(_mean(vr, -1, dims[-2], keepdim=True),
+                                    min=eps)
                 vhat = (vr[..., None] * vc[..., None, :]) / denom[..., None]
                 upd = g * torch.rsqrt(vhat + eps)
                 new_s = {"vr": vr, "vc": vc}
@@ -149,7 +172,13 @@ def adafactor(decay: float = 0.99, eps: float = 1e-30,
                 v = decay * s["v"] + (1 - decay) * g2
                 upd = g * torch.rsqrt(v + eps)
                 new_s = {"v": v}
-            rms = torch.sqrt(upd.square().mean() + 1e-12)
+            sq = upd.square().mean()
+            axes = tuple(a for d in dims for a in d)
+            if axes:
+                from repro_torch.distributed.collectives import all_mean
+                from repro_torch.distributed.sharding import current_mesh
+                sq = all_mean(sq, current_mesh(), axes)
+            rms = torch.sqrt(sq + 1e-12)
             upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
             return (p.float() - lr * upd).to(p.dtype), new_s
 

@@ -21,18 +21,27 @@ the autograd engine launches their kernels from its own thread, outside
 this range) and ``train/update`` (clipping, compression, the schedule
 and the optimizer).
 
-Data parallelism.  Under a mesh (``sharding.use_mesh_and_rules``), the
-step is given the global batch on every rank and takes the rank's rows
+Under a mesh (``sharding.use_mesh_and_rules``), the step is given the
+global batch on every rank and takes the rank's rows
 (``data/dataset.shard_range`` of the leading axis) over the ``batch``
 rule's mesh axes, the loss running under that ``Layout``; where those
 axes do not divide the batch, the whole batch runs on every rank, as
-``shard_logical`` drops the constraint.  The gradients are averaged
-over the ranks (``all_reduce``) before clipping and compression, in the
-reference's order, so every rank takes the same optimizer step; the
-loss and aux are averaged likewise.  Every parameter is whole on every
-rank: a mesh with 'model' > 1 (tensor and expert parallelism in
-training, GSPMD's FSDP weight layouts) is ROADMAP item 6c and raises.
-A world of one rank runs today's single-device step unchanged.
+``shard_logical`` drops the constraint.  A parameter is whole on the
+rank or its block (``sharding.mark`` says which axes split it: GSPMD's
+FSDP rows and tensor- and expert-parallel blocks, 'model' > 1 included).
+Each rank's backward runs through the collectives' adjoints
+(``distributed/collectives.py``), so it gives its share of the gradient
+of the sum of the ranks' losses: each gradient is summed over the
+ranks that hold the same block (the mesh axes that do not split the
+leaf; an FSDP leaf's gather has already summed its rows' shares over
+the axes that split it) and divided by the world size, which makes it
+the gradient of the mean of the ranks' losses, equal on every holder.
+That is done before clipping and compression, in the reference's
+order; the global norm, the int8 scale and Adafactor's statistics
+reduce over each leaf's blocks (``split_axes``), so every rank takes the
+reference's step on its blocks.  The loss and aux are averaged over the
+data-parallel ranks.  The new state keeps the old one's marks.  A world
+of one rank runs the single-device step unchanged.
 """
 from __future__ import annotations
 
@@ -46,7 +55,9 @@ from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.compression import (compress_decompress,
                                                  init_error_feedback)
 from repro_torch.distributed.sharding import (Layout, axis_rules, current_mesh,
-                                              entry_axes, fit_spec, use_layout)
+                                              entry_axes, fit_spec,
+                                              inherit_marks, split_axes,
+                                              split_of, use_layout)
 from repro_torch.training.optimizer import (Optimizer, get_optimizer,
                                             tree_leaves, tree_map)
 from repro_torch.training.schedule import constant, warmup_cosine
@@ -83,22 +94,34 @@ class TrainConfig:
 
 
 def init_train_state(params, tcfg: TrainConfig) -> dict:
+    """The state of ``params`` (marked blocks or whole leaves): optimizer
+    and error-feedback leaves laid out as their parameters."""
     opt = tcfg.make_optimizer()
     dev = tree_leaves(params)[0].device
     state = {"params": params, "opt": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
     if tcfg.compress_grads:
-        state["err_fb"] = init_error_feedback(params)
+        state["err_fb"] = inherit_marks(init_error_feedback(params), params)
     return state
 
 
-def _global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(l.float().square().sum()
-                          for l in tree_leaves(tree)))
+def _global_norm(tree, splits=None) -> torch.Tensor:
+    """sqrt of the sum of squares over the leaves in sorted order; a
+    leaf split over mesh axes (``splits``: a like tree of
+    ``split_of`` dims) has its blocks' sums added over them, so it
+    counts once, as a whole one does."""
+    if splits is None:
+        return torch.sqrt(sum(l.float().square().sum()
+                              for l in tree_leaves(tree)))
+    mesh = current_mesh()
+    return torch.sqrt(sum(
+        coll.all_reduce(l.float().square().sum(), mesh,
+                        tuple(a for d in dims for a in d))
+        for l, dims in zip(tree_leaves(tree), tree_leaves(splits))))
 
 
-def _clip_by_global_norm(grads, max_norm):
-    gn = _global_norm(grads)
+def _clip_by_global_norm(grads, max_norm, splits=None):
+    gn = _global_norm(grads, splits)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     # scaled in each gradient's own dtype, as the reference
     return tree_map(lambda g: g * scale.to(g.dtype), grads), gn
@@ -109,7 +132,9 @@ def value_and_grad(loss_fn: Callable, params, batch):
     gradient per parameter leaf (zeros for a leaf the loss does not
     reach, as JAX gives)."""
     with torch.enable_grad():
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        live = inherit_marks(
+            tree_map(lambda p: p.detach().requires_grad_(True), params),
+            params)
         leaves = tree_leaves(live)
         with record_function("train/forward"):
             loss, aux = loss_fn(live, batch)
@@ -197,22 +222,29 @@ def make_grad_fn(loss_fn: Callable, tcfg: TrainConfig):
 
     def grad_fn(params, batch):
         mesh = current_mesh()
-        if mesh is not None and "model" in mesh.axis_names \
-                and mesh.size("model") > 1:
-            raise NotImplementedError(
-                "training with 'model' > 1 (tensor and expert parallel "
-                "gradients, FSDP layouts) is ROADMAP item 6c")
         axes = data_axes(mesh, batch_size(batch))
         with use_layout(Layout(batch=axes)):
             loss, aux, grads = microbatched_grads(
                 params, rank_rows(batch, mesh, axes))
+        world = 1 if mesh is None else mesh.size(mesh.axis_names)
+        if world > 1:
+            grads = tree_map(lambda g, p: _holders_sum(g, p, mesh) / world,
+                             grads, params)
         if axes:
-            grads = tree_map(lambda g: coll.all_mean(g, mesh, axes), grads)
             loss = coll.all_mean(loss, mesh, axes)
             aux = tree_map(lambda a: coll.all_mean(a, mesh, axes), aux)
         return loss, aux, grads
 
     return grad_fn
+
+
+def _holders_sum(g: torch.Tensor, p: torch.Tensor, mesh) -> torch.Tensor:
+    """Gradient ``g`` of parameter ``p`` summed over the ranks that hold
+    the same block of ``p``: the mesh axes (of size > 1) that do not
+    split it."""
+    axes = tuple(a for a in mesh.axis_names
+                 if mesh.size(a) > 1 and a not in split_axes(p))
+    return coll.all_reduce(g, mesh, axes)
 
 
 def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
@@ -226,11 +258,16 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
         params = state["params"]
         loss, aux, grads = grad_fn(params, batch)
         new_state = dict(state)
+        splits = None
+        if current_mesh() is not None and any(
+                split_axes(p) for p in tree_leaves(params)):
+            splits = tree_map(split_of, params)
         with record_function("train/update"):
-            grads, gnorm = _clip_by_global_norm(grads, tcfg.grad_clip)
+            grads, gnorm = _clip_by_global_norm(grads, tcfg.grad_clip,
+                                                splits)
             if tcfg.compress_grads:
                 grads, new_state["err_fb"] = compress_decompress(
-                    grads, state["err_fb"])
+                    grads, state["err_fb"], splits)
             lr = sched(state["step"])
             with torch.no_grad():
                 new_params, new_opt = opt.update(grads, state["opt"],
@@ -239,6 +276,6 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
         new_state["opt"] = new_opt
         new_state["step"] = state["step"] + 1
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, **aux}
-        return new_state, metrics
+        return inherit_marks(new_state, state), metrics
 
     return train_step

@@ -21,8 +21,10 @@
     (1, 4) slice of the (2, 16) tokens; jamba's SSM layers gather the
     sequence), its caches placed into decode caches of 20 positions, and
     4 decode steps under ``LOGICAL_RULES_DECODE`` with the cache's
-    sequence over 'model' and the experts sharded (E/4, d/2, f) on every
-    rank: logits within 1e-4 (f32, the zoo's port-vs-JAX gate);
+    sequence over 'model', the experts sharded (E/4, d/2, f) on every
+    rank and the other weights cut to the rank's tensor-parallel blocks
+    (the logits gathered across the vocab blocks): logits within 1e-4
+    (f32, the zoo's port-vs-JAX gate);
   - the reference's MoE under ``LOGICAL_RULES_TRAIN_FSDP``, pinned
     against its meshless path, and the port's (tokens replicated over
     'model') against its own.
@@ -194,6 +196,14 @@ def cut(x, lay):
     return coll.take_block(x, mesh, lay.seq, 1)
 
 
+# the reference's shard_map in_specs of the expert weights
+# (src/repro/models/moe.py:160-161): experts over 'model', d_model rows
+# over 'data'
+EXPERT_SPECS = {"w_gate": ("model", "data", None),
+                "w_up": ("model", "data", None),
+                "w_down": ("model", None, "data")}
+
+
 def placed(np_tree, spec_of):
     # the whole tree on every rank but the leaves spec_of names, which are
     # cut to the rank's block (rescale_state from a host checkpoint)
@@ -208,8 +218,8 @@ def placed(np_tree, spec_of):
 
 # ---- MoE -------------------------------------------------------------- #
 moe_np = load_tree(inp, "moe_params")
-experts = placed(moe_np, lambda path: moe_mod.EXPERT_SPECS.get(
-    path.strip("/"), ()))
+experts = placed(moe_np, lambda path: EXPERT_SPECS.get(path.strip("/"),
+                                                       ()))
 base = get_smoke_config("llama4-maverick-400b-a17b").replace(
     num_experts=8, experts_per_token=1)
 seen = []
@@ -278,9 +288,10 @@ res["sp/o_meshless"] = att.causal_attention(q, k, v).numpy()
 # ---- llama4 and jamba: SP prefill, then decode -------------------------- #
 for arch in ("llama4-maverick-400b-a17b", "jamba-1.5-large-398b"):
     cfg = get_smoke_config(arch).replace(attn_impl="sp")
-    place = tfm.expert_placement(cfg)
-    spec_of = lambda path: place.get(path.split("/")[2], {}).get(
-        path.split("/")[-1], ()) if "/ffn/" in path else ()
+    moe = {f"i{j}" for j, (_, ffn) in enumerate(cfg.pattern())
+           if ffn == "moe"}
+    spec_of = lambda path: (None,) + EXPERT_SPECS[path.split("/")[-1]] \
+        if "/ffn/w_" in path and path.split("/")[2] in moe else ()
     params = placed(load_tree(inp, f"{arch}/params"), spec_of)
     tok = T(inp[f"{arch}/tokens"]).long()
     d_tok = T(inp[f"{arch}/decode_tokens"]).long()
@@ -309,7 +320,10 @@ for arch in ("llama4-maverick-400b-a17b", "jamba-1.5-large-398b"):
                     params, {"tokens": coll.take_block(
                         d_tok[:, i:i + 1], mesh, dec.batch, 0)},
                     cfg, caches, S + i)
-            res[f"{arch}/decode{i}"] = gather(logits, dec).numpy()
+            # under the decode rules the logits are the rank's vocab block
+            res[f"{arch}/decode{i}"] = coll.all_gather(
+                gather(logits, dec), mesh, tfm.vocab_block(cfg)[0],
+                2).numpy()
         res[f"{arch}/decode_layout"] = np.array(dec.batch + dec.cache_seq)
         res[f"{arch}/expert_shape"] = np.array(
             params["blocks"]["i1"]["ffn"]["w_up"].shape)

@@ -234,24 +234,36 @@ def test_a_mesh_larger_than_the_world_raises():
 
 @pytest.mark.parametrize("coords", [(0, 0), (1, 2), (1, 3)])
 def test_rank_init_draws_its_block_of_the_whole_draw(coords):
-    """``init_params(mesh=...)``: a rank's experts, (E/n_model,
-    d/n_data, f), are the bits of its block of the whole draw; every
-    other leaf is whole."""
+    """``init_params(mesh=...)`` under ``LOGICAL_RULES_TRAIN``: every
+    leaf is the bits of the rank's block of the whole draw by its
+    ``param_shardings`` spec (the experts (E/n_model, d/n_data, f), the
+    attention and FFN weights split over 'data' and 'model'), marked
+    with the axes that split it; without rules it raises."""
     cfg = tcfgs.get_smoke_config("llama4-maverick-400b-a17b")
     mesh = _tmesh(("data", "model"), (2, 4), coords)
     whole = tt.init_params(cfg, seed=3, device="cpu")
-    mine = tt.init_params(cfg, seed=3, device="cpu", mesh=mesh)
-    place = tt.expert_placement(cfg)
-    for j, leaves in whole["blocks"].items():
-        for group, tree in leaves.items():
-            for name, w in tree.items():
-                spec = place.get(j, {}).get(name) if group == "ffn" \
-                    else None
-                want = w if spec is None else \
-                    tsh.take_spec_block(w, spec, mesh)
-                assert torch.equal(mine["blocks"][j][group][name], want)
+    with tsh.use_mesh_and_rules(mesh, tsh.LOGICAL_RULES_TRAIN):
+        mine = tt.init_params(cfg, seed=3, device="cpu", mesh=mesh)
+        shardings = tt.param_shardings(cfg, mesh, tsh.LOGICAL_RULES_TRAIN)
+    flat_w, flat_m, flat_s = (dict(_leaves(t)) for t in
+                              (whole, mine, shardings))
+    for key, w in flat_w.items():
+        dims = tsh.split_dims(w.shape, flat_s[key].spec, mesh)
+        assert tsh.split_of(flat_m[key]) == dims, key
+        assert torch.equal(flat_m[key], tsh.take_dims_block(w, dims, mesh))
     assert mine["blocks"]["i1"]["ffn"]["w_up"].shape == (1, 1, 32, 64)
+    assert mine["blocks"]["i0"]["mixer"]["wq"].shape == (1, 32, 16)
     assert isinstance(tt.model_specs(cfg)["embed"], ParamSpec)
+    with pytest.raises(ValueError, match="use_mesh_and_rules"):
+        tt.init_params(cfg, seed=3, device="cpu", mesh=mesh)
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
 
 
 @pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
