@@ -261,11 +261,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               vs CPU from one init over 3 batches of 32 (the first
               gradient of every leaf nonzero and <= 1e-4, the parameters
               after 3 SGD-momentum steps <= 1e-4); then
-              ``launch/train.py``'s ``train_capsim`` for 200 steps through
+              ``launch/train.py``'s ``train_capsim`` for 100 steps through
               ResilientTrainer and CheckpointManager (a save every 50),
               launch counters reset just before and read just after (12
               flash launches a forward), the MAPE curve, steps/s and
-              clips/s; its restart resumes at step 200 with the state
+              clips/s; its restart resumes at step 100 with the state
               bitwise the saved one; one step of the real train step
               profiled and cut at its ``record_function`` ranges
               (forward, backward with the flash recompute apart,
@@ -343,15 +343,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               its 128 experts (64 a rank) at full width in bf16 through
               ``generate`` (B=1 x 4096 + 16 decode steps), each rank's
               resident parameter bytes below the meshless run's, its
-              flash and SSD launches one per attention / SSM layer (the
-              counters reset before and read after in the rank), greedy
+              flash and SSD launches one per attention / SSM layer, each
+              at the rank's H/2 query heads or nheads/2 SSM heads (the
+              wrappers count their launches by the head count they were
+              given; the counters reset before and read after in the
+              rank), greedy
               tokens beside the meshless run's (bf16: reported); the f32
               cuts (qwen3-4b 2 layers, Mamba2 4, llama4 with 8 experts)
               <= 1e-4 from the meshless run with tokens equal; training
               with 'model' = 2 (qwen3-4b 2 layers, Mamba2 4, 1 x 4096)
               and with FSDP rows on (2, 1): f32 loss <= 1e-5 and every
               gathered gradient <= 1e-4 relative norm from the meshless
-              step (bf16 reported).  Then n = 2, 4, 8 tensor-parallel
+              step (bf16 reported), rank 0's peak allocation beside the
+              meshless step's.  Then n = 2, 4, 8 tensor-parallel
               shards in one process: the flash kernel at qwen3-4b's
               (4, 4096, 32/n, 128) over 8/n KV heads, the SSD scan at
               Mamba2's 48/n and jamba's 256/n heads, each against its
@@ -360,6 +364,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               SSM layers' n shards summed against the unsharded layer
               in f32 (<= 1e-4).
 
+After the phases, their seconds and the main-path launches each added.
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (the
 attention entries also carry their main shape's bfloat16 numbers as
@@ -494,7 +499,7 @@ GRAD_TOL = 1e-4
 # less than one batch), the paper's batch, the trainer's steps and
 # checkpoint period, and a throughput row at a larger batch
 TRAIN_DATA = (24, 10_000, 2)
-TRAIN_BATCH, TRAIN_STEPS, TRAIN_SAVE_EVERY = 32, 200, 50
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_SAVE_EVERY = 32, 100, 50
 TRAIN_BIG_BATCH, TRAIN_BIG_STEPS = 256, 11
 TRAIN_MC_CORES, TRAIN_MC_INTERVAL, TRAIN_MC_STEPS = 4, 20_000, 20
 # the LM zoo's loss at full width, cut in depth: (arch, layers), AdamW
@@ -4431,7 +4436,8 @@ def tp_generate(torch, cfg, mesh, rules, B, S, steps):
     """init_params (the rank's blocks on a mesh, whole without) and
     ``generate`` of a seeded prompt under ``rules``, the launch counters
     reset just before and read just after.  Returns (Generation, resident
-    parameter bytes, (flash, SSD) launches)."""
+    parameter bytes, (flash, SSD) launches, (flash, SSD) launches by the
+    head count the wrapper was given)."""
     from repro_torch.distributed.sharding import use_mesh_and_rules
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -4446,17 +4452,23 @@ def tp_generate(torch, cfg, mesh, rules, B, S, steps):
         torch.cuda.synchronize()
         fa_ops.flash_attention.launches = 0
         ssd_ops.ssd_scan.launches = 0
+        fa_ops.flash_attention.heads = {}
+        ssd_ops.ssd_scan.heads = {}
         g = generate(params, cfg, {"tokens": tok}, steps, device="cuda")
         n = (fa_ops.flash_attention.launches, ssd_ops.ssd_scan.launches)
+        heads = (dict(fa_ops.flash_attention.heads),
+                 dict(ssd_ops.ssd_scan.heads))
     del params
     torch.cuda.empty_cache()
-    return g, nbytes, n
+    return g, nbytes, n, heads
 
 
 def tp_grads(torch, cfg, mesh, rules, B, S):
-    """(loss, {leaf: whole gradient}) of ``loss_fn`` on a seeded batch
-    through ``make_grad_fn`` under ``rules`` (the rank's blocks on a
-    mesh, gathered after)."""
+    """(loss, {leaf: whole gradient}, peak GiB) of ``loss_fn`` on a
+    seeded batch through ``make_grad_fn`` under ``rules`` (the rank's
+    blocks on a mesh, gathered after; the peak is the most the card
+    held from the draw to the gradients, before that gather, above what
+    it held before the draw)."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch.specs import random_batch
@@ -4464,15 +4476,19 @@ def tp_grads(torch, cfg, mesh, rules, B, S):
     from repro_torch.training import train_loop as ttl
     batch = random_batch(cfg, ShapeConfig("train", S, B, "train"), "train",
                          seed=7, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     with sh.use_mesh_and_rules(mesh, rules):
         params = tfm.init_params(cfg, seed=1, device="cuda", mesh=mesh)
         loss, _, grads = ttl.make_grad_fn(
             lambda p, b: tfm.loss_fn(p, b, cfg), ttl.TrainConfig())(
                 params, batch)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         if mesh is not None:
             grads = sh.gather_tree(sh.inherit_marks(grads, params))
     del params
-    return float(loss), dict(_named(grads))
+    return float(loss), dict(_named(grads)), peak
 
 
 def tp_child() -> int:
@@ -4500,14 +4516,16 @@ def tp_child() -> int:
         for arch, layers, experts in TP_RUNS:
             cfg = tp_cfg(arch, layers, experts)
             t0 = time.perf_counter()
-            g, nbytes, n = tp_generate(torch, cfg, mesh,
-                                       LOGICAL_RULES_DECODE, TP_BATCH,
-                                       TP_PROMPT, TP_DECODE)
+            g, nbytes, n, heads = tp_generate(torch, cfg, mesh,
+                                              LOGICAL_RULES_DECODE, TP_BATCH,
+                                              TP_PROMPT, TP_DECODE)
             per_rank = [None, None]
-            dist.all_gather_object(per_rank, nbytes)
+            dist.all_gather_object(per_rank, (nbytes, heads))
             out[f"run/{arch}"] = {
                 "tokens": g.tokens.cpu(), "bytes": nbytes, "launches": n,
-                "rank_bytes": per_rank, "first": g.logits[:, 0].float().cpu(),
+                "rank_bytes": [b for b, _ in per_rank],
+                "rank_heads": [h for _, h in per_rank],
+                "first": g.logits[:, 0].float().cpu(),
                 "prefill_s": g.prefill_seconds,
                 "decode_ms": 1e3 * g.decode_seconds / TP_DECODE,
                 "seconds": time.perf_counter() - t0,
@@ -4515,12 +4533,13 @@ def tp_child() -> int:
             torch.cuda.reset_peak_memory_stats()
         for arch, layers, experts in TP_GATES:
             cfg = tp_cfg(arch, layers, experts, "float32")
-            g, nbytes, n = tp_generate(torch, cfg, mesh,
-                                       LOGICAL_RULES_DECODE, 1,
-                                       TP_GATE_PROMPT, TP_GATE_DECODE)
+            g, nbytes, n, heads = tp_generate(torch, cfg, mesh,
+                                              LOGICAL_RULES_DECODE, 1,
+                                              TP_GATE_PROMPT, TP_GATE_DECODE)
             out[f"gate/{arch}"] = {"tokens": g.tokens.cpu(),
                                    "logits": g.logits.float().cpu(),
-                                   "bytes": nbytes, "launches": n}
+                                   "bytes": nbytes, "launches": n,
+                                   "heads": heads}
         for where, m, B, S in (("tp", mesh, 1, TP_TRAIN_SEQ),
                                ("fsdp", None, TP_FSDP_BATCH, TP_FSDP_SEQ)):
             if m is None:
@@ -4530,18 +4549,20 @@ def tp_child() -> int:
                     if where == "fsdp" and dtype == "bfloat16":
                         continue
                     cfg = tp_cfg(arch, layers, None, dtype)
-                    loss, grads = tp_grads(torch, cfg, m, LOGICAL_RULES_TRAIN,
-                                           B, S)
+                    loss, grads, peak = tp_grads(torch, cfg, m,
+                                                 LOGICAL_RULES_TRAIN, B, S)
                     dist.barrier()
                     if rank == 0:
-                        loss0, want = tp_grads(torch, cfg, None, None, B, S)
+                        loss0, want, peak0 = tp_grads(torch, cfg, None, None,
+                                                      B, S)
                         rel = {k: rel_norm_err(grads[k], want[k])
                                for k in want}
                         worst = max(rel, key=rel.get)
                         out[f"train/{where}/{arch}/{dtype}"] = {
                             "loss": loss, "meshless_loss": loss0,
                             "leaves": len(rel), "worst": worst,
-                            "worst_rel": rel[worst]}
+                            "worst_rel": rel[worst], "peak_gib": peak,
+                            "meshless_peak_gib": peak0}
                         del want
                     del grads
                     torch.cuda.empty_cache()
@@ -4593,10 +4614,11 @@ def tp_meshless(torch):
         cfg = tp_cfg(arch, layers, experts)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        g, nbytes, n = tp_generate(torch, cfg, None, None, TP_BATCH,
-                                   TP_PROMPT, TP_DECODE)
+        g, nbytes, n, heads = tp_generate(torch, cfg, None, None, TP_BATCH,
+                                          TP_PROMPT, TP_DECODE)
         runs[f"run/{arch}"] = {
             "tokens": g.tokens.cpu(), "bytes": nbytes, "launches": n,
+            "heads": heads,
             "first": g.logits[:, 0].float().cpu(),
             "prefill_s": g.prefill_seconds,
             "decode_ms": 1e3 * g.decode_seconds / TP_DECODE,
@@ -4604,11 +4626,12 @@ def tp_meshless(torch):
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     for arch, layers, experts in TP_GATES:
         cfg = tp_cfg(arch, layers, experts, "float32")
-        g, nbytes, n = tp_generate(torch, cfg, None, None, 1,
-                                   TP_GATE_PROMPT, TP_GATE_DECODE)
+        g, nbytes, n, heads = tp_generate(torch, cfg, None, None, 1,
+                                          TP_GATE_PROMPT, TP_GATE_DECODE)
         runs[f"gate/{arch}"] = {"tokens": g.tokens.cpu(),
                                 "logits": g.logits.float().cpu(),
-                                "bytes": nbytes, "launches": n}
+                                "bytes": nbytes, "launches": n,
+                                "heads": heads}
     return runs
 
 
@@ -4770,6 +4793,18 @@ def tp_shards_check(torch, fa_ops, ssd_ops):
     return rows, errs
 
 
+def tp_heads(cfg, n: int):
+    """The (flash, SSD) launches by head count that one of n TP ranks
+    makes in a ``generate``: each attention layer's prefill on its H/n
+    query heads, each SSM layer's scan on its nheads/n heads."""
+    from repro_torch.models.mamba2 import ssm_dims
+    mixers = [m for m, _ in cfg.pattern()]
+    n_attn = mixers.count("attn") * cfg.num_repeats
+    n_ssm = mixers.count("ssm") * cfg.num_repeats
+    return ({cfg.num_heads // n: n_attn} if n_attn else {},
+            {ssm_dims(cfg)[1] // n: n_ssm} if n_ssm else {})
+
+
 def check_tp(torch, fa_ops, ssd_ops):
     """GSPMD's weight layouts (ROADMAP item 6c) on the one card: the
     meshless runs here, (a) and (b) on two gloo ranks (``tp_ranks``),
@@ -4793,6 +4828,7 @@ def check_tp(torch, fa_ops, ssd_ops):
         gap = (a["first"] - b["first"])[..., :V].abs().max().item()
         launches["flash_attention"] += a["launches"][0]
         launches["ssd"] += a["launches"][1]
+        want_heads = [tp_heads(cfg, 2)] * 2
         line = (f"tp {arch} ({cfg.num_layers} layers, {cfg.num_experts or 0}"
                 f" experts, bf16, B={TP_BATCH} x {TP_PROMPT} + {TP_DECODE} "
                 f"decode steps, LOGICAL_RULES_DECODE on mesh (1, 2), 2 gloo "
@@ -4802,7 +4838,10 @@ def check_tp(torch, fa_ops, ssd_ops):
                 f"meshless ({a['bytes'] / b['bytes']:.3f}); launches a rank "
                 f"flash="
                 f"{a['launches'][0]} ssd={a['launches'][1]} (expected "
-                f"{n_attn}/{n_ssm}; meshless {b['launches']}); greedy tokens "
+                f"{n_attn}/{n_ssm}; meshless {b['launches']}); launches by "
+                f"head count, ranks 0 / 1 (flash, SSD): "
+                f"{a['rank_heads'][0]} / {a['rank_heads'][1]} (expected "
+                f"{want_heads[0]}; meshless {b['heads']}); greedy tokens "
                 f"equal the meshless run's={same} ({agree:.3f} of "
                 f"{a['tokens'].numel()} agree, bf16: reported; the "
                 f"prefill's last logits max abs gap {gap:.4e}, rel "
@@ -4815,6 +4854,8 @@ def check_tp(torch, fa_ops, ssd_ops):
         print(line)
         require(max(a["rank_bytes"]) < b["bytes"], line)
         require(a["launches"] == (n_attn, n_ssm), line)
+        require(a["rank_heads"] == want_heads, line)
+        require(b["heads"] == tp_heads(cfg, 1), line)
     for arch, layers, experts in TP_GATES:
         cfg = tp_cfg(arch, layers, experts, "float32")
         a, b = got[f"gate/{arch}"], ref[f"gate/{arch}"]
@@ -4827,10 +4868,12 @@ def check_tp(torch, fa_ops, ssd_ops):
                 f"{TP_GATE_DECODE} decode steps, TP over 2 ranks): logits "
                 f"vs the meshless run on the card rel {rel:.3e} (<= "
                 f"{TP_GATE_TOL}), greedy tokens equal={same}; parameter "
-                f"bytes a rank {a['bytes']} vs {b['bytes']}")
+                f"bytes a rank {a['bytes']} vs {b['bytes']}; rank 0's "
+                f"launches by head count {a['heads']} (expected "
+                f"{tp_heads(cfg, 2)})")
         print(line)
-        require(rel <= TP_GATE_TOL and same and a["bytes"] < b["bytes"],
-                line)
+        require(rel <= TP_GATE_TOL and same and a["bytes"] < b["bytes"]
+                and a["heads"] == tp_heads(cfg, 2), line)
     for key, r in got.items():
         if not key.startswith("train/"):
             continue
@@ -4844,7 +4887,9 @@ def check_tp(torch, fa_ops, ssd_ops):
                 f"LOGICAL_RULES_TRAIN, {what}): loss {r['loss']:.6f} vs "
                 f"meshless {r['meshless_loss']:.6f} rel {gap:.3e}; "
                 f"{r['leaves']} gradient leaves gathered, worst "
-                f"{r['worst']} rel norm {r['worst_rel']:.3e}")
+                f"{r['worst']} rel norm {r['worst_rel']:.3e}; peak GiB "
+                f"rank 0 {r['peak_gib']:.3f} vs meshless "
+                f"{r['meshless_peak_gib']:.3f}")
         if dtype == "float32":
             line += f" (<= {TP_LOSS_TOL} / {TP_GRAD_TOL})"
             print(line)
@@ -4946,11 +4991,16 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_s = {}                        # phase -> seconds, in order
+    phase_n = {}                        # phase -> main-path launches
+    launches = {}
 
     def phase(name: str) -> None:
-        """Close phase ``name`` at now (it began where the last ended)."""
+        """Close phase ``name`` at now (it began where the last ended),
+        with the main-path launches it added."""
         phase_s[name] = time.perf_counter() - t_start - sum(
             phase_s.values())
+        phase_n[name] = {k: n - sum(d.get(k, 0) for d in phase_n.values())
+                         for k, n in launches.items()}
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
@@ -5074,6 +5124,10 @@ def main() -> int:
     phase("tp")
     print("phases: " + ", ".join(f"{name} {sec:.1f} s"
                                  for name, sec in phase_s.items()))
+    print("launches by phase (flash / weighted / SSD): " + ", ".join(
+        f"{name} " + " / ".join(str(n.get(k, 0)) for k in (
+            "flash_attention", "weighted_attention", "ssd"))
+        for name, n in phase_n.items() if any(n.values())))
 
     sources = {"flash_attention": (
         "src/repro_torch/csrc/flash_attention.cu",

@@ -24,8 +24,17 @@ identity-forward / all-reduce-backward copy is the adjoint of a sum
 that this convention already takes.  A max has no gradient here
 (its callers reduce values that need none), and ``mean_local_grad``
 keeps each rank's own gradient.
+
+Parameters gathered for use (``gather_param``: FSDP rows) are sharded
+during a training step too, as FSDP and the reference's remat keep
+them: under ``regather_saved()`` an op that saves a gathered parameter
+(or a view of it) for its backward keeps the rank's block instead, and
+the backward gathers it again when it needs it, so a layer's whole
+weights live only while the layer runs, forward or backward.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -55,6 +64,15 @@ def _reduce(x: torch.Tensor, mesh, axes, op: str) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def _reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x`` summed over the shards."""
+    import torch.distributed as dist
+    parts = [c.contiguous() for c in _wire(x).chunk(mesh.size(axes), dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=mesh.group(axes))
+    return out.to(x.dtype)
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, dim):
@@ -63,8 +81,8 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = _reduce(g, ctx.mesh, ctx.axes, "sum")
-        return take_block(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+        return (_reduce_scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None,
+                None)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -85,6 +103,62 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     if not _live(mesh, axes):
         return x
     return _AllGather.apply(x, mesh, tuple(axes), dim)
+
+
+# a gathered parameter's storage -> (the gathered tensor, weakly; the
+# rank's block; mesh; its (axes, dim) gathers)
+_PARAM_GATHERS: dict = {}
+
+
+class _Regather:
+    """A saved gathered parameter, held as the rank's block and the
+    view's geometry."""
+
+    def __init__(self, block, mesh, gathers, view):
+        self.block, self.mesh, self.gathers = block, mesh, gathers
+        self.view = (view.size(), view.stride(), view.storage_offset())
+
+    def unpack(self) -> torch.Tensor:
+        w = self.block
+        for axes, dim in self.gathers:
+            w = _gather(w, self.mesh, axes, dim)
+        return w.as_strided(*self.view)
+
+
+def _pack(t: torch.Tensor):
+    if not _PARAM_GATHERS or t.layout != torch.strided:
+        return t
+    entry = _PARAM_GATHERS.get(t.untyped_storage().data_ptr())
+    whole = None if entry is None else entry[0]()
+    if whole is None or whole.dtype != t.dtype:
+        return t
+    return _Regather(*entry[1:], t)
+
+
+def _unpack(x):
+    return x.unpack() if isinstance(x, _Regather) else x
+
+
+def regather_saved():
+    """A context within which what autograd saves of a
+    ``gather_param`` result is its block, gathered again in the backward
+    (the module docstring)."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
+
+
+def gather_param(w: torch.Tensor, mesh, gathers) -> torch.Tensor:
+    """Parameter block ``w`` all-gathered along each ``(axes, dim)`` of
+    ``gathers`` in turn; under ``regather_saved()`` the result is saved
+    for the backward as ``w``."""
+    out = w
+    for axes, dim in gathers:
+        out = all_gather(out, mesh, axes, dim)
+    if out is not w and out.requires_grad:
+        key = out.untyped_storage().data_ptr()
+        _PARAM_GATHERS[key] = (
+            weakref.ref(out, lambda _, k=key: _PARAM_GATHERS.pop(k, None)),
+            w.detach(), mesh, tuple(gathers))
+    return out
 
 
 def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"

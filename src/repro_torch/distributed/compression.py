@@ -10,7 +10,8 @@ The quantize->dequantize pair is applied to the gradients right before
 the optimizer, so convergence is what a run that sends the int8 payload
 would see.  ``torch.round`` rounds half to even, as ``jnp.round`` does,
 so the codes are the reference's bit for bit.  A gradient held as a
-block (``sharding.mark``) is scaled by the whole tensor's ``max|g|``.
+block (marked by ``sharding.mark``) is scaled by the whole tensor's
+``max|g|``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ def init_error_feedback(params) -> Any:
                                           device=p.device), params)
 
 
-def quantize(g: torch.Tensor, axes=(), mesh=None):
+def quantize(g: torch.Tensor, axes, mesh):
     """(int8 codes, f32 scale) of one f32 tensor; where ``g`` is a block
     of a tensor split over mesh ``axes``, ``max|g|`` is the whole
     tensor's (a ``pmax`` over the blocks)."""
@@ -37,19 +38,17 @@ def quantize(g: torch.Tensor, axes=(), mesh=None):
     return q, scale
 
 
-def compress_decompress(grads, error_fb, splits=None) -> Tuple[Any, Any]:
-    """Returns (effective_grads, new_error_fb).  ``splits``: a tree like
-    the gradients of the axes each dimension of a block is split over
-    (``sharding.split_of``), None where every leaf is whole."""
-    from repro_torch.distributed.sharding import current_mesh
+def compress_decompress(grads, error_fb) -> Tuple[Any, Any]:
+    """Returns (effective_grads, new_error_fb); a marked gradient's
+    scale is its whole tensor's."""
+    from repro_torch.distributed.sharding import current_mesh, split_axes
     mesh = current_mesh()
 
-    def one(g, e, dims=()):
-        g = g.float() + e
-        q, scale = quantize(g, tuple(a for d in dims for a in d), mesh)
+    def one(g, e):
+        x = g.float() + e
+        q, scale = quantize(x, split_axes(g), mesh)
         deq = q.float() * scale
-        return deq, g - deq
+        return deq, x - deq
 
-    out = (tree_map(one, grads, error_fb) if splits is None
-           else tree_map(one, grads, error_fb, splits))
+    out = tree_map(one, grads, error_fb)
     return tree_unzip(out, 0), tree_unzip(out, 1)

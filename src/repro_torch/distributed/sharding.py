@@ -533,7 +533,7 @@ def local_param(w, logical_axes: Sequence[Optional[str]],
     if dims is None:
         dims = _DIMS[key] = split_dims(
             shape, axis_rules(logical_axes, rules, mesh), mesh)
-    held = split_of(w)
+    held, gathers = split_of(w), []
     for d, (axes, name, full) in enumerate(zip(dims, logical_axes, shape)):
         if w.shape[d] == full:
             if axes and name in COMPUTED_IN_BLOCKS:
@@ -549,8 +549,8 @@ def local_param(w, logical_axes: Sequence[Optional[str]],
                              f"neither whole nor its block over "
                              f"{axes or 'no axes'}")
         if name not in COMPUTED_IN_BLOCKS:
-            w = coll.all_gather(w, mesh, axes, d)
-    return w
+            gathers.append((axes, d))
+    return coll.gather_param(w, mesh, gathers)
 
 
 def spec_split(logical: str, size: int) -> Tuple[str, ...]:

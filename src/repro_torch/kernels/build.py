@@ -120,11 +120,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to a kernel wrapper's ``launches`` count, under a lock: the
-    serving layer launches kernels from several threads."""
+def count_launch(wrapper, heads: Optional[int] = None) -> None:
+    """Add one to a kernel wrapper's ``launches`` count and, where
+    ``heads`` is given, to its ``heads[heads]`` (its launches by the head
+    count of the call), under a lock: the serving layer launches kernels
+    from several threads."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        if heads is not None:
+            wrapper.heads[heads] = wrapper.heads.get(heads, 0) + 1
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -15,7 +15,9 @@ is on and q, k or v requires grad, the launch is the forward of a
 ``flash_attention_backward``, recomputes the attention through the plain
 version and differentiates that, as the reference's custom VJP
 recomputes through ``attention_ref``.  The forward launch is the same
-either way: same arguments, same bits, one launch counted.
+either way: same arguments, same bits, one launch counted
+(``flash_attention.launches``; ``flash_attention.heads`` counts the
+launches by q's head count).
 The kernel copies q/k/v rows 16 bytes at a time, so each must start on a
 16-byte boundary and step by a multiple of 16 bytes per batch and row;
 the C entry point checks that (it alone knows the kernel's loads) and the
@@ -258,11 +260,12 @@ def _launch(q, k, v, kv_mask, causal: bool, window: int) -> torch.Tensor:
             1.0 / math.sqrt(D), stream)
     check_aligned(rc, q, k, v, "flash_attention")
     build.check(lib, rc, "flash_attention")
-    build.count_launch(flash_attention)
+    build.count_launch(flash_attention, heads=q.shape[2])
     return o if o.shape[3] == D else o[..., :D].contiguous()
 
 
 flash_attention.launches = 0
+flash_attention.heads = {}
 
 
 def shared_bytes(dtype: torch.dtype, head_dim: int) -> int:

@@ -36,7 +36,8 @@ overflows once a chunk's Σ dt·|A| passes ~88, and an ``exp`` taken
 first and masked after gives the right forward but ``0 · inf = NaN`` in
 its gradient.  The kernels' f32 workspace (C·Bᵀ per chunk and
 one state per chunk and head, about x's size in bf16 at the Mamba2
-shapes) is allocated here, on x's device.
+shapes) is allocated here, on x's device.  A call counts one launch
+(``ssd_scan.launches``) and one under its head count in ``ssd_scan.heads``.
 """
 from __future__ import annotations
 
@@ -196,11 +197,12 @@ def _launch(x, dt, B, C, A, chunk: int):
             B.stride(0), B.stride(1), C.stride(0), C.stride(1),
             y.stride(0), y.stride(1), workspace.data_ptr(), stream)
     build.check(lib, rc, f"ssd_scan (head_dim {P}, d_state {N}, chunk {q})")
-    build.count_launch(ssd_scan)
+    build.count_launch(ssd_scan, heads=H)
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.heads = {}
 
 
 def shared_bytes(dtype: torch.dtype, head_dim: int, d_state: int,

@@ -45,6 +45,7 @@ of one rank runs the single-device step unchanged.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -57,7 +58,7 @@ from repro_torch.distributed.compression import (compress_decompress,
 from repro_torch.distributed.sharding import (Layout, axis_rules, current_mesh,
                                               entry_axes, fit_spec,
                                               inherit_marks, split_axes,
-                                              split_of, use_layout)
+                                              use_layout)
 from repro_torch.training.optimizer import (Optimizer, get_optimizer,
                                             tree_leaves, tree_map)
 from repro_torch.training.schedule import constant, warmup_cosine
@@ -105,33 +106,36 @@ def init_train_state(params, tcfg: TrainConfig) -> dict:
     return state
 
 
-def _global_norm(tree, splits=None) -> torch.Tensor:
+def _global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares over the leaves in sorted order; a
-    leaf split over mesh axes (``splits``: a like tree of
-    ``split_of`` dims) has its blocks' sums added over them, so it
-    counts once, as a whole one does."""
-    if splits is None:
-        return torch.sqrt(sum(l.float().square().sum()
-                              for l in tree_leaves(tree)))
+    block (``sharding.mark``) has its sum added over the axes that split
+    it, so it counts once, as a whole leaf does."""
     mesh = current_mesh()
     return torch.sqrt(sum(
-        coll.all_reduce(l.float().square().sum(), mesh,
-                        tuple(a for d in dims for a in d))
-        for l, dims in zip(tree_leaves(tree), tree_leaves(splits))))
+        coll.all_reduce(l.float().square().sum(), mesh, split_axes(l))
+        for l in tree_leaves(tree)))
 
 
-def _clip_by_global_norm(grads, max_norm, splits=None):
-    gn = _global_norm(grads, splits)
+def _clip_by_global_norm(grads, max_norm):
+    """(the gradients scaled to a global norm of at most ``max_norm``,
+    keeping their marks; the global norm)."""
+    gn = _global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     # scaled in each gradient's own dtype, as the reference
-    return tree_map(lambda g: g * scale.to(g.dtype), grads), gn
+    return inherit_marks(tree_map(lambda g: g * scale.to(g.dtype), grads),
+                         grads), gn
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
     """((loss, aux), grads): the loss and its aux detached, and one
     gradient per parameter leaf (zeros for a leaf the loss does not
-    reach, as JAX gives)."""
-    with torch.enable_grad():
+    reach, as JAX gives).  On a mesh of more than one rank the gathered
+    parameters are saved as their blocks (``collectives.regather_saved``)."""
+    mesh = current_mesh()
+    regather = (coll.regather_saved() if mesh is not None
+                and mesh.size(mesh.axis_names) > 1
+                else contextlib.nullcontext())
+    with torch.enable_grad(), regather:
         live = inherit_marks(
             tree_map(lambda p: p.detach().requires_grad_(True), params),
             params)
@@ -258,16 +262,12 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
         params = state["params"]
         loss, aux, grads = grad_fn(params, batch)
         new_state = dict(state)
-        splits = None
-        if current_mesh() is not None and any(
-                split_axes(p) for p in tree_leaves(params)):
-            splits = tree_map(split_of, params)
         with record_function("train/update"):
-            grads, gnorm = _clip_by_global_norm(grads, tcfg.grad_clip,
-                                                splits)
+            grads, gnorm = _clip_by_global_norm(
+                inherit_marks(grads, params), tcfg.grad_clip)
             if tcfg.compress_grads:
                 grads, new_state["err_fb"] = compress_decompress(
-                    grads, state["err_fb"], splits)
+                    grads, state["err_fb"])
             lr = sched(state["step"])
             with torch.no_grad():
                 new_params, new_opt = opt.update(grads, state["opt"],

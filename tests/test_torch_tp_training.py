@@ -28,6 +28,10 @@ numpy parameters and batches:
   - the adamw run's (2, 4) state checkpointed (gathered to whole leaves,
     rank 0 writing) and restored on an (8, 1) mesh and without one:
     bitwise the state before the save;
+  - under ``collectives.regather_saved`` (as the train step runs the
+    loss on a mesh) a forward keeps none of the FSDP rows it gathered
+    alive for the backward, which gathers them again: the same gradient
+    bits as without it;
   - ``all_gather`` and ``all_reduce``'s gradients against the meshless
     gradient of the sum of the ranks' losses.
 """
@@ -203,6 +207,44 @@ for name, rules_name, _ in spec["grads"]:
         res[f"{name}/{rules_name}/meshless_loss"] = loss.item()
         res.update(flat_t(grads, f"{name}/{rules_name}/meshless_grads"))
 
+# ---- the gathered rows a forward keeps for its backward ----------------- #
+import contextlib
+import weakref
+made = []
+gather_param = coll.gather_param
+
+
+def spy(w, mesh_, gathers):
+    out = gather_param(w, mesh_, gathers)
+    if out is not w:
+        made.append(weakref.ref(out))
+    return out
+
+
+coll.gather_param = spy
+for name, rules_name, _ in spec["grads"]:
+    cfg = cfg_of(spec["models"][name])
+    rules = getattr(sh, rules_name)
+    whole = params_from_numpy(load_tree(inp, f"{name}/params"), "cpu")
+    with sh.use_mesh_and_rules(mesh, rules):
+        params = sh.shard_tree(whole, tfm.param_shardings(cfg, mesh, rules))
+        for regather in (False, True):
+            made.clear()
+            with torch.enable_grad(), (coll.regather_saved() if regather
+                                       else contextlib.nullcontext()):
+                live = sh.inherit_marks(tree_map(
+                    lambda p: p.detach().requires_grad_(True), params),
+                    params)
+                loss, _ = loss_of(cfg)(live, batch(name, 0))
+            key = f"{name}/{rules_name}/regather{int(regather)}"
+            res[f"{key}/kept"] = np.array(
+                [sum(r() is not None for r in made), len(made)])
+            grads = torch.autograd.grad(loss, tree_leaves(live),
+                                        allow_unused=True)
+            res.update({f"{key}/grads/{i}": g.numpy()
+                        for i, g in enumerate(grads) if g is not None})
+coll.gather_param = gather_param
+
 # ---- three train steps; the adamw state checkpointed -------------------- #
 cfg = cfg_of("qwen3-4b")
 whole = params_from_numpy(load_tree(inp, "qwen3-4b/params"), "cpu")
@@ -251,11 +293,12 @@ g_whole = tree_map(lambda p: torch.from_numpy(
     rng.randn(*p.shape).astype(np.float32)), whole)
 
 
-def update(params, grads, opt, splits=None):
+def update(params, grads, opt):
     tcfg = tcfg_of(opt)
     state = init_train_state(params, tcfg)
-    grads, _ = _clip_by_global_norm(grads, tcfg.grad_clip, splits)
-    grads, _ = compress_decompress(grads, state["err_fb"], splits)
+    grads, _ = _clip_by_global_norm(sh.inherit_marks(grads, params),
+                                    tcfg.grad_clip)
+    grads, _ = compress_decompress(grads, state["err_fb"])
     new, _ = tcfg.make_optimizer().update(grads, state["opt"], params,
                                           tcfg.base_lr)
     return new
@@ -269,9 +312,8 @@ for opt in spec["optimizers"]:
         grads = tree_map(lambda g, p: sh.take_dims_block(g, sh.split_of(p),
                                                          mesh), g_whole,
                          params)
-        got = sh.gather_tree(sh.inherit_marks(
-            update(params, grads, opt, tree_map(sh.split_of, params)),
-            params))
+        got = sh.gather_tree(sh.inherit_marks(update(params, grads, opt),
+                                             params))
     res.update(flat_t(got, f"update/{opt}/sharded"))
     res.update(flat_t(want, f"update/{opt}/whole"))
 
@@ -387,6 +429,26 @@ def test_loss_and_every_gradient_leaf(runs, name, rules, vs_ref):
         assert p[f"{key}/loss"] == p0[f"{key}/loss"]
         for leaf, g in _tree(p, f"{key}/grads").items():
             np.testing.assert_array_equal(g, grads[leaf], err_msg=leaf)
+
+
+@pytest.mark.parametrize("name, rules, vs_ref", GRAD_CASES)
+def test_gathered_rows_are_gathered_again_for_the_backward(runs, name, rules,
+                                                          vs_ref):
+    """Under ``regather_saved`` (the train step's) a forward keeps none
+    of the parameters it gathered (FSDP rows) alive for its backward,
+    where without it the saved ones stay whole; the gradients are the
+    same bits."""
+    _, port = runs
+    for p in port:
+        key = f"{name}/{rules}/regather"
+        kept0, made0 = p[f"{key}0/kept"]
+        kept1, made1 = p[f"{key}1/kept"]
+        assert made0 == made1 > 0 and kept0 > 0 and kept1 == 0, (
+            kept0, made0, kept1, made1)
+        g0, g1 = _tree(p, f"{key}0/grads"), _tree(p, f"{key}1/grads")
+        assert g0.keys() == g1.keys() and g0
+        for leaf, g in g1.items():
+            np.testing.assert_array_equal(g, g0[leaf], err_msg=leaf)
 
 
 @pytest.mark.parametrize("opt", OPTIMIZERS)

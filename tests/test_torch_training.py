@@ -283,7 +283,8 @@ def test_compression_error_feedback():
                                     {"g": torch.from_numpy(e)})
         for a, b in zip(j_out, t_out):
             np.testing.assert_array_equal(b["g"].numpy(), np.asarray(a["g"]))
-        q, s = quantize(torch.from_numpy(arr) + torch.from_numpy(e))
+        q, s = quantize(torch.from_numpy(arr) + torch.from_numpy(e), (),
+                        None)
         jg = jnp.asarray(arr) + jnp.asarray(e)
         js = jnp.maximum(jnp.max(jnp.abs(jg)) / 127.0, 1e-12)
         jq = jnp.clip(jnp.round(jg / js), -127, 127).astype(jnp.int8)
