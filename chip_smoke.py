@@ -364,6 +364,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               SSM layers' n shards summed against the unsharded layer
               in f32 (<= 1e-4).
 
+ 22. lstm     the Ithemal-style LSTM baseline (Fig 10) at the CAPSim full
+              config: the forward at batch 256 (ms, clips/s, peak) beside
+              ``predictor.predict_step``'s; f32 card vs CPU <= 1e-4; 20
+              SGD-momentum steps on one batch of 8, finite and falling.
+
+ 23. remat    activation rematerialization: one train step with remat
+              off and on from the same state (the least of 3 after a
+              warm one) for CAPSim at full width in f32 at batch 32 and
+              256 and qwen3-4b cut to 2 layers in bf16 at 1 x 4096: ms,
+              the step's peak, flash/SSD launches doubled by the
+              recompute, the step's peak lower, every gradient within
+              1e-6 (f32) / 3e-2 (bf16) relative of the other run's.
+
+ 24. dryrun   ``launch/dryrun.py`` on meta on the host: qwen3-4b
+              train_4k, kimi-k2 decode_32k and capsim train_clips on
+              rank 0 of pod_16x16 and ``roofline_report``'s table; each
+              remat cell's estimated peak against the card's step peak
+              (0.7-1.3) and its FLOPs over the card's step time.
+
+ 25. examples ``examples/*_torch.py`` on the card in this process, the
+              fewest steps that show each working.
+
 After the phases, their seconds and the main-path launches each added.
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, one JSON object ``{"kernels": [...]}`` (the
@@ -633,21 +655,25 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     return sum(e.self_device_time_total for e in ours) / launches / 1e3
 
 
-def bound(B, Sq, Skv, H, D, dtype: str, aux: bool, causal: bool = False):
-    """(ms, "bytes"|"operations"): q/k/v read once, o written once, the
-    per-key mask/weights read once; QK^T and PV at 2 FLOPs per MAC over
-    the (query, key) pairs the mask leaves live: all of them, or under a
-    causal mask (q aligned to the end of kv) Sq·(Skv-Sq) + Sq·(Sq+1)/2,
-    so 2·B·H·D·S·(S+1) FLOPs at Sq = Skv = S."""
-    elem = 4 if dtype == "float32" else 2
-    nbytes = (2 * B * Sq * H * D + 2 * B * Skv * H * D) * elem \
-        + (4 * B * Skv if aux else 0)
-    pairs = (Sq * (Skv - Sq) + Sq * (Sq + 1) / 2) if causal else Sq * Skv
-    flops = 4.0 * B * H * pairs * D
+def _roof(flops: float, nbytes: float, dtype: str):
+    """(ms, "bytes"|"operations"): the larger of the bytes at the HBM rate
+    and the FLOPs at the dtype's peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def bound(B, Sq, Skv, H, D, dtype: str, aux: bool, causal: bool = False):
+    """(ms, "bytes"|"operations") of one attention launch's work,
+    ``attention_cost`` (flash attention's ops module, which the dry-run's
+    meta route reports too): q/k/v read once, o written once, the
+    per-key mask/weights read once; QK^T and PV over the (query, key)
+    pairs the mask leaves live."""
+    from repro_torch.kernels.flash_attention.ops import attention_cost
+    return _roof(*attention_cost(B, Sq, Skv, H, D,
+                                 4 if dtype == "float32" else 2, aux,
+                                 causal), dtype)
 
 
 KERNEL_NAMES = r"(ssd_chunk_state|ssd_chunk_out|ssd_state_pass|ssd_cb|" \
@@ -1152,23 +1178,14 @@ def check_ssd(torch, ssd_ops):
 
 
 def ssd_bound(Bt, S, H, P, N, q, dtype: str):
-    """(ms, "bytes"|"operations") for the work the function needs.  Per
-    chunk of L real steps (the last one ragged) and batch row, C·Bᵀ over
-    the causal half once, L(L+1)/2 pairs of N MACs, since B and C are
-    shared by every head; per head the decayed causal product with x·dt,
-    L(L+1)/2 pairs of P MACs, and L·N·P MACs each for the carried state's
-    output and the state update.  Bytes: x read and y written, B/C, dt
-    and A read, the f32 state written once."""
-    elem = 4 if dtype == "float32" else 2
-    lens = [min(q, S - t) for t in range(0, S, q)]
-    flops = float(Bt) * sum(L * (L + 1) * N for L in lens) \
-        + float(Bt * H) * sum(L * (L + 1) * P + 4 * L * N * P for L in lens)
-    nbytes = (2 * Bt * S * H * P + 2 * Bt * S * N) * elem \
-        + 4 * (Bt * S * H + H + Bt * H * P * N)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """(ms, "bytes"|"operations") for the work the function needs,
+    ``ssd_cost`` (the SSD scan's ops module, which the dry-run's meta
+    route reports too): C·Bᵀ over each chunk's causal half once, the
+    decayed causal product and the carried state per head; x read and y
+    written, B/C, dt and A read, the f32 state written once."""
+    from repro_torch.kernels.ssd.ops import ssd_cost
+    return _roof(*ssd_cost(Bt, S, H, P, N, q,
+                           4 if dtype == "float32" else 2), dtype)
 
 
 def device_breakdown(torch, fn, kernels: int, iters: int = 5):
@@ -3728,13 +3745,16 @@ def check_train_capsim(torch, fa_ops, wa_ops):
         mape = [float(loss) for loss in seen["losses"]]
         sps = steps_per_s(seen)
         n_eval = -(-len(val_ds) // TRAIN_BATCH)
-        expect = (12 * (TRAIN_STEPS + n_eval), 0)
+        # a train step's forward runs again in its backward under remat
+        per_step = 12 * (2 if cfg.remat else 1)
+        expect = (per_step * TRAIN_STEPS + 12 * n_eval, 0)
         print(f"train capsim launcher: {len(mape)} steps in {wall:.2f} s "
               f"(data build and validation included); {sps:.2f} steps/s = "
               f"{sps * TRAIN_BATCH:.1f} clips/s (checkpoints every "
               f"{TRAIN_SAVE_EVERY} included); peak {peak:.2f} GiB; launches "
               f"flash={n[0]} weighted={n[1]} (expected {expect}: 4 + 8 a "
-              f"forward, {n_eval} validation batches)")
+              f"forward, twice a step with remat={cfg.remat}, {n_eval} "
+              "validation batches)")
         require(n == expect and len(mape) == TRAIN_STEPS,
                 f"capsim training launches {n} / steps {len(mape)}")
         require(all(math.isfinite(x) for x in mape), "capsim: non-finite MAPE")
@@ -3798,8 +3818,9 @@ def check_train_multicore(torch, fa_ops, wa_ops):
     369 and with ``--peer-channels`` (4 x 369 rows), each with the launch
     counters reset just before and read just after: finite losses, the
     flash launches exactly 12 a forward (4 instruction-encoder layers in
-    one pass of 4096 rows, 4 block layers of self and cross attention)
-    over the steps and the validation and held-out batches, steps/s.
+    one pass of 4096 rows, 4 block layers of self and cross attention),
+    a train step's twice under the config's remat, over the steps and
+    the validation and held-out batches, steps/s.
     Returns the flash launches."""
     import tempfile
     from repro_torch.core.standardize import build_vocab
@@ -3828,7 +3849,9 @@ def check_train_multicore(torch, fa_ops, wa_ops):
                     n_cores=args.multicore, peer_channels=peer),
                 build_vocab()))
             n_eval = sum(-(-len(d) // TRAIN_BATCH) for d in (val, test))
-            expect = (12 * (TRAIN_MC_STEPS + n_eval), 0)
+            remat = train_mod._capsim_cfg(args, build_vocab()).remat
+            expect = (12 * (2 if remat else 1) * TRAIN_MC_STEPS
+                      + 12 * n_eval, 0)
             torch.cuda.reset_peak_memory_stats()
             with recorded_steps(torch, train_mod, TRAIN_MC_STEPS) as seen:
                 fa_ops.flash_attention.launches = 0
@@ -3863,7 +3886,8 @@ def check_train_lm(torch, fa_ops, wa_ops, ssd_ops):
     dtype: LM_TRAIN_STEPS AdamW steps on one batch of LM_TRAIN_BATCH x
     LM_TRAIN_SEQ (the launcher's optimizer), the launch counters reset
     just before and read just after (one flash launch per attention layer
-    and one SSD launch per SSM layer a forward); the first gradient of
+    and one SSD launch per SSM layer a forward, two with the config's
+    remat); the first gradient of
     every leaf finite and nonzero; the loss finite and falling;
     tokens/s, peak memory and a profiled step.  Then the card against
     the CPU for one f32 gradient at LM_GATE_SEQ: the loss <= 1e-5
@@ -3913,8 +3937,10 @@ def check_train_lm(torch, fa_ops, wa_ops, ssd_ops):
         n = (fa_ops.flash_attention.launches, ssd_ops.ssd_scan.launches,
              wa_ops.weighted_attention.launches)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        expect = (LM_TRAIN_STEPS * mixers.count("attn"),
-                  LM_TRAIN_STEPS * mixers.count("ssm"), 0)
+        # the forward runs again in the backward under remat
+        runs = LM_TRAIN_STEPS * (2 if cfg.remat else 1)
+        expect = (runs * mixers.count("attn"), runs * mixers.count("ssm"),
+                  0)
         # the first step warms the allocator; each step ends synchronized
         # (its loss read)
         tok_s = B * S * len(times[1:]) / sum(times[1:])
@@ -4187,11 +4213,13 @@ def dist_world_one(torch, fa_ops, mesh):
     print(f"dist dp capsim world1 nccl (full width f32, batch {DIST_BATCH} "
           f"x {DIST_CLIP} instructions, {DIST_STEPS} steps, "
           f"LOGICAL_RULES_PREDICTOR): bitwise the single-process trainer="
-          f"{same} (losses and state); flash launches {n} (12 a forward); "
+          f"{same} (losses and state); flash launches {n} (12 a forward, "
+          f"twice a step with remat={cfg.remat}); "
           f"{DIST_STEPS / (t1 - t0):.2f} steps/s; loss {l1[0]:.5f} -> "
           f"{l1[-1]:.5f}")
     require(same, "dist dp capsim world1: not bitwise")
-    require(n == 12 * DIST_STEPS, f"dist dp capsim: {n} flash launches")
+    require(n == 12 * (2 if cfg.remat else 1) * DIST_STEPS,
+            f"dist dp capsim: {n} flash launches")
     dist_gloo_on_one_card(l1)
     return total
 
@@ -4901,6 +4929,356 @@ def check_tp(torch, fa_ops, ssd_ops):
     return launches, rows, errs
 
 
+# the LSTM baseline (Fig 10), activation
+# rematerialization, the dry-run against the card, the examples
+LSTM_BATCH, LSTM_CPU_BATCH = 256, 64
+LSTM_TRAIN_BATCH, LSTM_TRAIN_STEPS = 8, 20
+REMAT_CAPSIM_BATCHES = (32, 256)
+REMAT_STEPS = 3                               # timed steps, after a warm one
+REMAT_LM = ("qwen3-4b", 2, 1, 4096)          # arch, layers, B, S
+# remat's gradients against none: f32 rel <= 1e-6 (0 expected); bf16 at
+# the LM zoo's bf16 gate (relative norm)
+REMAT_TOL = {"float32": 1e-6, "bfloat16": 3e-2}
+DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("kimi-k2-1t-a32b", "decode_32k"),
+                ("capsim", "train_clips"))
+PEAK_RATIO = (0.7, 1.3)
+
+
+def capsim_clip_batch(torch, cfg, B: int, seed: int, device, L: int = 128,
+                      M: int = 360):
+    """B random clips in the predictor's layout from a numpy seed: each
+    instruction 2..L_token tokens, each clip L/2..L instructions (the
+    rest all-<PAD> and masked), M context tokens, and a time of 0.5-3
+    cycles an instruction."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    T = cfg.clip_tokens
+    tok = rng.randint(1, 383, (B, L, T))
+    lens = rng.randint(2, T + 1, (B, L))
+    tok[np.arange(T) >= lens[..., None]] = 0
+    mask = np.ones((B, L), np.float32)
+    n = rng.randint(L // 2, L + 1, B)
+    mask[np.arange(L) >= n[:, None]] = 0.0
+    tok[mask == 0] = 0
+    t = (mask.sum(1) * rng.uniform(0.5, 3.0, B)).astype(np.float32)
+    out = {"clip_tokens": tok, "context_tokens": rng.randint(1, 383, (B, M)),
+           "clip_mask": mask, "time": t}
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def check_lstm(torch, fa_ops):
+    """The Ithemal-style LSTM baseline (``core/lstm_baseline.py``) at the
+    CAPSim full config (E=128, vocab 512, L_clip 128, L_token 16, bf16
+    compute over f32 parameters): the forward at LSTM_BATCH clips on the
+    card, finite, with its ms, clips/s and peak GiB beside
+    ``predictor.predict_step``'s at the same batch (Fig 10's speed
+    half); an f32 forward of the same parameters against its CPU run
+    (<= 1e-4 relative, LSTM_CPU_BATCH clips); LSTM_TRAIN_STEPS SGD-
+    momentum steps (lr 1e-3, ``bench_accuracy.py``'s recipe) of
+    ``mape_loss`` through ``make_train_step`` on one batch of
+    LSTM_TRAIN_BATCH: finite and falling.  The LSTM has no kernel; the
+    predictor's forward launches flash attention 4 times a pass of the
+    instruction encoder and 8 times in the block encoder."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import lstm_baseline as lstm
+    from repro_torch.core import predictor
+    from repro_torch.training import train_loop as ttl
+
+    cfg = get_config("capsim")
+    params = lstm.init_params(cfg, seed=0, device="cuda")
+    batch = capsim_clip_batch(torch, cfg, LSTM_BATCH, 0, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        y = lstm.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(tuple(y.shape) == (LSTM_BATCH,)
+                and bool(torch.isfinite(y).all()) and bool((y > 0).all()),
+                f"lstm forward: shape {tuple(y.shape)}, finite/positive")
+        ms = cuda_ms(torch, lambda: lstm.forward(params, batch, cfg),
+                     iters=3, warmup=1, rounds=2)
+        pparams = predictor.init_params(cfg, seed=0, device="cuda")
+        n0 = fa_ops.flash_attention.launches
+        predictor.predict_step(pparams, batch, cfg)
+        per_call = fa_ops.flash_attention.launches - n0
+        pms = cuda_ms(torch, lambda: predictor.predict_step(pparams, batch,
+                                                            cfg),
+                      iters=3, warmup=1, rounds=2)
+    steps = 16 + 128
+    print(f"lstm forward (full config, {cfg.dtype} compute, f32 params) "
+          f"batch {LSTM_BATCH} x {128} instructions x {cfg.clip_tokens} "
+          f"tokens: {ms:.3f} ms = {LSTM_BATCH / ms * 1e3:.1f} clips/s "
+          f"({steps} sequential steps, {ms / steps * 1e3:.1f} us a step); "
+          f"peak {peak:.2f} GiB; predictor.predict_step at the same batch "
+          f"{pms:.3f} ms = {LSTM_BATCH / pms * 1e3:.1f} clips/s ({per_call} "
+          f"flash launches a call); LSTM / predictor time "
+          f"{ms / pms:.2f}")
+    # the instruction encoder in passes of ENCODE_CHUNK rows, 4 layers a
+    # pass; the block encoder's 4 layers of self and cross attention
+    want = 4 * -(-LSTM_BATCH * 128 // predictor.ENCODE_CHUNK) + 8
+    require(per_call == want, f"predictor forward launched {per_call} "
+            f"flash, expected {want}")
+
+    cfg32 = cfg.replace(dtype="float32")
+    small = {k: v[:LSTM_CPU_BATCH] for k, v in batch.items()}
+    with torch.no_grad():
+        card = lstm.forward(params, small, cfg32).cpu()
+        cpu = lstm.forward(_to(params, "cpu"), _to(small, "cpu"), cfg32)
+    rel = float((card - cpu).abs().max() / cpu.abs().max())
+    print(f"lstm f32 card vs CPU, {LSTM_CPU_BATCH} clips: max rel "
+          f"{rel:.3e} (<= 1e-4)")
+    require(rel <= 1e-4, f"lstm f32 card vs CPU rel {rel}")
+
+    tcfg = ttl.TrainConfig(optimizer="sgdm", base_lr=1e-3, momentum=0.9,
+                           warmup_steps=0, total_steps=0)
+    step = ttl.make_train_step(lambda p, b: lstm.mape_loss(p, b, cfg), tcfg)
+    state = ttl.init_train_state(params, tcfg)
+    train = capsim_clip_batch(torch, cfg, LSTM_TRAIN_BATCH, 1, "cuda")
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(LSTM_TRAIN_STEPS):
+        state, m = step(state, train)
+        losses.append(float(m["loss"]))
+    dt = time.perf_counter() - t0
+    print(f"lstm train {LSTM_TRAIN_STEPS} sgdm steps (lr 1e-3, momentum "
+          f"0.9) on one batch of {LSTM_TRAIN_BATCH}: mape "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; {LSTM_TRAIN_STEPS / dt:.2f} steps/s")
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"lstm training losses {losses}")
+    del params, pparams, state, batch
+    torch.cuda.empty_cache()
+
+
+def remat_cell(torch, fa_ops, ssd_ops, what, cfg, loss_of, params, batch,
+               tcfg, tol):
+    """Train steps of ``cfg`` with remat off, then on, from the same
+    state: step ms (the least of REMAT_STEPS, each on the host clock to
+    its synchronized end, after a warm-up step), the step's peak (``max_memory_allocated``, reset just before;
+    and the step's own: less what was allocated before it besides the
+    step's state and batch), flash and SSD launches a step; then
+    every gradient of the two against each other.  Returns ({remat: measurements}, the
+    flash and SSD launches of the timed steps)."""
+    import gc
+    from repro_torch.launch.dryrun import storage_bytes
+    from repro_torch.training import train_loop as ttl
+    from repro_torch.training.optimizer import tree_leaves
+    out, grads, total = {}, {}, {"flash_attention": 0, "ssd": 0}
+    for remat in (False, True):
+        c = cfg.replace(remat=remat)
+        step = ttl.make_train_step(lambda p, b: loss_of(p, b, c), tcfg)
+        state = ttl.init_train_state(params, tcfg)
+        warm = step(state, batch)
+        float(warm[1]["loss"])
+        del warm
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        args = storage_bytes(tree_leaves(state) + list(batch.values()))
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.flash_attention.launches = 0
+        ssd_ops.ssd_scan.launches = 0
+        times = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            new, m = step(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            del new, m
+        n = (fa_ops.flash_attention.launches, ssd_ops.ssd_scan.launches)
+        total["flash_attention"] += n[0]
+        total["ssd"] += n[1]
+        peak = torch.cuda.max_memory_allocated()
+        del state
+        gc.collect()
+        out[remat] = {"ms": min(times), "times": times, "peak": peak,
+                      "step_peak": peak - (before - args), "args": args,
+                      "launches": tuple(x // REMAT_STEPS for x in n)}
+        torch.cuda.empty_cache()
+    # the gradients after both timed steps, so neither step's peak holds
+    # the other's
+    for remat in (False, True):
+        c = cfg.replace(remat=remat)
+        _, g = ttl.value_and_grad(lambda p, b: loss_of(p, b, c), params,
+                                  batch)
+        grads[remat] = tree_leaves(g)
+        del g
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(grads[True], grads[False]))
+    max_abs = max(float((a - b).abs().max())
+                  for a, b in zip(grads[True], grads[False]))
+    off, on = out[False], out[True]
+    print(f"remat {what}: step ms off / on {off['ms']:.2f} / {on['ms']:.2f} "
+          f"({on['ms'] / off['ms']:.3f}; least of " + " / ".join(
+              ", ".join(f"{t:.2f}" for t in r["times"]) for r in (off, on))
+          + f"); peak GiB (max_memory_allocated) "
+          f"{off['peak'] / 2**30:.2f} / {on['peak'] / 2**30:.2f}, the step's "
+          f"own {off['step_peak'] / 2**30:.2f} / "
+          f"{on['step_peak'] / 2**30:.2f} (state and batch "
+          f"{off['args'] / 2**30:.2f} GiB); launches (flash, SSD) a step "
+          f"{off['launches']} / {on['launches']}; gradients, "
+          f"{len(grads[True])} leaves: max |d| {max_abs:.3e}, worst rel "
+          f"{worst:.3e} (<= {tol})")
+    require(worst <= tol, f"remat {what}: gradients rel {worst}")
+    require(on["launches"] == tuple(2 * x for x in off["launches"]),
+            f"remat {what}: launches {off['launches']} -> {on['launches']}")
+    require(on["step_peak"] < off["step_peak"],
+            f"remat {what}: the step's peak did not fall")
+    del grads
+    torch.cuda.empty_cache()
+    return out, total
+
+
+def check_remat(torch, fa_ops, ssd_ops):
+    """Activation rematerialization on the card: the CAPSim predictor at
+    full width in f32 (the trainer's dtype; SGD momentum) at
+    REMAT_CAPSIM_BATCHES clips, and REMAT_LM (qwen3-4b cut to 2 layers,
+    bf16, AdamW) at 1 x 4096, each through ``remat_cell``.  Returns the
+    launches and the cells for the dry-run's estimates."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import predictor
+    from repro_torch.launch.specs import random_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import train_loop as ttl
+
+    cells, launches = [], {"flash_attention": 0, "ssd": 0}
+    cfg = get_config("capsim").replace(dtype="float32")
+    params = predictor.init_params(cfg, seed=0, device="cuda")
+    tcfg = ttl.TrainConfig(optimizer="sgdm", base_lr=1e-3, warmup_steps=0,
+                           total_steps=0)
+    for B in REMAT_CAPSIM_BATCHES:
+        batch = capsim_clip_batch(torch, cfg, B, 2, "cuda")
+        got, n = remat_cell(torch, fa_ops, ssd_ops,
+                            f"capsim f32 batch {B}", cfg,
+                            predictor.mape_loss, params, batch, tcfg,
+                            REMAT_TOL["float32"])
+        for k in launches:
+            launches[k] += n[k]
+        cells.append((f"capsim f32 batch {B}", cfg,
+                      ShapeConfig("remat", 128, B, "train"), tcfg, got))
+        del batch
+    del params
+    arch, layers, B, S = REMAT_LM
+    cfg = get_config(arch).replace(num_layers=layers)
+    params = tfm.init_params(cfg, seed=0, device="cuda")
+    shape = ShapeConfig("remat", S, B, "train")
+    batch = random_batch(cfg, shape, "train", seed=0, device="cuda")
+    tcfg = ttl.TrainConfig(optimizer="adamw", base_lr=1e-3, warmup_steps=0,
+                           total_steps=0)
+    what = f"{arch} {layers} layers {cfg.dtype} {B} x {S}"
+    got, n = remat_cell(torch, fa_ops, ssd_ops, what, cfg, tfm.loss_fn,
+                        params, batch, tcfg, REMAT_TOL[cfg.dtype])
+    for k in launches:
+        launches[k] += n[k]
+    cells.append((what, cfg, shape, tcfg, got))
+    del params, batch
+    torch.cuda.empty_cache()
+    return launches, cells
+
+
+def check_dryrun(torch, remat_cells):
+    """The dry-run (``launch/dryrun.py``) on meta, on the card's host:
+    DRYRUN_CELLS through ``run_cell`` on rank 0 of ``pod_16x16`` (capsim
+    under the predictor's rules), each with its seconds, then
+    ``roofline_report``'s table; then the meshless cells the remat phase
+    measured, each estimated peak (arguments + the step's live peak)
+    beside the card's and their ratio (gated at PEAK_RATIO), and the
+    estimated FLOPs over the card's step time as achieved TFLOP/s."""
+    import tempfile
+    from repro_torch.launch import dryrun as dry
+    from repro_torch.launch import roofline_report as rr
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            rec = dry.run_cell(arch, shape, False, out_dir=Path(tmp))
+            require("skipped" not in rec, f"dryrun {arch} {shape}: {rec}")
+            mem = rec["scanned"]["memory"]
+            print(f"dryrun {arch} {shape} pod_16x16 rank 0: "
+                  f"{time.perf_counter() - t0:.1f} s (the step on meta "
+                  f"{rec['run_s']:.1f} s); arguments "
+                  f"{mem['argument_bytes'] / 2**30:.2f} GiB, live peak "
+                  f"{mem['temp_bytes'] / 2**30:.2f} GiB, FLOPs "
+                  f"{rec['scanned']['cost']['flops']:.4e}, collectives "
+                  + ", ".join(f"{k} x{v['count']}"
+                              for k, v in sorted(rec["scanned"][
+                                  "collectives"].items())))
+        print("dryrun roofline report (pod_16x16):")
+        print(rr.report("pod_16x16", results_dir=Path(tmp)))
+    for what, cfg, shape, tcfg, card in remat_cells:
+        for remat in (False, True):
+            c = cfg.replace(remat=remat)
+            t0 = time.perf_counter()
+            est = dry.measure_cell(c, shape, None, None, tcfg)
+            peak = dry.estimated_peak_bytes(est)
+            got = card[remat]
+            ratio = peak / got["step_peak"]
+            tflops = est["cost"]["flops"] / (got["ms"] * 1e-3) / 1e12
+            print(f"dryrun vs card {what} remat={remat}: estimated peak "
+                  f"{peak / 2**30:.3f} GiB (arguments "
+                  f"{est['memory']['argument_bytes'] / 2**30:.3f}, card "
+                  f"{got['args'] / 2**30:.3f}) vs the card's step "
+                  f"{got['step_peak'] / 2**30:.3f} GiB "
+                  f"(max_memory_allocated {got['peak'] / 2**30:.3f}): "
+                  f"ratio {ratio:.3f}; estimated FLOPs "
+                  f"{est['cost']['flops']:.4e} over the card's "
+                  f"{got['ms']:.2f} ms = {tflops:.2f} TFLOP/s achieved; "
+                  f"estimated in {time.perf_counter() - t0:.1f} s")
+            require(PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1],
+                    f"dryrun {what} remat={remat}: peak ratio {ratio}")
+
+
+def check_examples(torch, fa_ops, wa_ops, ssd_ops):
+    """Each of ``examples/*_torch.py`` on the card, in this process, at
+    its defaults but for the fewest steps and data that show it working;
+    the launch counters reset just before each and read just after.
+    Returns the launches."""
+    import importlib.util
+    import tempfile
+    runs = (("quickstart_torch", []),
+            ("simulate_benchmark_torch", ["--max-checkpoints", "1"]),
+            ("train_capsim_torch", ["--fast", "--steps", "5"]),
+            ("train_lm_torch", ["--steps", "5"]))
+    total = {"flash_attention": 0, "weighted_attention": 0, "ssd": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in runs:
+            spec = importlib.util.spec_from_file_location(
+                name, ROOT / "examples" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            if name.startswith("train"):
+                argv = argv + ["--ckpt-dir", f"{tmp}/{name}"]
+            fa_ops.flash_attention.launches = 0
+            wa_ops.weighted_attention.launches = 0
+            ssd_ops.ssd_scan.launches = 0
+            t0 = time.perf_counter()
+            out = mod.main(argv)
+            torch.cuda.synchronize()
+            n = {"flash_attention": fa_ops.flash_attention.launches,
+                 "weighted_attention": wa_ops.weighted_attention.launches,
+                 "ssd": ssd_ops.ssd_scan.launches}
+            for k in total:
+                total[k] += n[k]
+            print(f"examples {name} {' '.join(argv)}: "
+                  f"{time.perf_counter() - t0:.1f} s, launches "
+                  + " ".join(f"{k}={v}" for k, v in n.items()))
+            require(n["flash_attention"] > 0, f"examples {name}: no flash")
+            if name == "quickstart_torch":
+                import numpy as np
+                require(bool(np.isfinite(out["predicted"]).all()),
+                        "quickstart: non-finite predictions")
+            elif name == "simulate_benchmark_torch":
+                require(len(out) == 3 and all(
+                    math.isfinite(r.predicted_cycles) for r in out),
+                    "simulate_benchmark: results")
+            else:
+                require(out["steps"] == 5, f"examples {name}: {out}")
+    return total
+
+
 def _named(tree, prefix=""):
     """(name, leaf) in sorted key order (``tree_leaves``' order)."""
     for k in sorted(tree):
@@ -5122,6 +5500,17 @@ def main() -> int:
         for dtype, err in tp_errs[name].items():
             errs[name][dtype] = max(errs[name][dtype], err)
     phase("tp")
+    check_lstm(torch, fa_ops)
+    phase("lstm")
+    remat_launches, remat_cells = check_remat(torch, fa_ops, ssd_ops)
+    for name, n in remat_launches.items():
+        launches[name] += n
+    phase("remat")
+    check_dryrun(torch, remat_cells)
+    phase("dryrun")
+    for name, n in check_examples(torch, fa_ops, wa_ops, ssd_ops).items():
+        launches[name] += n
+    phase("examples")
     print("phases: " + ", ".join(f"{name} {sec:.1f} s"
                                  for name, sec in phase_s.items()))
     print("launches by phase (flash / weighted / SSD): " + ", ".join(

@@ -9,14 +9,17 @@ modality frontend stubs (``frontend``, ``frontend_len``) and MusicGen's
 parallel codebooks (``num_codebooks``), and ``attn_impl`` with the
 reference's values: ``"sp"`` selects the sequence-parallel prefill
 route (``models/attention.py``), every other value the kernel route.
-Left out: the sliding window and the logit soft-cap (``attn_window``,
-``attn_logit_softcap``), which no config of the zoo sets; the shape
-lists (``shape_names``, ``skipped_shapes``, ``skip_reason``);
-``ssm_impl`` (the port always calls the SSD wrapper, which launches the
-CUDA kernel on a CUDA tensor and runs the plain PyTorch version on a CPU
-tensor), the XLA execution knobs (``remat``, ``scan_layers``,
+the shape lists (``shape_names``, ``skipped_shapes``, ``skip_reason``:
+the dry-run's cells) and ``remat`` (activation rematerialization: a
+train step recomputes each super-block's activations in the backward,
+``models/transformer.py``; on by default, off in the smoke configs, as
+the reference's).  Left out: the sliding window and the logit soft-cap
+(``attn_window``, ``attn_logit_softcap``), which no config of the zoo
+sets; ``ssm_impl`` (the port always calls the SSD wrapper, which
+launches the CUDA kernel on a CUDA tensor and runs the plain PyTorch
+version on a CPU tensor), the XLA execution knobs (``scan_layers``,
 ``attn_chunk``) and the CAPSim predictor extras, whose config is
-``configs/capsim.py``.
+``configs/capsim.py`` (with its shapes, ``CAPSIM_SHAPES``).
 
 ``get_config``/``get_smoke_config`` resolve ``--arch`` names: ``capsim``
 and every model of the LM zoo (``mamba2-780m``; the dense decoders
@@ -47,6 +50,14 @@ LM_SHAPES = {
     "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# CAPSim predictor shapes: "seq_len" is the clip length (instructions per
+# clip), batch is clips per step.  Kinds map onto the same train/serve
+# entry points.
+CAPSIM_SHAPES = {
+    "train_clips": ShapeConfig("train_clips", 128, 4_096, "train"),
+    "serve_clips": ShapeConfig("serve_clips", 128, 16_384, "prefill"),
 }
 
 
@@ -95,11 +106,17 @@ class ArchConfig:
 
     # --- implementation ---
     attn_impl: str = "chunked"       # chunked | pallas: the kernel route; sp: sequence-parallel
+    remat: bool = True               # recompute each super-block in the backward
 
     # --- numerics ---
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     pattern_len: int = 1             # layers per super-block (jamba: 8)
+
+    # --- which assigned shape names apply (the dry-run's cells) ---
+    shape_names: Tuple[str, ...] = ("train_4k", "prefill_32k", "decode_32k")
+    skipped_shapes: Tuple[str, ...] = ("long_500k",)
+    skip_reason: str = "pure full-attention arch: 500k decode needs sub-quadratic mixer"
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
@@ -133,6 +150,9 @@ class ArchConfig:
     @property
     def num_repeats(self) -> int:
         return self.num_layers // self.pattern_len
+
+    def shapes(self):
+        return {n: LM_SHAPES[n] for n in self.shape_names}
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

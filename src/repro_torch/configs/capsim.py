@@ -5,14 +5,20 @@ layers, MLP head with arithmetic mean (paper §VI-B).
 
 The reference describes every model of its zoo with one wide
 ``repro.configs.ArchConfig``; the port keeps only the fields the predictor
-reads.  The attention implementation is not a field: the port always calls
-its kernels' wrappers, which launch the CUDA kernel on a CUDA tensor and run
-the plain PyTorch version on a CPU tensor.
+reads, with ``remat`` (each encoder layer recomputed in a train step's
+backward, ``core/predictor.py``; on by default, off in the smoke config, as
+the reference's) and the dry-run's shapes (``CAPSIM_SHAPES``: "seq_len" is
+the clip length L_clip, batch is clips per step).  The attention
+implementation is not a field: the port always calls its kernels'
+wrappers, which launch the CUDA kernel on a CUDA tensor and run the plain
+PyTorch version on a CPU tensor.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
+from repro_torch.configs import CAPSIM_SHAPES
 from repro_torch.core.context import CONTEXT_LEN
 
 
@@ -28,6 +34,13 @@ class ArchConfig:
     context_tokens: int = CONTEXT_LEN  # M
     dtype: str = "float32"           # compute dtype: float32 | bfloat16
     param_dtype: str = "float32"
+    remat: bool = True
+    shape_names: Tuple[str, ...] = tuple(CAPSIM_SHAPES)
+    skipped_shapes: Tuple[str, ...] = ()
+    skip_reason: str = ""
+
+    def shapes(self):
+        return {n: CAPSIM_SHAPES[n] for n in self.shape_names}
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
@@ -54,4 +67,4 @@ def smoke_config() -> ArchConfig:
     return config().replace(
         d_model=32, num_heads=2, head_dim=16, d_ff=64, vocab_size=256,
         clip_tokens=16, context_tokens=36, dtype="float32",
-        param_dtype="float32")
+        param_dtype="float32", remat=False)

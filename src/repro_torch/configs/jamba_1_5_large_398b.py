@@ -6,9 +6,7 @@ in-block index 4, Mamba elsewhere; MoE FFN on every other layer.  Runs
 against a KV cache, which is O(S) per emitted token).
 
 Port of ``repro/configs/jamba_1_5_large_398b.py``, verbatim but for the
-fields the port's ``ArchConfig`` lacks: the XLA knobs (``remat``,
-``attn_chunk``) and the shape list (``shape_names``, ``skipped_shapes``,
-``skip_reason``).
+XLA knob the port's ``ArchConfig`` lacks (``attn_chunk``).
 """
 from repro_torch.configs import ArchConfig
 
@@ -35,6 +33,9 @@ def config() -> ArchConfig:
         attn_offset=4,
         pattern_len=8,
         activation="swiglu",
+        shape_names=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+        skipped_shapes=(),
+        skip_reason="",
     )
 
 
@@ -43,5 +44,5 @@ def smoke_config() -> ArchConfig:
         num_layers=8, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=128, vocab_size=256, num_experts=4, experts_per_token=2,
         ssm_state=16, ssm_head_dim=16, ssm_chunk=16, pattern_len=8,
-        dtype="float32", param_dtype="float32",
+        dtype="float32", param_dtype="float32", remat=False,
     )

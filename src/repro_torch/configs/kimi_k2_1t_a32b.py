@@ -5,7 +5,7 @@
 MoE (384 routed experts, top-8).
 
 Port of ``repro/configs/kimi_k2_1t_a32b.py``, verbatim but for the XLA
-knobs the port's ``ArchConfig`` lacks (``remat``, ``attn_chunk``).
+knob the port's ``ArchConfig`` lacks (``attn_chunk``).
 """
 from repro_torch.configs import ArchConfig
 
@@ -33,5 +33,5 @@ def smoke_config() -> ArchConfig:
     return config().replace(
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=32, vocab_size=256, num_experts=8, experts_per_token=2,
-        dtype="float32", param_dtype="float32",
+        dtype="float32", param_dtype="float32", remat=False,
     )

@@ -5,7 +5,7 @@
 every other layer (interleave_moe_layer_step=2), top-1 routing.
 
 Port of ``repro/configs/llama4_maverick_400b_a17b.py``, verbatim but for
-the XLA knobs the port's ``ArchConfig`` lacks (``remat``, ``attn_chunk``).
+the XLA knob the port's ``ArchConfig`` lacks (``attn_chunk``).
 """
 from repro_torch.configs import ArchConfig
 
@@ -36,5 +36,5 @@ def smoke_config() -> ArchConfig:
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=64, vocab_size=256, num_experts=4, experts_per_token=1,
         pattern_len=2,
-        dtype="float32", param_dtype="float32",
+        dtype="float32", param_dtype="float32", remat=False,
     )

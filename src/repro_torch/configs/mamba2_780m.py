@@ -23,6 +23,9 @@ def config() -> ArchConfig:
         ssm_expand=2,
         ssm_conv_width=4,
         ssm_chunk=256,
+        shape_names=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+        skipped_shapes=(),
+        skip_reason="",
     )
 
 
@@ -30,5 +33,5 @@ def smoke_config() -> ArchConfig:
     return config().replace(
         num_layers=4, d_model=64, vocab_size=256, ssm_state=16,
         ssm_head_dim=16, ssm_chunk=16,
-        dtype="float32", param_dtype="float32",
+        dtype="float32", param_dtype="float32", remat=False,
     )

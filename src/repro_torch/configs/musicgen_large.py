@@ -8,7 +8,7 @@ frontend is a STUB: ``input_specs()`` supplies precomputed conditioning
 frames (frontend_len=64) prepended to the sequence.
 
 Port of ``repro/configs/musicgen_large.py``, verbatim but for the XLA
-knobs the port's ``ArchConfig`` lacks (``remat``, ``attn_chunk``).
+knob the port's ``ArchConfig`` lacks (``attn_chunk``).
 """
 from repro_torch.configs import ArchConfig
 
@@ -36,5 +36,5 @@ def smoke_config() -> ArchConfig:
     return config().replace(
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
         d_ff=128, vocab_size=128, frontend_len=8, num_codebooks=4,
-        dtype="float32", param_dtype="float32",
+        dtype="float32", param_dtype="float32", remat=False,
     )

@@ -3,8 +3,8 @@
 [arXiv:2402.16819; unverified].  32L, d_model=6144, 48 heads (head_dim 128),
 d_ff=24576 with squared-ReLU (2-matrix MLP, no gate), vocab 256000.
 
-Port of ``repro/configs/nemotron_4_15b.py``, verbatim but for the XLA knobs
-the port's ``ArchConfig`` lacks (``remat``, ``attn_chunk``).
+Port of ``repro/configs/nemotron_4_15b.py``, verbatim but for the XLA knob
+the port's ``ArchConfig`` lacks (``attn_chunk``).
 """
 from repro_torch.configs import ArchConfig
 
@@ -29,5 +29,5 @@ def smoke_config() -> ArchConfig:
     return config().replace(
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=128, vocab_size=256,
-        dtype="float32", param_dtype="float32",
+        dtype="float32", param_dtype="float32", remat=False,
     )

@@ -4,8 +4,8 @@
 d_ff=8192 SwiGLU, vocab 50304, LayerNorm without learnable affine params,
 tied input/output embeddings.
 
-Port of ``repro/configs/olmo_1b.py``, verbatim but for the XLA knobs
-the port's ``ArchConfig`` lacks (``remat``, ``attn_chunk``).
+Port of ``repro/configs/olmo_1b.py``, verbatim but for the XLA knob
+the port's ``ArchConfig`` lacks (``attn_chunk``).
 """
 from repro_torch.configs import ArchConfig
 
@@ -32,5 +32,5 @@ def smoke_config() -> ArchConfig:
     return config().replace(
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
         d_ff=128, vocab_size=256,
-        dtype="float32", param_dtype="float32",
+        dtype="float32", param_dtype="float32", remat=False,
     )

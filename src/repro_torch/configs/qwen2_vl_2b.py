@@ -6,8 +6,8 @@ d_ff=8960 SwiGLU, vocab 151936.  The vision frontend is a STUB:
 that are prepended to token embeddings; M-RoPE uses 3 position streams
 (temporal/height/width) with sections (16, 24, 24) over head_dim 128 halves.
 
-Port of ``repro/configs/qwen2_vl_2b.py``, verbatim but for the XLA knobs
-the port's ``ArchConfig`` lacks (``remat``, ``attn_chunk``).
+Port of ``repro/configs/qwen2_vl_2b.py``, verbatim but for the XLA knob
+the port's ``ArchConfig`` lacks (``attn_chunk``).
 """
 from repro_torch.configs import ArchConfig
 
@@ -36,5 +36,5 @@ def smoke_config() -> ArchConfig:
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         mrope_sections=(4, 2, 2), frontend_len=8,
         d_ff=128, vocab_size=256,
-        dtype="float32", param_dtype="float32",
+        dtype="float32", param_dtype="float32", remat=False,
     )

@@ -4,8 +4,8 @@
 head_dim=128 (q proj dim 4096 != d_model, as in Qwen3), d_ff=9728 SwiGLU,
 vocab 151936, RMS qk_norm on per-head q/k.
 
-Port of ``repro/configs/qwen3_4b.py``, verbatim but for the XLA knobs
-the port's ``ArchConfig`` lacks (``remat``, ``attn_chunk``).
+Port of ``repro/configs/qwen3_4b.py``, verbatim but for the XLA knob
+the port's ``ArchConfig`` lacks (``attn_chunk``).
 """
 from repro_torch.configs import ArchConfig
 
@@ -31,5 +31,5 @@ def smoke_config() -> ArchConfig:
     return config().replace(
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=128, vocab_size=256,
-        dtype="float32", param_dtype="float32",
+        dtype="float32", param_dtype="float32", remat=False,
     )

@@ -14,7 +14,11 @@ Two-level architecture, Eq 5-9:
                         clip's instruction count (cycles).
 
 Training minimizes ``mape_loss`` (Eq 11) over the monolithic ``forward``;
-gradients come back through ``flash_attention``'s backward.
+gradients come back through ``flash_attention``'s backward.  With
+``cfg.remat`` (the full config's default) and grad on, each encoder
+layer runs under ``layers.remat_call``, as the reference's
+``_scan_layers(remat=cfg.remat)``: the backward recomputes it, launching
+its attention kernels once more.  Inference (grad off) is unchanged.
 
 Parameters are a nested dict of tensors with the reference's tree and
 layouts: dense weights are ``(d_in, d_out)`` and per-layer weights carry a
@@ -42,8 +46,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.fused_serving.ops import weighted_attention
 from repro_torch.models.layers import (  # noqa: F401 (the bridge)
-    ParamSpec, dense_spec, init_from_specs, params_from_numpy,
-    params_to_numpy, rms_norm, specs_with_leading_stack, torch_dtype)
+    ParamSpec, abstract_from_specs, dense_spec, init_from_specs,
+    params_from_numpy, shardings_from_specs,
+    params_to_numpy, remat_call, rms_norm, specs_with_leading_stack,
+    torch_dtype)
 
 N_INST_LAYERS = 4
 N_BLOCK_LAYERS = 4
@@ -55,19 +61,20 @@ N_BLOCK_LAYERS = 4
 
 def _mha_specs(cfg, prefix: str = "") -> dict:
     E, HD = cfg.d_model, cfg.num_heads * cfg.head_dim
-    return {f"{prefix}wq": dense_spec(E, HD),
-            f"{prefix}wk": dense_spec(E, HD),
-            f"{prefix}wv": dense_spec(E, HD),
-            f"{prefix}wo": dense_spec(HD, E)}
+    return {f"{prefix}wq": dense_spec(E, HD, ("embed", "qkv")),
+            f"{prefix}wk": dense_spec(E, HD, ("embed", "qkv")),
+            f"{prefix}wv": dense_spec(E, HD, ("embed", "qkv")),
+            f"{prefix}wo": dense_spec(HD, E, ("qkv", "embed"))}
 
 
 def _ffn_specs(cfg) -> dict:
     E, F_ = cfg.d_model, cfg.d_ff
-    return {"w1": dense_spec(E, F_), "w2": dense_spec(F_, E)}
+    return {"w1": dense_spec(E, F_, ("embed", "mlp")),
+            "w2": dense_spec(F_, E, ("mlp", "embed"))}
 
 
 def _norm_spec(cfg) -> ParamSpec:
-    return ParamSpec((cfg.d_model,), std=0.0, dtype="float32")
+    return ParamSpec((cfg.d_model,), ("embed",), std=0.0, dtype="float32")
 
 
 def model_specs(cfg) -> dict:
@@ -78,12 +85,15 @@ def model_specs(cfg) -> dict:
              **_ffn_specs(cfg), "norm1": _norm_spec(cfg),
              "norm2": _norm_spec(cfg), "norm3": _norm_spec(cfg)}
     return {
-        "embed": ParamSpec((V, E), std=1.0 / math.sqrt(E)),
+        "embed": ParamSpec((V, E), ("vocab_in", "embed"),
+                           std=1.0 / math.sqrt(E)),
         "inst": specs_with_leading_stack(inst, N_INST_LAYERS),
         "block": specs_with_leading_stack(block, N_BLOCK_LAYERS),
         "final_norm": _norm_spec(cfg),
-        "head": {"w1": dense_spec(E, E), "b1": ParamSpec((E,)),
-                 "w2": dense_spec(E, 1), "b2": ParamSpec((1,))},
+        "head": {"w1": dense_spec(E, E, ("embed", "mlp")),
+                 "b1": ParamSpec((E,), ("mlp",)),
+                 "w2": dense_spec(E, 1, ("mlp", None)),
+                 "b2": ParamSpec((1,), (None,))},
     }
 
 
@@ -94,6 +104,18 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = "cuda") -> dict:
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return init_from_specs(model_specs(cfg), gen, cfg.param_dtype, dev)
+
+
+def abstract_params(cfg) -> dict:
+    """The parameters as ``meta`` tensors (the dry-run's): every leaf
+    whole, as ``LOGICAL_RULES_PREDICTOR`` replicates them."""
+    return abstract_from_specs(model_specs(cfg), cfg.param_dtype)
+
+
+def param_shardings(cfg, mesh, rules) -> dict:
+    """The reference's sharding of every parameter (its logical axes
+    under ``rules`` on ``mesh``)."""
+    return shardings_from_specs(model_specs(cfg), mesh, rules)
 
 
 # --------------------------------------------------------------------------- #
@@ -155,21 +177,24 @@ def _encode_rows(params, flat, cfg):
     mask = (flat != 0).float()                           # <PAD> == 0
     x = params["embed"][flat].to(torch_dtype(cfg.dtype))
     inst = params["inst"]
-    for i in range(inst["wq"].shape[0]):
-        p = _layer(inst, i)
+
+    def layer(p, x):
         h = rms_norm(x, p["norm1"])
         x = x + _mha(p, h, h, cfg, kv_mask=mask)
-        x = x + _ffn(p, rms_norm(x, p["norm2"]), cfg)
+        return x + _ffn(p, rms_norm(x, p["norm2"]), cfg)
+    for i in range(inst["wq"].shape[0]):
+        x = remat_call(cfg.remat, layer, _layer(inst, i), x)
     return x[:, 0, :]                                    # <REP> slot (Eq 8)
 
 
 def instruction_encoder(params, clip_tokens, cfg):
     """clip_tokens: (B, L_clip, L_token) int -> RT vectors (B, L_clip, E).
     The (B, L_clip) axes fold into one batch: every instruction encodes
-    independently (Eq 7), on the card in passes of ``ENCODE_CHUNK``."""
+    independently (Eq 7), on the card in passes of ``ENCODE_CHUNK`` (and
+    on meta, where the dry-run counts the card's path)."""
     B, L, T = clip_tokens.shape
     flat = clip_tokens.reshape(B * L, T)
-    if flat.device.type != "cuda":
+    if flat.device.type not in ("cuda", "meta"):
         return _encode_rows(params, flat, cfg).reshape(B, L, cfg.d_model)
     n = flat.shape[0]
     pad = -n % ENCODE_CHUNK
@@ -188,14 +213,16 @@ def block_encoder(params, rt, ctx, clip_mask, cfg):
     rt = rt + _sinusoidal(L, E, rt.dtype, rt.device)[None]
     blk = params["block"]
     h = rt if ctx is None else ctx
-    for i in range(blk["self_wq"].shape[0]):
-        p = _layer(blk, i)
+    self_mask = clip_mask if ctx is None else None
+
+    def layer(p, h, rt):
         n1 = rms_norm(h, p["norm1"])
-        self_mask = clip_mask if ctx is None else None
         h = h + _mha(p, n1, n1, cfg, kv_mask=self_mask, prefix="self_")
         h = h + _mha(p, rms_norm(h, p["norm2"]), rt, cfg, kv_mask=clip_mask,
                      prefix="cross_")
-        h = h + _ffn(p, rms_norm(h, p["norm3"]), cfg)
+        return h + _ffn(p, rms_norm(h, p["norm3"]), cfg)
+    for i in range(blk["self_wq"].shape[0]):
+        h = remat_call(cfg.remat, layer, _layer(blk, i), h, rt)
     return h, (clip_mask if ctx is None else None)
 
 

@@ -31,12 +31,66 @@ them: under ``regather_saved()`` an op that saves a gathered parameter
 (or a view of it) for its backward keeps the rank's block instead, and
 the backward gathers it again when it needs it, so a layer's whole
 weights live only while the layer runs, forward or backward.
+
+``record_collectives()`` lists every collective this process issues
+while it is open (``Collective``: op, result bytes on the wire, group
+size, forward or backward), where the reference parses them out of its
+compiled HLO (``launch/roofline.py``).  It changes nothing that runs.
+The MoE's expert parallelism replicates tokens over 'model' and sums
+the experts' outputs, so it records an all-gather and an all-reduce:
+the port issues no all-to-all.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import threading
 import weakref
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective as issued: ``op`` in the reference's HLO names
+    ("all-gather", "all-reduce", "reduce-scatter"), ``nbytes`` its
+    result's bytes as they cross the wire (bfloat16 as float32),
+    ``group`` the ranks taking part, ``direction`` "forward" or
+    "backward" (inside the autograd engine's backward)."""
+    op: str
+    nbytes: int
+    group: int
+    direction: str
+
+
+_RECORDS: list = []
+_RECORDS_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """A list that every collective issued while the context is open is
+    appended to, in order, from any thread."""
+    out: list = []
+    with _RECORDS_LOCK:
+        _RECORDS.append(out)
+    try:
+        yield out
+    finally:
+        with _RECORDS_LOCK:
+            _RECORDS.remove(out)
+
+
+def _note(op: str, result: torch.Tensor, group: int) -> None:
+    if not _RECORDS:
+        return
+    direction = ("backward" if torch._C._current_autograd_node() is not None
+                 else "forward")
+    rec = Collective(op, result.numel() * result.element_size(), group,
+                     direction)
+    with _RECORDS_LOCK:
+        for out in _RECORDS:
+            out.append(rec)
 
 
 def _live(mesh, axes) -> bool:
@@ -52,7 +106,9 @@ def _gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     w = _wire(x)
     parts = [torch.empty_like(w) for _ in range(mesh.size(axes))]
     dist.all_gather(parts, w, group=mesh.group(axes))
-    return torch.cat(parts, dim=dim).to(x.dtype)
+    out = torch.cat(parts, dim=dim)
+    _note("all-gather", out, mesh.size(axes))
+    return out.to(x.dtype)
 
 
 def _reduce(x: torch.Tensor, mesh, axes, op: str) -> torch.Tensor:
@@ -61,6 +117,7 @@ def _reduce(x: torch.Tensor, mesh, axes, op: str) -> torch.Tensor:
     dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
                              "max": dist.ReduceOp.MAX}[op],
                     group=mesh.group(axes))
+    _note("all-reduce", out, mesh.size(axes))
     return out.to(x.dtype)
 
 
@@ -70,6 +127,7 @@ def _reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     parts = [c.contiguous() for c in _wire(x).chunk(mesh.size(axes), dim)]
     out = torch.empty_like(parts[0])
     dist.reduce_scatter(out, parts, group=mesh.group(axes))
+    _note("reduce-scatter", out, mesh.size(axes))
     return out.to(x.dtype)
 
 
@@ -110,6 +168,13 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
 _PARAM_GATHERS: dict = {}
 
 
+def _storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage while it lives (its StorageImpl's
+    address: unique on every device, meta included, where every data
+    pointer is 0)."""
+    return t.untyped_storage()._cdata
+
+
 class _Regather:
     """A saved gathered parameter, held as the rank's block and the
     view's geometry."""
@@ -128,7 +193,7 @@ class _Regather:
 def _pack(t: torch.Tensor):
     if not _PARAM_GATHERS or t.layout != torch.strided:
         return t
-    entry = _PARAM_GATHERS.get(t.untyped_storage().data_ptr())
+    entry = _PARAM_GATHERS.get(_storage_key(t))
     whole = None if entry is None else entry[0]()
     if whole is None or whole.dtype != t.dtype:
         return t
@@ -154,7 +219,7 @@ def gather_param(w: torch.Tensor, mesh, gathers) -> torch.Tensor:
     for axes, dim in gathers:
         out = all_gather(out, mesh, axes, dim)
     if out is not w and out.requires_grad:
-        key = out.untyped_storage().data_ptr()
+        key = _storage_key(out)
         _PARAM_GATHERS[key] = (
             weakref.ref(out, lambda _, k=key: _PARAM_GATHERS.pop(k, None)),
             w.detach(), mesh, tuple(gathers))

@@ -246,6 +246,24 @@ def use_mesh_and_rules(mesh, rules: Optional[Rules]):
         _CTX.mesh, _CTX.rules = prev
 
 
+def context() -> tuple:
+    """The active (mesh, rules, layout), for ``use_context`` to make
+    active again on another thread (the autograd engine's, where a
+    remat recompute may run)."""
+    return _CTX.mesh, _CTX.rules, _CTX.layout
+
+
+@contextlib.contextmanager
+def use_context(ctx: tuple):
+    """Activate a ``context()`` on this thread."""
+    prev = context()
+    _CTX.mesh, _CTX.rules, _CTX.layout = ctx
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules, _CTX.layout = prev
+
+
 def current_mesh():
     return _CTX.mesh
 

@@ -7,7 +7,7 @@ to the end of kv (``q_offset = Skv - Sq``); a row with no valid key
 outputs zeros.
 
 ``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors
-and runs ``flash_attention_plain`` for CPU tensors; anything else raises.
+and runs ``flash_attention_plain`` for CPU tensors (meta: below).
 It carries a gradient to q, k and v (the mask gets none).  On the CPU
 autograd differentiates the plain version.  On the card, when grad mode
 is on and q, k or v requires grad, the launch is the forward of a
@@ -18,6 +18,14 @@ recomputes through ``attention_ref``.  The forward launch is the same
 either way: same arguments, same bits, one launch counted
 (``flash_attention.launches``; ``flash_attention.heads`` counts the
 launches by q's head count).
+On ``meta`` tensors (the dry-run's, ``launch/dryrun.py``) nothing runs:
+the wrapper returns an empty output of the shape the kernel writes and
+reports ``attention_cost``, the launch's FLOPs and HBM bytes, to
+``kernels.cost`` (the plain version's S×S scores, which the card never
+holds, are never built); under grad it goes through the same
+``_FlashAttention``, whose backward is the plain recompute, on meta, as
+the card runs it.  A meta tensor computes nothing, so this route hides
+no device and no kernel.  Any other device raises.
 The kernel copies q/k/v rows 16 bytes at a time, so each must start on a
 16-byte boundary and step by a multiple of 16 bytes per batch and row;
 the C entry point checks that (it alone knows the kernel's loads) and the
@@ -34,7 +42,7 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 
 NEG_INF = -1e30
 KEY_TILE = 64                   # keys per tile of the kernels (BK)
@@ -102,15 +110,42 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             q.dtype)
 
 
+def attention_cost(B: int, Sq: int, Skv: int, H: int, D: int,
+                   elem_bytes: int, aux: bool, causal: bool = False):
+    """(FLOPs, HBM bytes) of one attention launch: q/k/v read once, o
+    written once, the per-key mask/weights (f32) read once; QK^T and PV
+    at 2 FLOPs per MAC over the (query, key) pairs the mask leaves live:
+    all of them, or under a causal mask (q aligned to the end of kv)
+    Sq·(Skv-Sq) + Sq·(Sq+1)/2, so 2·B·H·D·S·(S+1) FLOPs at Sq = Skv = S.
+    ``chip_smoke.py``'s bound and the dry-run both take it from here."""
+    nbytes = (2 * B * Sq * H * D + 2 * B * Skv * H * D) * elem_bytes \
+        + (4 * B * Skv if aux else 0)
+    pairs = (Sq * (Skv - Sq) + Sq * (Sq + 1) / 2) if causal else Sq * Skv
+    return 4.0 * B * H * pairs * D, float(nbytes)
+
+
+def meta_attention(name: str, q, k, aux, causal: bool) -> torch.Tensor:
+    """The meta route of an attention wrapper: report the launch's cost
+    (``attention_cost``) and return an empty (B, Sq, H, D) output."""
+    B, Sq, H, D = q.shape
+    cost.report(name, *attention_cost(B, Sq, k.shape[1], H, D,
+                                      q.element_size(), aux is not None,
+                                      causal))
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
 def check_attention_args(q, k, v, aux, what: str) -> None:
     """Raise on what the CUDA kernels do not take.  q (B, Sq, H, D) and
-    k/v (B, Skv, H, D) share one CUDA device and one dtype (float32 or
-    bfloat16) with D in ``HEAD_DIMS``; the head and feature axes must be
-    dense (strides D and 1), batch and row strides are free.  ``aux``
-    (the mask or weights) is None or a contiguous float32 (B, Skv).  D
-    may also be a key of ``PADDED_HEAD_DIMS``."""
+    k/v (B, Skv, H, D) share one CUDA device (or, for the meta route,
+    the meta device) and one dtype (float32 or bfloat16) with D in
+    ``HEAD_DIMS``; the head and feature axes must be dense (strides D
+    and 1), batch and row strides are free.  ``aux`` (the mask or
+    weights) is None or a contiguous float32 (B, Skv).  D may also be a
+    key of ``PADDED_HEAD_DIMS``."""
+    if _taken(q, k, v, aux):
+        return
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device.type != "cuda":
+        if x.device.type not in ("cuda", "meta"):
             raise ValueError(f"{what}: {name} is on {x.device}, expected "
                              "a CUDA tensor like q")
         if x.device != q.device:
@@ -142,25 +177,51 @@ def check_attention_args(q, k, v, aux, what: str) -> None:
                              f"{q.device}")
 
 
+def _taken(q, k, v, aux) -> bool:
+    """Whether the kernels take these arguments: every condition that
+    ``check_attention_args`` goes on to spell out (and to name the first
+    that fails), in fewer tensor attribute reads.  At the serving shapes
+    a launch is bound by its host time, so each read shows."""
+    dev, dtype, shape = q.device, q.dtype, q.shape
+    if (dev.type not in ("cuda", "meta") or k.device != dev
+            or v.device != dev or k.dtype != dtype or v.dtype != dtype
+            or dtype not in _DTYPE_CODES or len(shape) != 4):
+        return False
+    B, _, H, D = shape
+    kv = k.shape
+    if (D not in HEAD_DIMS and D not in PADDED_HEAD_DIMS) or v.shape != kv \
+            or len(kv) != 4 or kv[0] != B or kv[2] != H or kv[3] != D:
+        return False
+    for st in (q.stride(), k.stride(), v.stride()):
+        if st[3] != 1 or st[2] != D:
+            return False
+    return aux is None or (aux.shape == (B, kv[1]) and aux.dtype
+                           == torch.float32 and aux.device == dev
+                           and aux.is_contiguous())
+
+
 def launch_args(q, k, v, aux, o):
     """The plain-C argument list shared by both attention entry points:
     dtype code, head_dim, pointers, sizes and (batch, row) strides."""
     B, Sq, H, D = q.shape
+    qs, ks, vs, ost = q.stride(), k.stride(), v.stride(), o.stride()
     return (_DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), None if aux is None else aux.data_ptr(),
             o.data_ptr(), B, Sq, k.shape[1], H,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), o.stride(0), o.stride(1))
+            qs[0], qs[1], ks[0], ks[1], vs[0], vs[1], ost[0], ost[1])
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def current_stream(device: torch.device) -> int:
     """The raw handle of the current CUDA stream on ``device`` (the
     private accessor where PyTorch has it: a Stream object costs
     microseconds a launch)."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(device.index if device.index is not None
-                   else torch.cuda.current_device())
+    if _RAW_STREAM is not None:
+        index = device.index
+        return _RAW_STREAM(index if index is not None
+                           else torch.cuda.current_device())
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -235,7 +296,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, D); k/v: (B, Skv, H, D); kv_mask: (B, Skv) 1 = valid.
     Returns (B, Sq, H, D) in q.dtype.  CPU tensors take the plain version;
     CUDA tensors launch the kernel on the current stream, through
-    ``_FlashAttention`` where a gradient is wanted."""
+    ``_FlashAttention`` where a gradient is wanted; meta tensors take the
+    meta route (the module docstring)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      kv_mask=kv_mask)
@@ -250,7 +312,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _launch(q, k, v, kv_mask, causal: bool, window: int) -> torch.Tensor:
     """One launch of the kernel on checked arguments; head dim 112 runs
-    zero-padded to 128 and is cut back."""
+    zero-padded to 128 and is cut back.  On meta: the meta route."""
+    if q.device.type == "meta":
+        return meta_attention("flash_attention", q, k, kv_mask, causal)
     lib, fn = _kernel()
     D = q.shape[3]
     q, k, v = pad_head_dim(q, k, v)

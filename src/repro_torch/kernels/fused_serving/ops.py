@@ -36,6 +36,7 @@ from repro_torch.kernels.flash_attention.ops import (ARG_TYPES,
                                                      check_attention_args,
                                                      current_stream,
                                                      launch_args,
+                                                     meta_attention,
                                                      pad_head_dim,
                                                      softmax_pv_plain)
 
@@ -65,16 +66,21 @@ def weighted_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kv_weight: torch.Tensor) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Skv, H, D); kv_weight: (B, Skv) f32.
     Returns (B, Sq, H, D) in q.dtype.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel on the current stream."""
+    CUDA tensors launch the kernel on the current stream; meta tensors
+    take flash attention's meta route (``meta_attention``: an empty
+    output, the launch's ``attention_cost`` reported, nothing run)."""
     if q.device.type == "cpu":
         return weighted_attention_plain(q, k, v, kv_weight)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, kv_weight)):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad
+                                    or kv_weight.requires_grad):
         raise RuntimeError("weighted_attention: the CUDA kernel has no "
                            "gradient (the fused step serves only); run "
                            "it under torch.no_grad() or inference_mode()")
     kv_weight = kv_weight.float().contiguous()
     check_attention_args(q, k, v, kv_weight, "weighted_attention")
+    if q.device.type == "meta":
+        return meta_attention("weighted_attention", q, k, kv_weight, False)
     lib, fn = _kernel()
     D = q.shape[3]
     q, k, v = pad_head_dim(q, k, v)

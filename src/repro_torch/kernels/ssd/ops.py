@@ -22,8 +22,12 @@ f32 (the state after the last real step; padded steps leave it).
 
 ``ssd_scan`` launches ``csrc/ssd.cu`` (four kernels on the current
 stream: C·Bᵀ per chunk, each chunk's state contribution, the pass over
-chunks, y) for CUDA tensors and runs ``ssd_scan_plain`` for CPU tensors;
-anything else raises.  It carries a gradient to x, dt, B, C and A from
+chunks, y) for CUDA tensors and runs ``ssd_scan_plain`` for CPU tensors.
+On ``meta`` tensors (the dry-run's) nothing runs: it returns empty y and
+state and reports ``ssd_cost`` to ``kernels.cost``, through the same
+``_SSDScan`` under grad (its backward the plain recompute, on meta); a
+meta tensor computes nothing, so this hides no device and no kernel.
+Anything else raises.  It carries a gradient to x, dt, B, C and A from
 both outputs.  On the CPU autograd differentiates the plain version.  On
 the card, when grad mode is on and an input requires grad, the launches
 are the forward of a ``torch.autograd.Function``; its backward,
@@ -47,7 +51,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -90,9 +94,28 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     return y.to(x.dtype), state
 
 
+def ssd_cost(Bt: int, S: int, H: int, P: int, N: int, q: int,
+             elem_bytes: int):
+    """(FLOPs, HBM bytes) of one call.  Per chunk of L real steps (the
+    last one ragged) and batch row, C·Bᵀ over the causal half once,
+    L(L+1)/2 pairs of N MACs, since B and C are shared by every head; per
+    head the decayed causal product with x·dt, L(L+1)/2 pairs of P MACs,
+    and L·N·P MACs each for the carried state's output and the state
+    update.  Bytes: x read and y written, B/C, dt and A read, the f32
+    state written once.  ``chip_smoke.py``'s bound and the dry-run both
+    take it from here."""
+    lens = [min(q, S - t) for t in range(0, S, q)]
+    flops = float(Bt) * sum(L * (L + 1) * N for L in lens) \
+        + float(Bt * H) * sum(L * (L + 1) * P + 4 * L * N * P for L in lens)
+    nbytes = (2 * Bt * S * H * P + 2 * Bt * S * N) * elem_bytes \
+        + 4 * (Bt * S * H + H + Bt * H * P * N)
+    return flops, float(nbytes)
+
+
 def check_ssd_args(x, dt, B, C, A) -> None:
     """Raise on a layout the CUDA kernel does not take.  Everything on one
-    CUDA device; x (Bt, S, H, P) and B/C (Bt, S, N) in one dtype (float32
+    CUDA device (or, for the meta route, the meta device); x (Bt, S, H,
+    P) and B/C (Bt, S, N) in one dtype (float32
     or bfloat16) with the last axis dense; dt (Bt, S, H) and A (H,)
     float32 with dense last axes.  Batch and row strides are free: the
     kernel reads the model's layout in place.  The limits on head_dim,
@@ -110,7 +133,7 @@ def check_ssd_args(x, dt, B, C, A) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"ssd_scan: {name} needs a dense last axis, "
                              f"got strides {t.stride()}")
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan: x is on {x.device}, expected a CUDA "
                          "tensor")
     if x.dtype not in _DTYPE_CODES:
@@ -179,10 +202,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
 
 
 def _launch(x, dt, B, C, A, chunk: int):
-    """One call's four launches on checked arguments."""
+    """One call's four launches on checked arguments; on meta the meta
+    route (the module docstring)."""
     Bt, S, H, P = x.shape
     N = B.shape[-1]
     q = min(chunk, S)
+    if x.device.type == "meta":
+        cost.report("ssd", *ssd_cost(Bt, S, H, P, N, q, x.element_size()))
+        return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+                torch.empty(Bt, H, P, N, dtype=torch.float32,
+                            device=x.device))
     lib, fn = _kernel()
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     state = torch.empty(Bt, H, P, N, dtype=torch.float32, device=x.device)

@@ -37,7 +37,7 @@ def torch_dtype(name: str) -> torch.dtype:
 class ParamSpec:
     shape: Tuple[int, ...]
     # the reference's logical axis names, one per dimension (None: no
-    # names, as the CAPSim predictor's specs, which replicate)
+    # names)
     logical_axes: Optional[Tuple[Optional[str], ...]] = None
     std: float = 0.0          # 0.0 -> zeros; <0 -> ones; >0 -> normal(std)
     dtype: Optional[str] = None  # override param dtype (e.g. fp32 norms)
@@ -76,6 +76,22 @@ def init_from_specs(specs, generator: torch.Generator, param_dtype: str,
                             dtype=torch.float32) * specs.std
         return w.to(device=device, dtype=dt)
     return {k: init_from_specs(specs[k], generator, param_dtype, device)
+            for k in sorted(specs)}
+
+
+def abstract_from_specs(specs, param_dtype: str, blocks=None):
+    """A spec tree as ``meta`` tensors (shapes and dtypes, no storage):
+    the reference's ``abstract_from_specs``.  ``blocks`` (a tree like
+    ``specs`` of (start, size) a dimension, ``block_bounds_tree``) gives
+    each leaf the shape of the rank's block instead of the whole."""
+    if isinstance(specs, ParamSpec):
+        shape = specs.shape if blocks is None else tuple(
+            n for _, n in blocks)
+        return torch.empty(shape, dtype=torch_dtype(specs.dtype or
+                                                    param_dtype),
+                           device="meta")
+    return {k: abstract_from_specs(specs[k], param_dtype,
+                                   None if blocks is None else blocks[k])
             for k in sorted(specs)}
 
 
@@ -174,6 +190,31 @@ def init_from_seed(specs, seed: int, param_dtype: str,
                        s.shape)
         return out
     return build(specs, "", blocks)
+
+
+def remat_call(enabled: bool, fn, *args):
+    """``fn(*args)``; with ``enabled`` and grad mode on, under
+    ``torch.utils.checkpoint`` (non-reentrant): autograd keeps only the
+    inputs, and the backward runs ``fn`` again to rebuild what it needs
+    (the reference's ``jax.checkpoint(policy=nothing_saveable)``).  The
+    recompute launches the kernels of ``fn`` a second time and runs its
+    collectives again, in the same order on every rank, under the mesh,
+    rules and layout of the forward: on the card the autograd engine
+    runs the backward on a thread of its own, where none of them is
+    active.  Nothing here draws random numbers, so the RNG state is not
+    saved."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.distributed.sharding import context, use_context
+    ctx = context()
+
+    def run(*a):
+        with use_context(ctx):
+            return fn(*a)
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def local_params(params, specs):

@@ -102,6 +102,16 @@ class Routing:
     cap: int
 
 
+def expert_counts(idx: torch.Tensor, n_exp: int) -> torch.Tensor:
+    """(E,) int64: how many entries of the flat ``idx`` pick each expert,
+    ``bincount(idx, minlength=E)`` for ids < E, as a scatter of ones into
+    E slots.  bincount's length follows the largest id, so it has no meta
+    kernel; this one's is E whatever the data (the dry-run runs it on
+    meta)."""
+    return torch.zeros(n_exp, dtype=torch.int64, device=idx.device
+                       ).index_add_(0, idx, torch.ones_like(idx))
+
+
 def top_k(probs: torch.Tensor, k: int):
     """(values, indices) of each row's k largest, largest first; equal
     values in expert order, as ``lax.top_k`` (a stable descending
@@ -123,7 +133,7 @@ def route(router: torch.Tensor, xf: torch.Tensor, k: int,
     # a stable sort by expert keeps that order inside each expert's run
     flat = idx.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=E)
+    counts = expert_counts(flat, E)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.empty_like(order)
     rank[order] = torch.arange(flat.numel(), device=flat.device)
@@ -178,7 +188,7 @@ def moe_shard(xf: torch.Tensor, router: torch.Tensor, w_gate, w_up,
         w = (r.gates[:, j] * keep[:, j]).to(xf.dtype)
         y = y + down[e_sel[:, j], p] * w[:, None]
 
-    counts = torch.bincount(r.idx.reshape(-1), minlength=E).float()
+    counts = expert_counts(r.idx.reshape(-1), E).float()
     z = torch.logsumexp(r.scores, dim=-1).square().mean()
     return Partial(y, counts, r.probs.mean(0), z, r)
 

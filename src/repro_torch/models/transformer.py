@@ -90,10 +90,11 @@ from repro_torch.distributed.sharding import (Layout, axis_rules,
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as ssm_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (ParamSpec, activation,
-                                       block_bounds_tree, dense_spec,
-                                       init_from_seed, local_params,
-                                       mark_tree, norm, norm_spec,
+from repro_torch.models.layers import (ParamSpec, abstract_from_specs,
+                                       activation, block_bounds_tree,
+                                       dense_spec, init_from_seed,
+                                       local_params, mark_tree, norm,
+                                       norm_spec, remat_call,
                                        shardings_from_specs,
                                        specs_with_leading_stack, torch_dtype)
 
@@ -192,6 +193,36 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = "cuda",
                             resolve_device(device),
                             block_bounds_tree(specs, mesh, rules))
     return mark_tree(params, specs, mesh, rules)
+
+
+def _abstract(specs, dtype: str, mesh):
+    """``specs`` as meta tensors: whole leaves, or with a mesh of more
+    than one device the rank's blocks under the active rules
+    (``block_bounds_tree``), marked as ``init_params`` marks them."""
+    if mesh is None or mesh.size(mesh.axis_names) == 1:
+        return abstract_from_specs(specs, dtype)
+    rules = current_rules()
+    if not rules:
+        raise ValueError("a rank's blocks follow the active rules: wrap "
+                         "the call in use_mesh_and_rules")
+    return mark_tree(abstract_from_specs(
+        specs, dtype, block_bounds_tree(specs, mesh, rules)), specs, mesh,
+        rules)
+
+
+def abstract_params(cfg, mesh=None) -> dict:
+    """The parameters as ``meta`` tensors (the dry-run's): the shapes
+    ``init_params(cfg, mesh=mesh)`` draws, without storage."""
+    return _abstract(model_specs(cfg), cfg.param_dtype, mesh)
+
+
+def abstract_cache(cfg, batch: int, max_seq: int,
+                   dtype: Optional[str] = None, mesh=None) -> dict:
+    """The decode caches of ``init_cache`` as ``meta`` tensors; under a
+    mesh the rank's blocks of ``cache_shardings`` by the active rules
+    (its batch rows, its block of the KV sequence, its SSM heads)."""
+    return _abstract(cache_specs(cfg, batch, max_seq), dtype or cfg.dtype,
+                     mesh)
 
 
 def param_shardings(cfg, mesh, rules) -> dict:
@@ -403,10 +434,27 @@ def _stack_forward(params, x, cfg, mode: str, caches=None, positions=None,
     """Run the ``num_repeats`` super-blocks in order; returns (x, stacked
     new caches or None, lb, z), the MoE losses summed over the layers in
     order.  In decode an attention layer's cache is a view of ``caches``,
-    updated in place, so those stay as they are."""
+    updated in place, so those stay as they are.  In train mode with
+    ``cfg.remat`` (and grad on) each super-block runs under
+    ``layers.remat_call``: its backward recomputes it."""
     pattern = cfg.pattern()
     per_repeat = []
     lb_sum = z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode == "train":
+        def super_block(bparams, x, lb_sum, z_sum):
+            for j, kind in enumerate(pattern):
+                x, _, lb, z = _block_forward(bparams[f"i{j}"], x, cfg, mode,
+                                             None, positions, None, kind)
+                lb_sum = lb_sum + lb
+                z_sum = z_sum + z
+            return x, lb_sum, z_sum
+        for r in range(cfg.num_repeats):
+            # remat: each super-block's activations are recomputed in the
+            # backward (the reference's jax.checkpoint of the scan body)
+            x, lb_sum, z_sum = remat_call(
+                cfg.remat, super_block, _index(params["blocks"], r), x,
+                lb_sum, z_sum)
+        return x, None, lb_sum, z_sum
     for r in range(cfg.num_repeats):
         bparams = _index(params["blocks"], r)
         bcaches = None if caches is None else _index(caches, r)
@@ -420,8 +468,6 @@ def _stack_forward(params, x, cfg, mode: str, caches=None, positions=None,
             lb_sum = lb_sum + lb
             z_sum = z_sum + z
         per_repeat.append(new_caches)
-    if mode == "train":
-        return x, None, lb_sum, z_sum
     return x, {f"i{j}": caches[f"i{j}"]
                if mode == "decode" and mixer == "attn"
                else _stack([c[f"i{j}"] for c in per_repeat])

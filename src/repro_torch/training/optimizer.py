@@ -11,9 +11,10 @@ AdamW (b2 = 0.95, weight decay 0.1) for the LM zoo; Adafactor for
 memory-constrained training.  Every update does its arithmetic in f32
 and casts the new parameter back to the parameter's dtype, as the
 reference does; ``lr`` is a 0-d f32 tensor (``training/schedule.py``) or
-a float.  A state leaf keeps its parameter's ``sharding.mark``.  Updates build new tensors and leave their inputs as they are.
-The reference's ``abstract_state`` (state shapes for its AOT dry-run) is
-not needed here: the port has no dry-run.
+a float.  A state leaf keeps its parameter's ``sharding.mark``.  Updates
+build new tensors and leave their inputs as they are.
+``abstract_state`` is the reference's (the state's shapes for the
+dry-run, ``launch/dryrun.py``): ``init`` over ``meta`` parameters.
 
 ``tree_map``, ``tree_leaves`` and ``tree_unzip`` walk nested dicts;
 ``tree_leaves`` gives them in sorted key order, the order
@@ -55,6 +56,14 @@ class Optimizer:
     name: str
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, Any], Any]
+
+    def abstract_state(self, param_abs):
+        """The state of ``param_abs`` (``meta`` tensors, marked where
+        they are a rank's blocks) as ``meta`` tensors: ``init`` over
+        them, which allocates nothing."""
+        if any(p.device.type != "meta" for p in tree_leaves(param_abs)):
+            raise ValueError("abstract_state takes meta parameters")
+        return self.init(param_abs)
 
 
 # ----------------------------- SGD + momentum ------------------------------ #

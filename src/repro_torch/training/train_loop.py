@@ -106,6 +106,19 @@ def init_train_state(params, tcfg: TrainConfig) -> dict:
     return state
 
 
+def abstract_train_state(param_abs, tcfg: TrainConfig) -> dict:
+    """``init_train_state`` over ``meta`` parameters (the reference's
+    ``abstract_train_state``): every leaf a meta tensor, a rank's
+    blocks where the parameters are."""
+    opt = tcfg.make_optimizer()
+    state = {"params": param_abs, "opt": opt.abstract_state(param_abs),
+             "step": torch.zeros((), dtype=torch.int32, device="meta")}
+    if tcfg.compress_grads:
+        state["err_fb"] = inherit_marks(init_error_feedback(param_abs),
+                                        param_abs)
+    return state
+
+
 def _global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares over the leaves in sorted order; a
     block (``sharding.mark``) has its sum added over the axes that split

@@ -45,7 +45,7 @@ B, S_TOK = 2, 24            # + the smoke configs' 8 frontend embeddings
 # relative norm; M-RoPE itself <= 1e-6 max abs
 LOGITS_F32_ABS, LOGITS_BF16_REL, ROPE_ABS = 1e-4, 3e-2, 1e-6
 # fields of the reference's ArchConfig the port leaves out
-LEFT_OUT = {"remat", "attn_chunk"}
+LEFT_OUT = {"attn_chunk"}
 
 
 def _cfgs(arch, dtype="float32", attn_impl="pallas", **kw):

@@ -42,9 +42,24 @@ def test_port_imports_neither_jax_nor_repro():
     assert bad.strip() == "[]", bad
 
 
+EXAMPLES = ("quickstart_torch", "simulate_benchmark_torch",
+            "train_capsim_torch", "train_lm_torch")
+
+
+def _example(name: str):
+    """An example script of ``examples/`` as a module (not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def test_port_sources_name_no_reference_import():
     for path in list((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-            ROOT / "chip_smoke.py"]:
+            ROOT / "chip_smoke.py"] + [ROOT / "examples" / f"{n}.py"
+                                       for n in EXAMPLES]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
@@ -57,7 +72,7 @@ def test_entry_points_raise_without_a_card(tmp_path):
         pytest.skip("a card is present: the default device is valid")
     from repro_torch.configs import ShapeConfig, get_smoke_config
     from repro_torch.configs.capsim import smoke_config
-    from repro_torch.core import predictor
+    from repro_torch.core import lstm_baseline, predictor
     from repro_torch.core import standardize as std_mod
     from repro_torch.core.engine import SimulationEngine
     from repro_torch.core.engine_config import EngineConfig
@@ -96,7 +111,10 @@ def test_entry_points_raise_without_a_card(tmp_path):
                                       "--ckpt-dir", str(tmp_path / "c")]),
                   lambda: train.main(["--smoke", "--steps", "1",
                                       "--multicore", "2",
-                                      "--ckpt-dir", str(tmp_path / "m")])):
+                                      "--ckpt-dir", str(tmp_path / "m")]),
+                  lambda: lstm_baseline.init_params(cfg),
+                  *(lambda m=_example(name): m.main([])
+                    for name in EXAMPLES)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     # the LM zoo's dense decoders, its MoE and hybrid models and its

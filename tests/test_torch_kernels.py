@@ -147,3 +147,50 @@ def test_head_dim_112_zero_padding_is_exact(kind):
     # the dims the kernels are built for pass through unpadded
     q32 = torch.zeros(1, 4, 2, 32)
     assert all(x is q32 for x in fa_ops.pad_head_dim(q32, q32, q32))
+
+
+def _arg_cases():
+    """(q, k, v, aux) on meta, the device the argument check takes
+    without a card: accepted ones and one of each refusal."""
+    def t(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    q = t(2, 8, 4, 32)
+    kv = t(2, 16, 4, 32)
+    w = t(2, 16)
+    bf = t(2, 8, 4, 32, dtype=torch.bfloat16)
+    wide = t(2, 16, 8, 32)[:, :, :4]                # row stride 256
+    return [
+        ("taken", q, kv, kv, w), ("taken_no_aux", q, kv, kv, None),
+        ("taken_row_strides", q, wide, wide, w),
+        ("taken_d112", t(1, 4, 2, 112), t(1, 4, 2, 112),
+         t(1, 4, 2, 112), None),
+        ("cpu_k", q, torch.empty(2, 16, 4, 32), kv, w),
+        ("dtype", bf, kv, kv, w),
+        ("f64", t(2, 8, 4, 32, dtype=torch.float64),
+         t(2, 16, 4, 32, dtype=torch.float64),
+         t(2, 16, 4, 32, dtype=torch.float64), None),
+        ("head_dim", t(2, 8, 4, 8), t(2, 16, 4, 8), t(2, 16, 4, 8), None),
+        ("rank3", t(8, 4, 32), kv, kv, None),
+        ("heads", q, t(2, 16, 2, 32), t(2, 16, 2, 32), w),
+        ("batch", q, t(3, 16, 4, 32), t(3, 16, 4, 32), None),
+        ("v_shape", q, kv, t(2, 12, 4, 32), None),
+        ("head_stride", q, t(2, 16, 32, 4).transpose(2, 3), kv, None),
+        ("aux_shape", q, kv, kv, t(2, 8)),
+        ("aux_dtype", q, kv, kv, t(2, 16, dtype=torch.bfloat16)),
+        ("aux_strided", q, kv, kv, t(16, 2).t()),
+    ]
+
+
+@pytest.mark.parametrize("case", _arg_cases(), ids=lambda c: c[0])
+def test_fast_argument_accept_agrees_with_the_full_check(case):
+    """The wrappers' fast accept (``_taken``) takes exactly what
+    ``check_attention_args`` takes: it only spares the full check's
+    attribute reads, never lets through what that check would refuse."""
+    name, q, k, v, aux = case
+    try:
+        fa_ops.check_attention_args(q, k, v, aux, "flash_attention")
+        refused = False
+    except ValueError:
+        refused = True
+    assert refused == (not name.startswith("taken"))
+    assert fa_ops._taken(q, k, v, aux) == (not refused)
