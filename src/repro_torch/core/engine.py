@@ -19,7 +19,8 @@ CUDA launches are asynchronous, which gives the reference's double buffer
 for free: up to ``max_in_flight`` batches stay un-retired while the host
 simulates the next benchmark, and a retire is the ``.cpu()`` of a batch's
 output tensor.  The same spans and metric names as the reference feed the
-stats views.
+stats views; the port adds a span for each phase of a dispatch
+(``predict.batch``, ``predict.h2d``, ``predict.launch``).
 
 ``run_multicore`` feeds N interleaved per-core functional sims
 (``isa/multicore.py``) through the same pooled predictor and RT cache:
@@ -282,6 +283,15 @@ class PredictorStats:
         return self.dispatch_seconds + self.drain_seconds
 
 
+def _pad_rows(arrays, rows: int):
+    """Each array with zero rows appended up to ``rows``: an all-<PAD>
+    token row / the RT cache's pad slot, with a zero mask that excludes
+    the row entirely."""
+    return tuple(np.concatenate(
+        [a, np.zeros((rows - a.shape[0],) + a.shape[1:], a.dtype)])
+        for a in arrays)
+
+
 class BatchedPredictor:
     """Size-bucketed async batcher over a global clip pool.
 
@@ -343,12 +353,6 @@ class BatchedPredictor:
             "capsim_predictor_in_flight",
             "Un-retired device batches (the double buffer).",
             ("instance",)).labels(instance=self.instance)
-        self._h_occupancy = m.histogram(
-            "capsim_predictor_bucket_occupancy",
-            "Real-row share of each dispatched bucket.",
-            ("instance",),
-            buckets=(0.25, 0.5, 0.75, 0.9, 0.99, 1.0)).labels(
-                instance=self.instance)
         if fault_injector is None and config.faults:
             # deferred import: repro_torch.serving imports this module
             from repro_torch.serving.faults import FaultInjector
@@ -430,8 +434,7 @@ class BatchedPredictor:
         self._buffered += tok.shape[0]
         self._c_clips.inc(tok.shape[0])
         while self._buffered >= self.batch_size:
-            tok_b, ctx_b, mask_b = self._take(self.batch_size)
-            self._dispatch(tok_b, ctx_b, mask_b, self.batch_size)
+            self._dispatch(self.batch_size, self.batch_size)
 
     def _take(self, k: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Pop exactly k rows off the buffer head."""
@@ -462,30 +465,39 @@ class BatchedPredictor:
                 "cannot reset context width with clips still buffered")
         self._ctx_width = None
 
-    def _dispatch(self, tok, ctx, mask, n_real: int) -> None:
-        # the span includes any blocking retires forced by the in-flight cap
+    def _dispatch(self, n_real: int, shape: int) -> None:
+        """Dispatch the buffer's next ``n_real`` rows as one batch of
+        ``shape`` rows, the rest fully masked zero rows.  Phases:
+        ``batch`` (the rows off the buffer, the padding, the host
+        tensors), ``h2d`` (their copies to the device) and ``launch`` (the
+        forward: the host's time to enqueue its kernels); on a mesh each
+        shard copies its own rows inside ``launch``.  The dispatch's span
+        includes any blocking retires forced by the in-flight cap."""
         with self.obs.span("predict.dispatch", instance=self.instance):
-            self._dispatch_inner(tok, ctx, mask, n_real)
-
-    def _dispatch_inner(self, tok, ctx, mask, n_real: int) -> None:
-        if self._faults is not None:
-            # chaos layer: may stall (slow_flush) or raise (device_error)
-            # where a real device failure would surface
-            self._faults.on_dispatch()
-        batch = self._host_batch(tok, ctx, mask)
-        if self._mesh is not None:
-            outs = self._predict_sharded(batch)
-        else:
-            outs = [self._predict({k: v.to(self.device)
-                                   for k, v in batch.items()})]
-        self._pending.append((outs, n_real))
-        shape = tok.shape[0]
-        self._fam_batches.labels(instance=self.instance, shape=shape).inc()
-        self._c_pad.inc(shape - n_real)
-        self._h_occupancy.observe(n_real / shape)
-        while len(self._pending) > self.max_in_flight:
-            self._retire()
-        self._g_in_flight.set(len(self._pending))
+            with self.obs.span("predict.batch", instance=self.instance):
+                tok, ctx, mask = self._take(n_real)
+                if shape > n_real:
+                    tok, ctx, mask = _pad_rows((tok, ctx, mask), shape)
+                batch = self._host_batch(tok, ctx, mask)
+            if self._faults is not None:
+                # chaos layer: may stall (slow_flush) or raise
+                # (device_error) where a real device failure would surface
+                self._faults.on_dispatch()
+            if self._mesh is not None:
+                with self.obs.span("predict.launch", instance=self.instance):
+                    outs = self._predict_sharded(batch)
+            else:
+                with self.obs.span("predict.h2d", instance=self.instance):
+                    batch = {k: v.to(self.device) for k, v in batch.items()}
+                with self.obs.span("predict.launch", instance=self.instance):
+                    outs = [self._predict(batch)]
+            self._pending.append((outs, n_real))
+            self._fam_batches.labels(instance=self.instance,
+                                     shape=shape).inc()
+            self._c_pad.inc(shape - n_real)
+            while len(self._pending) > self.max_in_flight:
+                self._retire()
+            self._g_in_flight.set(len(self._pending))
 
     def _host_batch(self, tok, ctx, mask) -> dict:
         """One dispatch's rows as host tensors.  The fused step's context
@@ -566,24 +578,13 @@ class BatchedPredictor:
 
     def _drain_inner(self) -> np.ndarray:
         if self._buffered:
+            # the remainder pads to the smallest bucket that holds it.  On
+            # a mesh the bucket floor is max(8, n_shards): a pool smaller
+            # than the mesh pads to a full set of shards, and the
+            # [:n_real] in _retire drops the pads
             n = self._buffered
-            tok, ctx, mask = self._take(n)
-            bucket = min((b for b in self.buckets if b >= n),
-                         default=self.batch_size)
-            pad = bucket - n
-            if pad:
-                # zero rows: an all-<PAD> token row / the cache's pad slot,
-                # with a zero mask that excludes the row entirely.  On a
-                # mesh the bucket floor is max(8, n_shards): a pool
-                # smaller than the mesh pads to a full set of shards, and
-                # the [:n_real] in _retire drops the pads
-                tok = np.concatenate(
-                    [tok, np.zeros((pad,) + tok.shape[1:], tok.dtype)])
-                ctx = np.concatenate(
-                    [ctx, np.zeros((pad,) + ctx.shape[1:], ctx.dtype)])
-                mask = np.concatenate(
-                    [mask, np.zeros((pad,) + mask.shape[1:], mask.dtype)])
-            self._dispatch(tok, ctx, mask, n)
+            self._dispatch(n, min((b for b in self.buckets if b >= n),
+                                  default=self.batch_size))
         while self._pending:
             self._retire()
         self._g_in_flight.set(0)

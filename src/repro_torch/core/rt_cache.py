@@ -355,11 +355,15 @@ class RTCache:
 
     def index_clips(self, clip_tokens: np.ndarray) -> np.ndarray:
         """Serving-path adapter: (n, L_clip, L_token) tokenized clips ->
-        (n, L_clip) int32 RT row ids.  All-<PAD> slots land on row 0."""
-        n, L, T = clip_tokens.shape
-        uniq, inv = dedupe_token_rows(clip_tokens.reshape(n * L, T))
-        ids = self.ensure_rows(uniq)
-        return ids[inv].reshape(n, L).astype(np.int32)
+        (n, L_clip) int32 RT row ids.  All-<PAD> slots land on row 0.
+        Spans: ``rt.index`` over the call, ``rt.dedupe`` over its
+        ``dedupe_token_rows`` (``rt.build`` over any encode)."""
+        with self.obs.span("rt.index", instance=self.instance):
+            n, L, T = clip_tokens.shape
+            with self.obs.span("rt.dedupe", instance=self.instance):
+                uniq, inv = dedupe_token_rows(clip_tokens.reshape(n * L, T))
+            ids = self.ensure_rows(uniq)
+            return ids[inv].reshape(n, L).astype(np.int32)
 
     @torch.inference_mode()
     def _flush(self, rows: np.ndarray, pending: Dict[bytes, int]) -> None:

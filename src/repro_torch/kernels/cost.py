@@ -1,4 +1,15 @@
-"""The work of kernel calls that did not launch: the meta route.
+"""The work of kernel calls: counted from shapes, on the card and on meta.
+
+On the card, each launch of a wrapper adds its FLOPs and HBM bytes
+(the ops module's ``*_cost``) to the registry (``launched``):
+``capsim_kernel_flops_total{kernel, dtype, bound}`` and
+``capsim_kernel_bytes_total{kernel, dtype, bound}``, where ``bound`` is
+the side of ``launch/roofline.py``'s ridge (the dtype's peak FLOP/s over
+``HBM_BW``) the launch falls on: ``ops`` or ``bytes``.  A reader then
+has the launches' least time exactly, as the ``ops`` FLOPs at the peak
+plus the ``bytes`` bytes at the memory's rate.  The launches themselves
+are counted on the wrapper (``build.count_launch``); an SSD call's four
+kernels count as one.
 
 A kernel wrapper given ``meta`` tensors (shapes without storage, as the
 dry-run runs a step, ``launch/dryrun.py``) computes nothing: it returns
@@ -15,7 +26,18 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.launch import roofline
+from repro_torch.obs import REGISTRY
+from repro_torch.obs.metrics import CounterGroup
+
+FLOPS_TOTAL = "capsim_kernel_flops_total"
+BYTES_TOTAL = "capsim_kernel_bytes_total"
+PEAK_FLOPS = {torch.bfloat16: roofline.PEAK_FLOPS_BF16,
+              torch.float32: roofline.PEAK_FLOPS_F32}
 
 
 @dataclasses.dataclass
@@ -64,3 +86,35 @@ def report(name: str, flops: float, nbytes: float) -> None:
     with _LOCK:
         for costs in _OPEN:
             costs.add(name, flops, nbytes)
+
+
+def bound(flops: float, nbytes: float, dtype: torch.dtype) -> str:
+    """``ops`` where a launch's FLOPs at the dtype's peak take at least
+    as long as its bytes at ``HBM_BW``, else ``bytes``."""
+    return ("ops" if flops * roofline.HBM_BW >= nbytes * PEAK_FLOPS[dtype]
+            else "bytes")
+
+
+_GROUPS: Dict[Tuple[str, torch.dtype, str], CounterGroup] = {}
+
+
+def launched(name: str, dtype: torch.dtype, flops: float,
+             nbytes: float) -> None:
+    """A launch of kernel ``name`` on the card: its FLOPs and its bytes
+    added to the registry's ``capsim_kernel_*`` cells of its dtype and
+    bound, under one acquire of the registry's lock."""
+    side = bound(flops, nbytes, dtype)
+    group = _GROUPS.get((name, dtype, side))
+    if group is None:
+        dt = str(dtype).removeprefix("torch.")
+        group = CounterGroup(
+            REGISTRY.counter(FLOPS_TOTAL, "FLOPs of the launches, by the "
+                             "side of the roofline's ridge they fall on.",
+                             ("kernel", "dtype", "bound")).labels(
+                kernel=name, dtype=dt, bound=side),
+            REGISTRY.counter(BYTES_TOTAL, "HBM bytes of the launches, by "
+                             "the side of the roofline's ridge they fall "
+                             "on.", ("kernel", "dtype", "bound")).labels(
+                kernel=name, dtype=dt, bound=side))
+        group = _GROUPS.setdefault((name, dtype, side), group)
+    group.inc(flops, nbytes)

@@ -17,7 +17,8 @@ version and differentiates that, as the reference's custom VJP
 recomputes through ``attention_ref``.  The forward launch is the same
 either way: same arguments, same bits, one launch counted
 (``flash_attention.launches``; ``flash_attention.heads`` counts the
-launches by q's head count).
+launches by q's head count), its ``attention_cost`` added to the
+registry's ``capsim_kernel_*`` counters (``kernels.cost.launched``).
 On ``meta`` tensors (the dry-run's, ``launch/dryrun.py``) nothing runs:
 the wrapper returns an empty output of the shape the kernel writes and
 reports ``attention_cost``, the launch's FLOPs and HBM bytes, to
@@ -40,8 +41,7 @@ import math
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
-
+from repro_torch import obs
 from repro_torch.kernels import build, cost
 
 NEG_INF = -1e30
@@ -124,13 +124,17 @@ def attention_cost(B: int, Sq: int, Skv: int, H: int, D: int,
     return 4.0 * B * H * pairs * D, float(nbytes)
 
 
+def launch_cost(q, k, aux, causal: bool):
+    """``attention_cost`` of one launch over q (B, Sq, H, D) and k."""
+    B, Sq, H, D = q.shape
+    return attention_cost(B, Sq, k.shape[1], H, D, q.element_size(),
+                          aux is not None, causal)
+
+
 def meta_attention(name: str, q, k, aux, causal: bool) -> torch.Tensor:
     """The meta route of an attention wrapper: report the launch's cost
     (``attention_cost``) and return an empty (B, Sq, H, D) output."""
-    B, Sq, H, D = q.shape
-    cost.report(name, *attention_cost(B, Sq, k.shape[1], H, D,
-                                      q.element_size(), aux is not None,
-                                      causal))
+    cost.report(name, *launch_cost(q, k, aux, causal))
     return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
@@ -263,9 +267,10 @@ def flash_attention_backward(q, k, v, kv_mask, g, causal: bool = False,
                              window: int = 0):
     """(dq, dk, dv) of ``flash_attention`` at q/k/v for the output
     gradient ``g``: the attention recomputed through
-    ``flash_attention_plain`` and differentiated by autograd, in a
-    ``torch.profiler`` range of the same name."""
-    with torch.enable_grad(), record_function("flash_attention_backward"):
+    ``flash_attention_plain`` and differentiated by autograd, in a span
+    of the same name (``obs.span``: a profiler range while one
+    records)."""
+    with torch.enable_grad(), obs.span("flash_attention_backward"):
         qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
         o = flash_attention_plain(*qkv, causal=causal, window=window,
                                   kv_mask=kv_mask)
@@ -317,6 +322,7 @@ def _launch(q, k, v, kv_mask, causal: bool, window: int) -> torch.Tensor:
         return meta_attention("flash_attention", q, k, kv_mask, causal)
     lib, fn = _kernel()
     D = q.shape[3]
+    work = launch_cost(q, k, kv_mask, causal)
     q, k, v = pad_head_dim(q, k, v)
     o = torch.empty_like(q)     # q's head and feature axes are dense
     stream = current_stream(q.device)
@@ -325,6 +331,7 @@ def _launch(q, k, v, kv_mask, causal: bool, window: int) -> torch.Tensor:
     check_aligned(rc, q, k, v, "flash_attention")
     build.check(lib, rc, "flash_attention")
     build.count_launch(flash_attention, heads=q.shape[2])
+    cost.launched("flash_attention", q.dtype, *work)
     return o if o.shape[3] == D else o[..., :D].contiguous()
 
 

@@ -30,12 +30,13 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.flash_attention.ops import (ARG_TYPES,
                                                      check_aligned,
                                                      check_attention_args,
                                                      current_stream,
                                                      launch_args,
+                                                     launch_cost,
                                                      meta_attention,
                                                      pad_head_dim,
                                                      softmax_pv_plain)
@@ -83,6 +84,7 @@ def weighted_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return meta_attention("weighted_attention", q, k, kv_weight, False)
     lib, fn = _kernel()
     D = q.shape[3]
+    work = launch_cost(q, k, kv_weight, False)
     q, k, v = pad_head_dim(q, k, v)
     o = torch.empty_like(q)     # q's head and feature axes are dense
     stream = current_stream(q.device)
@@ -90,6 +92,7 @@ def weighted_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_aligned(rc, q, k, v, "weighted_attention")
     build.check(lib, rc, "weighted_attention")
     build.count_launch(weighted_attention)
+    cost.launched("weighted_attention", q.dtype, *work)
     return o if o.shape[3] == D else o[..., :D].contiguous()
 
 

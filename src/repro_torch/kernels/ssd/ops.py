@@ -41,7 +41,9 @@ first and masked after gives the right forward but ``0 · inf = NaN`` in
 its gradient.  The kernels' f32 workspace (C·Bᵀ per chunk and
 one state per chunk and head, about x's size in bf16 at the Mamba2
 shapes) is allocated here, on x's device.  A call counts one launch
-(``ssd_scan.launches``) and one under its head count in ``ssd_scan.heads``.
+(``ssd_scan.launches``) and one under its head count in ``ssd_scan.heads``,
+and adds its ``ssd_cost`` to the registry's ``capsim_kernel_*`` counters
+(``kernels.cost.launched``).
 """
 from __future__ import annotations
 
@@ -227,6 +229,8 @@ def _launch(x, dt, B, C, A, chunk: int):
             y.stride(0), y.stride(1), workspace.data_ptr(), stream)
     build.check(lib, rc, f"ssd_scan (head_dim {P}, d_state {N}, chunk {q})")
     build.count_launch(ssd_scan, heads=H)
+    cost.launched("ssd", x.dtype,
+                  *ssd_cost(Bt, S, H, P, N, q, x.element_size()))
     return y, state
 
 

@@ -2,10 +2,16 @@
 
 :class:`Observability` is the bundle components hold.  Its
 :meth:`~Observability.span` primitive always times (the registry is the
-system of record — the Stats view classes read it back), and feeds the
-tracer ring only when tracing is enabled, so one ``with obs.span(...)``
-stanza replaces both the old ad-hoc ``time.time()`` accounting and the
-bench-only ``perf_counter`` breakdowns.
+system of record — the Stats view classes read it back), feeds the
+tracer ring only when tracing is enabled, and, while a ``torch.profiler``
+is recording, opens a profiler range of the span's name
+(``record_function``, a user annotation), so one ``with obs.span(...)``
+stanza is a registry series, a ``--trace-out`` span and a range of a
+device trace.  With no profiler recording a span makes no torch call:
+it reads one bool.  The tracer stamps spans on the profiler's clock
+(Unix-epoch nanoseconds, ``trace.epoch_ns``).  Code with no bundle of
+its own (the train step, a kernel's backward) uses the module-level
+:func:`span` on the process's default bundle.
 
 Construction::
 
@@ -21,19 +27,21 @@ private enabled :class:`Tracer` the owner can dump with
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, Optional, Tuple
+
+from torch.autograd import profiler as _profiler
 
 from .flight import POSTMORTEM_SCHEMA_VERSION, FlightRecorder
 from .metrics import (COUNTER, DEFAULT_TIME_BUCKETS, GAUGE, HISTOGRAM,
                       REGISTRY, MetricsRegistry, exp_buckets)
-from .trace import NULL_SPAN, TRACER, SpanRecord, Tracer
+from .trace import NULL_SPAN, TRACER, SpanRecord, Tracer, epoch_ns
 
 __all__ = [
     "COUNTER", "GAUGE", "HISTOGRAM", "DEFAULT_TIME_BUCKETS", "REGISTRY",
     "TRACER", "NULL_SPAN", "POSTMORTEM_SCHEMA_VERSION", "MetricsRegistry",
     "Tracer", "SpanRecord", "FlightRecorder", "Observability",
-    "exp_buckets", "SPAN_SECONDS_TOTAL", "SPAN_SECONDS_HIST",
+    "exp_buckets", "epoch_ns", "span", "DEFAULT",
+    "SPAN_SECONDS_TOTAL", "SPAN_SECONDS_HIST",
 ]
 
 SPAN_SECONDS_TOTAL = "capsim_span_seconds_total"
@@ -41,9 +49,11 @@ SPAN_SECONDS_HIST = "capsim_span_seconds"
 
 
 class _ObsSpan:
-    """Times one span; writes the registry always, the tracer if on."""
+    """Times one span; writes the registry always, the tracer if on, a
+    profiler range while a profiler records."""
 
-    __slots__ = ("_obs", "_name", "_instance", "_args", "_start", "seconds")
+    __slots__ = ("_obs", "_name", "_instance", "_args", "_range", "_start",
+                 "seconds")
 
     def __init__(self, obs: "Observability", name: str, instance: str,
                  args: Optional[Dict[str, object]]):
@@ -54,11 +64,17 @@ class _ObsSpan:
         self.seconds = 0.0
 
     def __enter__(self):
-        self._start = time.perf_counter_ns()
+        self._range = None
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(self._name)
+            self._range.__enter__()
+        self._start = epoch_ns()
         return self
 
     def __exit__(self, *exc):
-        dur_ns = time.perf_counter_ns() - self._start
+        dur_ns = epoch_ns() - self._start
+        if self._range is not None:
+            self._range.__exit__(*exc)
         self.seconds = dur_ns * 1e-9
         self._obs._record_span(self._name, self._instance, self._start,
                                dur_ns, self._args)
@@ -135,3 +151,13 @@ class Observability:
                                               if self.tracer.enabled
                                               else None),
                                       metrics=self.metrics)
+
+
+#: The process's default bundle: the global registry and tracer.
+DEFAULT = Observability()
+
+
+def span(name: str, instance: str = "",
+         args: Optional[Dict[str, object]] = None) -> _ObsSpan:
+    """A span on the default bundle (:data:`DEFAULT`)."""
+    return DEFAULT.span(name, instance, args)

@@ -139,6 +139,27 @@ class HistogramHandle:
             self._cell.n += 1
 
 
+class CounterGroup:
+    """Counter cells of one registry that are always written together:
+    ``inc`` adds to each under one acquire of the registry's lock."""
+
+    __slots__ = ("_lock", "_cells")
+
+    def __init__(self, *handles: CounterHandle):
+        if any(h._lock is not handles[0]._lock for h in handles):
+            raise ValueError("a counter group's cells share one registry")
+        self._lock = handles[0]._lock
+        self._cells = tuple(h._cell for h in handles)
+
+    def inc(self, *values: float) -> None:
+        """Add ``values[i]`` to the i-th cell (none may be negative)."""
+        if min(values) < 0:
+            raise ValueError("counters only go up; use a gauge")
+        with self._lock:
+            for cell, v in zip(self._cells, values):
+                cell[0] += v
+
+
 class Family:
     """One named metric family; cells are resolved by label values."""
 

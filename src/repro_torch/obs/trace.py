@@ -1,7 +1,8 @@
 """Low-overhead span tracer with Chrome-trace-event / Perfetto export.
 
-Spans time with :func:`time.perf_counter_ns`, track nesting depth via
-thread-local span stacks, and land in a bounded ring buffer
+Spans are stamped on the clock ``torch.profiler``'s (Kineto's) events
+use, nanoseconds since the Unix epoch (:func:`epoch_ns`), track nesting
+depth via thread-local span stacks, and land in a bounded ring buffer
 (``deque(maxlen=ring_size)``) so a long-running service never grows
 without bound.  When the tracer is disabled, :meth:`Tracer.span`
 returns the shared :data:`NULL_SPAN` singleton — no allocation, no
@@ -9,8 +10,10 @@ clock read — which is what keeps always-present instrumentation out of
 the hot path's profile.
 
 ``export_chrome()`` emits the Chrome trace-event JSON format (complete
-``"ph": "X"`` events, microsecond timestamps); open the file at
-https://ui.perfetto.dev to get a zoomable per-thread timeline.
+``"ph": "X"`` events, timestamps in microseconds since the epoch); open
+the file at https://ui.perfetto.dev to get a zoomable per-thread
+timeline, beside a ``torch.profiler`` export of the same process on one
+time axis.
 """
 from __future__ import annotations
 
@@ -19,6 +22,18 @@ import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional
+
+# The monotonic counter placed on the epoch by one offset read at import:
+# a span's duration never moves with a step of the wall clock, and its
+# start lies where Kineto, which stamps its events in Unix-epoch
+# nanoseconds, puts the same instant (unless the wall clock has stepped
+# since import).
+_EPOCH_OFFSET_NS = time.time_ns() - time.perf_counter_ns()
+
+
+def epoch_ns() -> int:
+    """Now, in nanoseconds since the Unix epoch, on a monotonic clock."""
+    return time.perf_counter_ns() + _EPOCH_OFFSET_NS
 
 
 class _NullSpan:
@@ -67,11 +82,11 @@ class _LiveSpan:
 
     def __enter__(self):
         self._tracer._stack().append(self)
-        self._start = time.perf_counter_ns()
+        self._start = epoch_ns()
         return self
 
     def __exit__(self, *exc):
-        end = time.perf_counter_ns()
+        end = epoch_ns()
         stack = self._tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -91,7 +106,6 @@ class Tracer:
         self._ring: deque = deque(maxlen=int(ring_size))
         self._lock = threading.Lock()
         self._tls = threading.local()
-        self._t0_ns = time.perf_counter_ns()
 
     # -- internals ----------------------------------------------------------
     def _stack(self) -> list:
@@ -127,7 +141,7 @@ class Tracer:
         """Record a zero-duration instant event (tier trips, faults)."""
         if not self.enabled:
             return
-        self._append(SpanRecord(name, cat, time.perf_counter_ns(), None,
+        self._append(SpanRecord(name, cat, epoch_ns(), None,
                                 threading.get_ident(),
                                 len(self._stack()), args))
 
@@ -149,7 +163,7 @@ class Tracer:
         events = []
         for rec in self.spans():
             ev = {"name": rec.name, "cat": rec.cat,
-                  "ts": (rec.start_ns - self._t0_ns) / 1e3,
+                  "ts": rec.start_ns / 1e3,
                   "pid": 0, "tid": rec.tid}
             if rec.dur_ns is None:
                 ev["ph"] = "i"

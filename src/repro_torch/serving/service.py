@@ -62,6 +62,14 @@ straggler only gathers rows below the count it saw, which nothing writes
 again (``core/rt_cache.py``).  A late straggler can therefore never
 corrupt a retry's results.
 
+Clocks.  Arrivals, deadlines and every interval (``ServiceResult``'s
+``queue_seconds``/``service_seconds``, the flush histogram, the queue
+wait) are on the monotonic ``time.perf_counter()``: a step of the wall
+clock moves none of them.  The worker's spans (``service.wait``,
+``service.collect``, ``service.flush``, ``service.resolve``) and the
+predictor's (``predict.*``) are registry series and, while a
+``torch.profiler`` records, ranges of its trace.
+
 Like every entry point of the port, the service runs on the card unless
 the caller passes ``device="cpu"``.
 """
@@ -98,6 +106,7 @@ ADMISSION_TOTAL = "capsim_service_admission_total"
 QUEUE_DEPTH = "capsim_service_queue_depth"
 QUEUED_CLIPS = "capsim_service_queued_clips"
 FLUSH_SECONDS = "capsim_service_flush_seconds"
+QUEUE_WAIT_SECONDS = "capsim_service_queue_wait_seconds"
 ABANDONED_THREADS = "capsim_service_abandoned_flush_threads"
 ABANDONED_THREADS_TOTAL = "capsim_service_abandoned_flush_threads_total"
 
@@ -200,8 +209,8 @@ class ServiceTicket:
 class _QueuedRequest:
     req: Request
     ticket: ServiceTicket
-    arrival: float
-    deadline: float                      # absolute time
+    arrival: float                       # time.perf_counter() at submit
+    deadline: float                      # arrival + the deadline's seconds
 
 
 class TierStats:
@@ -483,6 +492,10 @@ class SimulationService:
         self._h_flush = m.histogram(
             FLUSH_SECONDS, "Watchdogged flush latency by serving tier.",
             ("instance", "tier"))
+        self._h_queue_wait = m.histogram(
+            QUEUE_WAIT_SECONDS,
+            "A served request's wait from admission to its flush's start.",
+            ("instance",)).labels(instance=self.instance)
         self._g_abandoned = m.gauge(
             ABANDONED_THREADS,
             "Abandoned watchdog flush threads still alive.",
@@ -531,7 +544,7 @@ class SimulationService:
             self._running = False
             self._draining = drain
             if not drain:
-                now = time.time()
+                now = time.perf_counter()
                 while self._queue:
                     qr = self._queue.popleft()
                     self._queued_clips -= qr.ticket.n_clips
@@ -595,7 +608,7 @@ class SimulationService:
         ticket = ServiceTicket(req.request_id, n_clips)
         deadline = (deadline_s if deadline_s is not None
                     else self.sla.default_deadline_s)
-        now = time.time()
+        now = time.perf_counter()
         with self._cond:
             self._n_submitted += 1
             if not self._running:
@@ -664,15 +677,23 @@ class SimulationService:
             self._serve_forever()
 
     def _serve_forever(self) -> None:
+        """The worker: wait on an empty queue (span ``service.wait``, one
+        a wake-up of at most 50 ms, so a window's reading of the span
+        counts at most 50 ms of waiting from before it), pop a window
+        (``service.collect``), serve it (``_serve_batch``)."""
         while True:
             with self._cond:
                 while not self._queue:
                     if not self._running:
                         return
-                    self._cond.wait(0.05)
+                    with self.obs.span("service.wait",
+                                       instance=self.instance):
+                        self._cond.wait(0.05)
                 if not self._running and not self._draining:
                     return
-                batch = self._collect_window()
+                with self.obs.span("service.collect",
+                                   instance=self.instance):
+                    batch = self._collect_window()
             if batch:
                 self._serve_batch(batch)
 
@@ -681,7 +702,7 @@ class SimulationService:
         everything queued, up to ``max_flush_clips``.  Requests already
         past their deadline resolve here — typed, without burning a
         flush on work nobody is waiting for."""
-        now = time.time()
+        now = time.perf_counter()
         window: List[_QueuedRequest] = []
         clips = 0
         while self._queue and clips < self.sla.max_flush_clips:
@@ -702,15 +723,22 @@ class SimulationService:
 
     def _serve_batch(self, batch: List[_QueuedRequest]) -> None:
         """Serve one window, walking down the tier ladder on faults.
-        Every request in the window ends resolved, whatever happens."""
-        t_start = time.time()
+        Every request in the window ends resolved, whatever happens.
+        Each request's wait from admission to now is observed once in
+        ``capsim_service_queue_wait_seconds``; spans ``service.flush``
+        (each watchdogged flush, its thread's start and join included)
+        and ``service.resolve`` (the healthy flush's results scattered
+        to the tickets, the rate and the ladder updated)."""
+        t_start = time.perf_counter()
+        for qr in batch:
+            self._h_queue_wait.observe(t_start - qr.arrival)
         attempts = 0
         max_attempts = len(self._tiers) + 2
         last_error = "unknown"
         while batch and attempts < max_attempts:
             attempts += 1
             # deadlines may expire between (watchdogged) attempts
-            now = time.time()
+            now = time.perf_counter()
             still: List[_QueuedRequest] = []
             for qr in batch:
                 if now > qr.deadline:
@@ -731,7 +759,8 @@ class SimulationService:
             tier = self._tiers[idx]
             ts = self.tier_stats[idx]
             try:
-                times, flush_s = self._flush_watchdogged(tier, batch)
+                with self.obs.span("service.flush", instance=self.instance):
+                    times, flush_s = self._flush_watchdogged(tier, batch)
             except FlushTimeout:
                 ts.inc("watchdog_trips")
                 tier.invalidate_backend()
@@ -767,33 +796,35 @@ class SimulationService:
                     continue
 
             # healthy flush: resolve, update throughput, maybe promote
-            ts.inc("flushes")
-            ts.inc("clips", int(times.shape[0]))
-            if flush_s > 1e-6:
-                rate = times.shape[0] / flush_s
-                self._rate = (rate if self._rate is None
-                              else 0.5 * self._rate + 0.5 * rate)
-            status = STATUS_OK if idx == 0 else STATUS_DEGRADED
-            done_t = time.time()
-            off = 0
-            for qr in batch:
-                k = qr.ticket.n_clips
-                self._finish(qr, ServiceResult(
-                    request_id=qr.req.request_id, status=status,
-                    total_cycles=float(times[off:off + k].sum()),
-                    tier=tier.name, n_clips=k,
-                    queue_seconds=t_start - qr.arrival,
-                    service_seconds=done_t - t_start))
-                off += k
-            promoted = self._ctrl.on_healthy()
-            if promoted is not None:
-                self.tier_stats[promoted].inc("promotions")
-                self._transition(tier.name, self._tiers[promoted].name,
-                                 "promotion")
+            with self.obs.span("service.resolve", instance=self.instance):
+                ts.inc("flushes")
+                ts.inc("clips", int(times.shape[0]))
+                if flush_s > 1e-6:
+                    rate = times.shape[0] / flush_s
+                    self._rate = (rate if self._rate is None
+                                  else 0.5 * self._rate + 0.5 * rate)
+                status = STATUS_OK if idx == 0 else STATUS_DEGRADED
+                done_t = time.perf_counter()
+                off = 0
+                for qr in batch:
+                    k = qr.ticket.n_clips
+                    self._finish(qr, ServiceResult(
+                        request_id=qr.req.request_id, status=status,
+                        total_cycles=float(times[off:off + k].sum()),
+                        tier=tier.name, n_clips=k,
+                        queue_seconds=t_start - qr.arrival,
+                        service_seconds=done_t - t_start))
+                    off += k
+                promoted = self._ctrl.on_healthy()
+                if promoted is not None:
+                    self.tier_stats[promoted].inc("promotions")
+                    self._transition(tier.name,
+                                     self._tiers[promoted].name,
+                                     "promotion")
             return
 
         # ladder exhausted (or attempt cap): typed failure, never a hang
-        now = time.time()
+        now = time.perf_counter()
         for qr in batch:
             self._finish(qr, ServiceResult(
                 request_id=qr.req.request_id, status=STATUS_FAILED,
@@ -839,7 +870,7 @@ class SimulationService:
         stuck thread is abandoned — see the module docstring)."""
         box: Dict[str, object] = {}
         done = threading.Event()
-        t0 = time.time()
+        t0 = time.perf_counter()
 
         def _run():
             try:
@@ -860,7 +891,7 @@ class SimulationService:
             raise FlushTimeout(tier.name)
         if "exc" in box:
             raise box["exc"]                  # type: ignore[misc]
-        flush_s = time.time() - t0
+        flush_s = time.perf_counter() - t0
         self._h_flush.labels(instance=self.instance,
                              tier=tier.name).observe(flush_s)
         if tier.cache is not None:
@@ -971,12 +1002,13 @@ class SimulationService:
         to finish; returns how many are still running.  Call it before
         the process exits: a thread killed inside a torch call at
         interpreter shutdown aborts the process."""
-        deadline = None if timeout is None else time.time() + timeout
+        deadline = (None if timeout is None
+                    else time.perf_counter() + timeout)
         with self._lock:
             threads = list(self._abandoned)
         for th in threads:
             th.join(None if deadline is None
-                    else max(deadline - time.time(), 0.0))
+                    else max(deadline - time.perf_counter(), 0.0))
         with self._lock:
             self._prune_abandoned()
             return len(self._abandoned)

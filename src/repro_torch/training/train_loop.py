@@ -15,11 +15,12 @@ The reference seeds its accumulation with the LM zoo's keys (``ce``,
 ``mape_loss``'s ``mape``, fails with ``microbatches > 1``; where the
 reference runs, the two agree.  ``metrics`` are 0-d tensors.
 
-A step marks its parts for ``torch.profiler`` with ``record_function``
-ranges: ``train/forward`` (the loss), ``train/backward`` (the gradients;
-the autograd engine launches their kernels from its own thread, outside
-this range) and ``train/update`` (clipping, compression, the schedule
-and the optimizer).
+A step marks its parts with spans (``obs.span``: a registry series, and
+a ``torch.profiler`` range while a profiler records): ``train/forward``
+(the loss), ``train/backward`` (the gradients; the autograd engine
+launches their kernels from its own thread, outside this range) and
+``train/update`` (clipping, compression, the schedule and the
+optimizer).
 
 Under a mesh (``sharding.use_mesh_and_rules``), the step is given the
 global batch on every rank and takes the rank's rows
@@ -50,8 +51,8 @@ import dataclasses
 from typing import Callable
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch import obs
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.compression import (compress_decompress,
                                                  init_error_feedback)
@@ -153,9 +154,9 @@ def value_and_grad(loss_fn: Callable, params, batch):
             tree_map(lambda p: p.detach().requires_grad_(True), params),
             params)
         leaves = tree_leaves(live)
-        with record_function("train/forward"):
+        with obs.span("train/forward"):
             loss, aux = loss_fn(live, batch)
-        with record_function("train/backward"):
+        with obs.span("train/backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     by_leaf = {id(p): g for p, g in zip(leaves, grads)}
     grads = tree_map(lambda p: torch.zeros_like(p) if by_leaf[id(p)] is None
@@ -275,7 +276,7 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
         params = state["params"]
         loss, aux, grads = grad_fn(params, batch)
         new_state = dict(state)
-        with record_function("train/update"):
+        with obs.span("train/update"):
             grads, gnorm = _clip_by_global_norm(
                 inherit_marks(grads, params), tcfg.grad_clip)
             if tcfg.compress_grads:
