@@ -60,6 +60,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               others (weighted bf16 U=64 <= 0.045 ms, weighted f32 below
               the first kernel's times, flash's block-shape device times
               within 5% of the previous body's) are reported.
+ 4b. embedding the token table's gradient kernel
+              (``csrc/embedding_grad.cu``, no TPU kernel: added for
+              PyTorch's serial ``indexing_backward_kernel``) against its
+              plain version at the train cells' shapes into the paper's
+              512 x 128 f32 table (an instruction-encoder pass of 4096 x
+              16 ids, the contexts of 256 x 360 and 32 x 1476), int32 and
+              int64 ids, and at a 1500-id table over 72 columns (three
+              vocabulary tiles, ragged columns, negative ids): each entry
+              within 1e-6 of the sum of its |values|; two calls the same
+              bits.  Timed at the three shapes like phase 4: kernel ms,
+              its two kernels' device ms, the bound (bytes), the plain
+              version (``index_add_``), as ``library_ms`` the backward of
+              ``F.embedding`` (``embedding_dense_backward``: sorted ids,
+              partial segments; its error and whether two calls give the
+              same bits), and as ``index_put_ms`` PyTorch's
+              ``index_put_(accumulate=True)``, the gradient of
+              ``table[ids]`` that the port no longer calls.  The kernel's
+              launches are counted in the phases that train (train
+              capsim, train multicore, lstm, remat, examples), each against
+              its expected count where the phase fixes one.
   5. engine   ``SimulationEngine.run`` at the paper model's full width
               (E=128, 4 heads, 4+4 layers, M=360) with seeded random
               parameters, on the first 3 Table II benchmarks: unfused and
@@ -415,6 +435,13 @@ F32_TOL, BF16_TOL = 2e-5, 2e-2
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SSD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the embedding gradient's shapes at the paper's 512 x 128 table: (label,
+# ids shape), and its tolerance, a share of the sum of each entry's
+# |values| (f32 sums of the same values in another order)
+EMB_PATH = (("encoder_pass_4096x16", (4096, 16)),
+            ("context_b256_256x360", (256, 360)),
+            ("context_mc4_32x1476", (32, 1476)))
+EMB_VOCAB, EMB_WIDTH, EMB_TOL = 512, 128, 1e-6
 # the final state: in bf16 the operands formed in f32 enter the products
 # as hi and lo halves, so the state keeps f32 accuracy (y is rounded to
 # bf16 on both sides, so its max error is a bf16 ulp at the largest |y|)
@@ -1258,6 +1285,108 @@ def time_ssd(torch, ssd_ops):
               "per kernel: " + "; ".join(f"{k} {v:.4f}"
                                          for k, v in parts.items()))
     return rows
+
+
+def embedding_ids(torch, gen, shape, vocab, dtype):
+    """Token rows as the train cells hold them: ids in [1, vocab) with a
+    <PAD> (0) tail along the last axis, on the card."""
+    ids = torch.randint(1, vocab, shape, generator=gen)
+    lens = torch.randint(1, shape[-1] + 1, shape[:-1], generator=gen)
+    ids[torch.arange(shape[-1]) >= lens[..., None]] = 0
+    return ids.to("cuda", dtype)
+
+
+def check_embedding(torch, emb_ops):
+    """The embedding gradient kernel against its plain version, bitwise
+    repeatable, then timed (the module docstring's phase 4b).  Returns
+    (the rows of the timing, the largest error as a share of the sum of
+    |values|)."""
+    gen = torch.Generator().manual_seed(11)
+    cases = [(label, shape, EMB_VOCAB, EMB_WIDTH, dtype)
+             for label, shape in EMB_PATH
+             for dtype in (torch.int32, torch.int64)]
+    cases.append(("vocab_tiles_1500x72", (700, 16), 1500, 72, torch.int64))
+    worst = 0.0
+    for label, shape, vocab, width, dtype in cases:
+        ids = embedding_ids(torch, gen, shape, vocab, dtype)
+        if label.startswith("vocab_tiles"):
+            ids = torch.where(ids % 3 == 0, ids - vocab, ids)
+        g = torch.randn(*shape, width, generator=gen).cuda()
+        got = emb_ops.embedding_grad(g, ids, vocab)
+        again = emb_ops.embedding_grad(g, ids, vocab)
+        want = emb_ops.embedding_grad_plain(g, ids, vocab)
+        scale = emb_ops.embedding_grad_plain(g.abs(), ids, vocab)
+        torch.cuda.synchronize()
+        err = float(((got - want).abs() / scale.clamp(min=1e-30)).max())
+        print(f"kernel embedding_grad {label:22s} {str(dtype)[6:]:5s} "
+              f"ids={tuple(shape)} table={vocab}x{width} err/sum|g|="
+              f"{err:.3e} same_bits={torch.equal(got, again)}")
+        require(bool(((got - want).abs() <= EMB_TOL * scale).all()),
+                f"embedding_grad {label} {dtype}: {err:.3e} of the sum of "
+                f"|values| > {EMB_TOL}")
+        require(torch.equal(got, again), f"embedding_grad {label}: two "
+                "calls differ")
+        worst = max(worst, err)
+    rows = []
+    for label, shape in EMB_PATH:
+        ids = embedding_ids(torch, gen, shape, EMB_VOCAB, torch.int32)
+        g = torch.randn(*shape, EMB_WIDTH, generator=gen).cuda()
+        flat, g2 = ids.reshape(-1).long(), g.reshape(-1, EMB_WIDTH)
+        zeros = torch.zeros(EMB_VOCAB, EMB_WIDTH, device="cuda")
+        n = ids.numel()
+
+        def library():
+            """``F.embedding``'s backward (``padding_idx`` -1: none)."""
+            return torch.ops.aten.embedding_dense_backward(
+                g, ids, EMB_VOCAB, -1, False)
+        lib = library()
+        want = emb_ops.embedding_grad_plain(g, ids, EMB_VOCAB)
+        scale = emb_ops.embedding_grad_plain(g.abs(), ids, EMB_VOCAB)
+        lib_err = float(((lib - want).abs() / scale.clamp(min=1e-30)).max())
+        lib_same = torch.equal(lib, library())
+
+        def index_put():
+            return zeros.clone().index_put_((flat,), g2, accumulate=True)
+        row = {"shape": label, "dtype": "float32",
+               "ms": cuda_ms(torch, lambda: emb_ops.embedding_grad(
+                   g, ids, EMB_VOCAB)),
+               "plain_ms": cuda_ms(torch, lambda: emb_ops.
+                                   embedding_grad_plain(g, ids, EMB_VOCAB)),
+               "library_ms": cuda_ms(torch, library),
+               "index_put_ms": cuda_ms(torch, index_put)}
+        # every kernel of the two library paths, 5 calls under the profiler
+        libs = {what: device_profile(torch, lambda: [fn() for _ in range(5)],
+                                     8)[2:]
+                for what, fn in (("F.embedding backward", library),
+                                 ("index_put_ accumulate", index_put))}
+        parts = device_breakdown(torch, lambda: emb_ops.embedding_grad(
+            g, ids, EMB_VOCAB), 2)
+        row["device_ms"] = sum(parts.values())
+        row["bound_ms"], row["bound_by"] = _roof(*emb_ops.embedding_grad_cost(
+            n, EMB_VOCAB, EMB_WIDTH, 4), "float32")
+        chunks = emb_ops.chunk_count(n, EMB_VOCAB, EMB_WIDTH,
+                                     emb_ops._sm_count(0))
+        rows.append(row)
+        print(f"time embedding_grad {label:22s} float32 kernel_ms="
+              f"{row['ms']:.4f} device_ms={row['device_ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} library_ms="
+              f"{row['library_ms']:.4f} (F.embedding backward: "
+              f"err/sum|g|={lib_err:.3e}, same_bits={lib_same}) "
+              f"index_put_ms={row['index_put_ms']:.4f} (index_put_ "
+              f"accumulate) bound_ms="
+              f"{row['bound_ms']:.4f} ({row['bound_by']}) bound_share="
+              f"{row['bound_ms'] / row['ms']:.4f} device_bound_share="
+              f"{row['bound_ms'] / row['device_ms']:.4f} chunks={chunks}; "
+              "device ms per kernel: " + "; ".join(
+                  f"{re.sub(r'[(<].*', '', k.split('::')[-1])} {v:.4f}"
+                  for k, v in parts.items()))
+        for what, (busy, _, top) in libs.items():
+            print(f"time embedding_grad {label:22s} {what}: device ms a call "
+                  f"{1e3 * busy / 5:.4f}; its kernels (device ms a call, "
+                  "launches a call): " + "; ".join(
+                      f"{name[:90]} {ms / 5:.4f} x{n // 5}"
+                      for name, ms, n in top))
+    return rows, worst
 
 
 # --------------------------------------------------------------------- #
@@ -3589,6 +3718,15 @@ def recorded_steps(torch, train_mod, last: int):
         train_mod.make_train_step = make
 
 
+def emb_per_step(batch: int) -> int:
+    """The embedding gradient's launches in a CAPSim train step of
+    ``batch`` clips of 128 instructions: one a pass of the instruction
+    encoder (``predictor.ENCODE_CHUNK`` instructions) and one for the
+    context gather."""
+    from repro_torch.core import predictor
+    return -(-batch * 128 // predictor.ENCODE_CHUNK) + 1
+
+
 def steps_per_s(seen) -> float:
     """Steps a second of a recorded run: all its steps over the span from
     the first step's entry to the last step's end (its work done on the
@@ -3650,8 +3788,8 @@ def check_train_capsim(torch, fa_ops, wa_ops):
     CheckpointManager (every launch counter reset just before, read just
     after), and its restart, which resumes at the last step with the
     state bitwise the saved one; one step cut at its parts and under the
-    profiler; a throughput row at TRAIN_BIG_BATCH.  Returns the flash
-    launches of the trainer's run."""
+    profiler; a throughput row at TRAIN_BIG_BATCH.  Returns the trainer's
+    run's launches by kernel (flash, embedding gradient)."""
     import argparse
     import tempfile
     from repro_torch.core import predictor
@@ -3659,6 +3797,7 @@ def check_train_capsim(torch, fa_ops, wa_ops):
     from repro_torch.data.dataset import (BuildConfig, batches,
                                           build_dataset, split_dataset)
     from repro_torch.isa.progen import TABLE_II
+    from repro_torch.kernels.embedding import ops as emb_ops
     from repro_torch.launch import train as train_mod
     from repro_torch.training import train_loop as ttl
     from repro_torch.training.optimizer import tree_leaves
@@ -3735,26 +3874,32 @@ def check_train_capsim(torch, fa_ops, wa_ops):
         with recorded_steps(torch, train_mod, TRAIN_STEPS) as seen:
             fa_ops.flash_attention.launches = 0
             wa_ops.weighted_attention.launches = 0
+            emb_ops.embedding_grad.launches = 0
             t0 = time.perf_counter()
             state = train_mod.train_capsim(args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             n = (fa_ops.flash_attention.launches,
-                 wa_ops.weighted_attention.launches)
+                 wa_ops.weighted_attention.launches,
+                 emb_ops.embedding_grad.launches)
         peak = torch.cuda.max_memory_allocated() / 2**30
         mape = [float(loss) for loss in seen["losses"]]
         sps = steps_per_s(seen)
         n_eval = -(-len(val_ds) // TRAIN_BATCH)
-        # a train step's forward runs again in its backward under remat
+        # a train step's forward runs again in its backward under remat;
+        # its backward launches the embedding gradient once a gather: the
+        # instruction encoder's passes and the context (validation: none)
         per_step = 12 * (2 if cfg.remat else 1)
-        expect = (per_step * TRAIN_STEPS + 12 * n_eval, 0)
+        expect = (per_step * TRAIN_STEPS + 12 * n_eval, 0,
+                  TRAIN_STEPS * emb_per_step(TRAIN_BATCH))
         print(f"train capsim launcher: {len(mape)} steps in {wall:.2f} s "
               f"(data build and validation included); {sps:.2f} steps/s = "
               f"{sps * TRAIN_BATCH:.1f} clips/s (checkpoints every "
               f"{TRAIN_SAVE_EVERY} included); peak {peak:.2f} GiB; launches "
-              f"flash={n[0]} weighted={n[1]} (expected {expect}: 4 + 8 a "
-              f"forward, twice a step with remat={cfg.remat}, {n_eval} "
-              "validation batches)")
+              f"flash={n[0]} weighted={n[1]} embedding_grad={n[2]} "
+              f"(expected {expect}: 4 + 8 flash a forward, twice a step "
+              f"with remat={cfg.remat}, {n_eval} validation batches; "
+              f"{emb_per_step(TRAIN_BATCH)} embedding gradients a step)")
         require(n == expect and len(mape) == TRAIN_STEPS,
                 f"capsim training launches {n} / steps {len(mape)}")
         require(all(math.isfinite(x) for x in mape), "capsim: non-finite MAPE")
@@ -3809,7 +3954,7 @@ def check_train_capsim(torch, fa_ops, wa_ops):
                      f"train capsim step (batch {TRAIN_BIG_BATCH})")
     del state, s, big, batch
     torch.cuda.empty_cache()
-    return n[0]
+    return {"flash_attention": n[0], "embedding_grad": n[2]}
 
 
 def check_train_multicore(torch, fa_ops, wa_ops):
@@ -3820,17 +3965,19 @@ def check_train_multicore(torch, fa_ops, wa_ops):
     flash launches exactly 12 a forward (4 instruction-encoder layers in
     one pass of 4096 rows, 4 block layers of self and cross attention),
     a train step's twice under the config's remat, over the steps and
-    the validation and held-out batches, steps/s.
-    Returns the flash launches."""
+    the validation and held-out batches, and the embedding gradient's
+    ``emb_per_step`` a step; steps/s.  Returns the launches by kernel
+    (flash, embedding gradient)."""
     import tempfile
     from repro_torch.core.standardize import build_vocab
     from repro_torch.data.dataset import split_dataset
     from repro_torch.data.multicore_dataset import (MulticoreBuildConfig,
                                                     build_multicore_dataset)
     from repro_torch.isa.multicore import MULTICORE_NAMES
+    from repro_torch.kernels.embedding import ops as emb_ops
     from repro_torch.launch import train as train_mod
 
-    total = 0
+    total = {"flash_attention": 0, "embedding_grad": 0}
     for peer in (False, True):
         with tempfile.TemporaryDirectory() as tmp:
             argv = ["--device", "cuda", "--multicore", str(TRAIN_MC_CORES),
@@ -3851,16 +3998,19 @@ def check_train_multicore(torch, fa_ops, wa_ops):
             n_eval = sum(-(-len(d) // TRAIN_BATCH) for d in (val, test))
             remat = train_mod._capsim_cfg(args, build_vocab()).remat
             expect = (12 * (2 if remat else 1) * TRAIN_MC_STEPS
-                      + 12 * n_eval, 0)
+                      + 12 * n_eval, 0,
+                      TRAIN_MC_STEPS * emb_per_step(TRAIN_BATCH))
             torch.cuda.reset_peak_memory_stats()
             with recorded_steps(torch, train_mod, TRAIN_MC_STEPS) as seen:
                 fa_ops.flash_attention.launches = 0
                 wa_ops.weighted_attention.launches = 0
+                emb_ops.embedding_grad.launches = 0
                 t0 = time.perf_counter()
                 train_mod.train_capsim_multicore(args)
                 wall = time.perf_counter() - t0
                 n = (fa_ops.flash_attention.launches,
-                     wa_ops.weighted_attention.launches)
+                     wa_ops.weighted_attention.launches,
+                     emb_ops.embedding_grad.launches)
             losses = [float(loss) for loss in seen["losses"]]
             sps = steps_per_s(seen)
         width = 369 * (TRAIN_MC_CORES if peer else 1)
@@ -3869,14 +4019,16 @@ def check_train_multicore(torch, fa_ops, wa_ops):
               f"{sps:.2f} steps/s = {sps * TRAIN_BATCH:.1f} clips/s, wall "
               f"{wall:.2f} s (build and eval included), peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-              f"launches flash={n[0]} weighted={n[1]} (expected {expect}: "
-              f"{n_eval} validation and held-out batches); mape "
+              f"launches flash={n[0]} weighted={n[1]} embedding_grad={n[2]} "
+              f"(expected {expect}: {n_eval} validation and held-out "
+              f"batches); mape "
               f"first/last {losses[0]:.4f} / {losses[-1]:.4f}")
         require(len(losses) == TRAIN_MC_STEPS and n == expect
                 and all(math.isfinite(x) for x in losses),
                 f"multicore training (peer {peer}): steps {len(losses)}, "
                 f"launches {n} (expected {expect}), losses {losses}")
-        total += n[0]
+        total["flash_attention"] += n[0]
+        total["embedding_grad"] += n[2]
     torch.cuda.empty_cache()
     return total
 
@@ -4976,12 +5128,15 @@ def check_lstm(torch, fa_ops):
     (<= 1e-4 relative, LSTM_CPU_BATCH clips); LSTM_TRAIN_STEPS SGD-
     momentum steps (lr 1e-3, ``bench_accuracy.py``'s recipe) of
     ``mape_loss`` through ``make_train_step`` on one batch of
-    LSTM_TRAIN_BATCH: finite and falling.  The LSTM has no kernel; the
+    LSTM_TRAIN_BATCH: finite and falling, one embedding gradient a step
+    (the LSTM's one gather).  The LSTM has no kernel of its own; the
     predictor's forward launches flash attention 4 times a pass of the
-    instruction encoder and 8 times in the block encoder."""
+    instruction encoder and 8 times in the block encoder.  Returns the
+    training's launches by kernel."""
     from repro_torch.configs import get_config
     from repro_torch.core import lstm_baseline as lstm
     from repro_torch.core import predictor
+    from repro_torch.kernels.embedding import ops as emb_ops
     from repro_torch.training import train_loop as ttl
 
     cfg = get_config("capsim")
@@ -5037,19 +5192,25 @@ def check_lstm(torch, fa_ops):
     state = ttl.init_train_state(params, tcfg)
     train = capsim_clip_batch(torch, cfg, LSTM_TRAIN_BATCH, 1, "cuda")
     losses = []
+    emb_ops.embedding_grad.launches = 0
     t0 = time.perf_counter()
     for _ in range(LSTM_TRAIN_STEPS):
         state, m = step(state, train)
         losses.append(float(m["loss"]))
     dt = time.perf_counter() - t0
+    n_emb = emb_ops.embedding_grad.launches
     print(f"lstm train {LSTM_TRAIN_STEPS} sgdm steps (lr 1e-3, momentum "
           f"0.9) on one batch of {LSTM_TRAIN_BATCH}: mape "
           + " ".join(f"{x:.4f}" for x in losses)
-          + f"; {LSTM_TRAIN_STEPS / dt:.2f} steps/s")
+          + f"; {LSTM_TRAIN_STEPS / dt:.2f} steps/s; embedding_grad "
+          f"launches {n_emb} (expected {LSTM_TRAIN_STEPS})")
     require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
             f"lstm training losses {losses}")
+    require(n_emb == LSTM_TRAIN_STEPS, f"lstm training: {n_emb} embedding "
+            f"gradients in {LSTM_TRAIN_STEPS} steps")
     del params, pparams, state, batch
     torch.cuda.empty_cache()
+    return {"embedding_grad": n_emb}
 
 
 def remat_cell(torch, fa_ops, ssd_ops, what, cfg, loss_of, params, batch,
@@ -5058,14 +5219,18 @@ def remat_cell(torch, fa_ops, ssd_ops, what, cfg, loss_of, params, batch,
     state: step ms (the least of REMAT_STEPS, each on the host clock to
     its synchronized end, after a warm-up step), the step's peak (``max_memory_allocated``, reset just before;
     and the step's own: less what was allocated before it besides the
-    step's state and batch), flash and SSD launches a step; then
-    every gradient of the two against each other.  Returns ({remat: measurements}, the
-    flash and SSD launches of the timed steps)."""
+    step's state and batch), flash and SSD launches a step (twice with
+    remat) and the embedding gradient's (the same with remat: the
+    gathers are not recomputed); then every gradient of the two against
+    each other.  Returns ({remat: measurements}, the launches of the timed
+    steps by kernel)."""
     import gc
+    from repro_torch.kernels.embedding import ops as emb_ops
     from repro_torch.launch.dryrun import storage_bytes
     from repro_torch.training import train_loop as ttl
     from repro_torch.training.optimizer import tree_leaves
-    out, grads, total = {}, {}, {"flash_attention": 0, "ssd": 0}
+    out, grads = {}, {}
+    total = {"flash_attention": 0, "ssd": 0, "embedding_grad": 0}
     for remat in (False, True):
         c = cfg.replace(remat=remat)
         step = ttl.make_train_step(lambda p, b: loss_of(p, b, c), tcfg)
@@ -5081,6 +5246,7 @@ def remat_cell(torch, fa_ops, ssd_ops, what, cfg, loss_of, params, batch,
         torch.cuda.reset_peak_memory_stats()
         fa_ops.flash_attention.launches = 0
         ssd_ops.ssd_scan.launches = 0
+        emb_ops.embedding_grad.launches = 0
         times = []
         for _ in range(REMAT_STEPS):
             t0 = time.perf_counter()
@@ -5090,14 +5256,17 @@ def remat_cell(torch, fa_ops, ssd_ops, what, cfg, loss_of, params, batch,
             times.append(1e3 * (time.perf_counter() - t0))
             del new, m
         n = (fa_ops.flash_attention.launches, ssd_ops.ssd_scan.launches)
+        n_emb = emb_ops.embedding_grad.launches
         total["flash_attention"] += n[0]
         total["ssd"] += n[1]
+        total["embedding_grad"] += n_emb
         peak = torch.cuda.max_memory_allocated()
         del state
         gc.collect()
         out[remat] = {"ms": min(times), "times": times, "peak": peak,
                       "step_peak": peak - (before - args), "args": args,
-                      "launches": tuple(x // REMAT_STEPS for x in n)}
+                      "launches": tuple(x // REMAT_STEPS for x in n),
+                      "emb": n_emb / REMAT_STEPS}
         torch.cuda.empty_cache()
     # the gradients after both timed steps, so neither step's peak holds
     # the other's
@@ -5120,12 +5289,15 @@ def remat_cell(torch, fa_ops, ssd_ops, what, cfg, loss_of, params, batch,
           f"own {off['step_peak'] / 2**30:.2f} / "
           f"{on['step_peak'] / 2**30:.2f} (state and batch "
           f"{off['args'] / 2**30:.2f} GiB); launches (flash, SSD) a step "
-          f"{off['launches']} / {on['launches']}; gradients, "
+          f"{off['launches']} / {on['launches']}, embedding gradients a "
+          f"step {off['emb']:g} / {on['emb']:g}; gradients, "
           f"{len(grads[True])} leaves: max |d| {max_abs:.3e}, worst rel "
           f"{worst:.3e} (<= {tol})")
     require(worst <= tol, f"remat {what}: gradients rel {worst}")
     require(on["launches"] == tuple(2 * x for x in off["launches"]),
             f"remat {what}: launches {off['launches']} -> {on['launches']}")
+    require(on["emb"] == off["emb"], f"remat {what}: embedding gradients "
+            f"a step {off['emb']} -> {on['emb']}")
     require(on["step_peak"] < off["step_peak"],
             f"remat {what}: the step's peak did not fall")
     del grads
@@ -5137,15 +5309,18 @@ def check_remat(torch, fa_ops, ssd_ops):
     """Activation rematerialization on the card: the CAPSim predictor at
     full width in f32 (the trainer's dtype; SGD momentum) at
     REMAT_CAPSIM_BATCHES clips, and REMAT_LM (qwen3-4b cut to 2 layers,
-    bf16, AdamW) at 1 x 4096, each through ``remat_cell``.  Returns the
-    launches and the cells for the dry-run's estimates."""
+    bf16, AdamW) at 1 x 4096, each through ``remat_cell`` (CAPSim's
+    steps with ``emb_per_step`` embedding gradients, the LM's with none,
+    as its embedding is its own code).  Returns the launches and the
+    cells for the dry-run's estimates."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.core import predictor
     from repro_torch.launch.specs import random_batch
     from repro_torch.models import transformer as tfm
     from repro_torch.training import train_loop as ttl
 
-    cells, launches = [], {"flash_attention": 0, "ssd": 0}
+    cells = []
+    launches = {"flash_attention": 0, "ssd": 0, "embedding_grad": 0}
     cfg = get_config("capsim").replace(dtype="float32")
     params = predictor.init_params(cfg, seed=0, device="cuda")
     tcfg = ttl.TrainConfig(optimizer="sgdm", base_lr=1e-3, warmup_steps=0,
@@ -5156,6 +5331,9 @@ def check_remat(torch, fa_ops, ssd_ops):
                             f"capsim f32 batch {B}", cfg,
                             predictor.mape_loss, params, batch, tcfg,
                             REMAT_TOL["float32"])
+        require(got[False]["emb"] == emb_per_step(B),
+                f"remat capsim batch {B}: {got[False]['emb']} embedding "
+                f"gradients a step, expected {emb_per_step(B)}")
         for k in launches:
             launches[k] += n[k]
         cells.append((f"capsim f32 batch {B}", cfg,
@@ -5172,6 +5350,7 @@ def check_remat(torch, fa_ops, ssd_ops):
     what = f"{arch} {layers} layers {cfg.dtype} {B} x {S}"
     got, n = remat_cell(torch, fa_ops, ssd_ops, what, cfg, tfm.loss_fn,
                         params, batch, tcfg, REMAT_TOL[cfg.dtype])
+    require(got[False]["emb"] == 0, f"remat {what}: embedding gradients")
     for k in launches:
         launches[k] += n[k]
     cells.append((what, cfg, shape, tcfg, got))
@@ -5234,15 +5413,18 @@ def check_dryrun(torch, remat_cells):
 def check_examples(torch, fa_ops, wa_ops, ssd_ops):
     """Each of ``examples/*_torch.py`` on the card, in this process, at
     its defaults but for the fewest steps and data that show it working;
-    the launch counters reset just before each and read just after.
-    Returns the launches."""
+    the launch counters reset just before each and read just after (the
+    embedding gradient in CAPSim's training alone).  Returns the
+    launches."""
     import importlib.util
     import tempfile
+    from repro_torch.kernels.embedding import ops as emb_ops
     runs = (("quickstart_torch", []),
             ("simulate_benchmark_torch", ["--max-checkpoints", "1"]),
             ("train_capsim_torch", ["--fast", "--steps", "5"]),
             ("train_lm_torch", ["--steps", "5"]))
-    total = {"flash_attention": 0, "weighted_attention": 0, "ssd": 0}
+    total = {"flash_attention": 0, "weighted_attention": 0, "ssd": 0,
+             "embedding_grad": 0}
     with tempfile.TemporaryDirectory() as tmp:
         for name, argv in runs:
             spec = importlib.util.spec_from_file_location(
@@ -5254,18 +5436,22 @@ def check_examples(torch, fa_ops, wa_ops, ssd_ops):
             fa_ops.flash_attention.launches = 0
             wa_ops.weighted_attention.launches = 0
             ssd_ops.ssd_scan.launches = 0
+            emb_ops.embedding_grad.launches = 0
             t0 = time.perf_counter()
             out = mod.main(argv)
             torch.cuda.synchronize()
             n = {"flash_attention": fa_ops.flash_attention.launches,
                  "weighted_attention": wa_ops.weighted_attention.launches,
-                 "ssd": ssd_ops.ssd_scan.launches}
+                 "ssd": ssd_ops.ssd_scan.launches,
+                 "embedding_grad": emb_ops.embedding_grad.launches}
             for k in total:
                 total[k] += n[k]
             print(f"examples {name} {' '.join(argv)}: "
                   f"{time.perf_counter() - t0:.1f} s, launches "
                   + " ".join(f"{k}={v}" for k, v in n.items()))
             require(n["flash_attention"] > 0, f"examples {name}: no flash")
+            require((n["embedding_grad"] > 0) == (name == "train_capsim_torch"),
+                    f"examples {name}: embedding gradients {n}")
             if name == "quickstart_torch":
                 import numpy as np
                 require(bool(np.isfinite(out["predicted"]).all()),
@@ -5363,6 +5549,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
+    from repro_torch.kernels.embedding import ops as emb_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fused_serving import ops as wa_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -5409,7 +5596,10 @@ def main() -> int:
     rows["ssd"] = time_ssd(torch, ssd_ops)
     check_gates(rows)
     phase("kernels+timing")
+    rows["embedding_grad"], emb_err = check_embedding(torch, emb_ops)
+    phase("embedding")
     launches = check_engine(torch, fa_ops, wa_ops)
+    launches["embedding_grad"] = 0
     phase("engine")
     mc_launches, seen_u = check_multicore(torch, fa_ops, wa_ops)
     for name, n in mc_launches.items():
@@ -5474,10 +5664,11 @@ def main() -> int:
     phase("frontends")
     rows["flash_attention"] += check_train_grads(torch, fa_ops, ssd_ops)
     phase("train grads")
-    launches["flash_attention"] += check_train_capsim(torch, fa_ops, wa_ops)
+    for name, n in check_train_capsim(torch, fa_ops, wa_ops).items():
+        launches[name] += n
     phase("train capsim")
-    launches["flash_attention"] += check_train_multicore(torch, fa_ops,
-                                                         wa_ops)
+    for name, n in check_train_multicore(torch, fa_ops, wa_ops).items():
+        launches[name] += n
     phase("train multicore")
     n_flash, n_ssd = check_train_lm(torch, fa_ops, wa_ops, ssd_ops)
     launches["flash_attention"] += n_flash
@@ -5500,7 +5691,8 @@ def main() -> int:
         for dtype, err in tp_errs[name].items():
             errs[name][dtype] = max(errs[name][dtype], err)
     phase("tp")
-    check_lstm(torch, fa_ops)
+    for name, n in check_lstm(torch, fa_ops).items():
+        launches[name] += n
     phase("lstm")
     remat_launches, remat_cells = check_remat(torch, fa_ops, ssd_ops)
     for name, n in remat_launches.items():
@@ -5513,10 +5705,12 @@ def main() -> int:
     phase("examples")
     print("phases: " + ", ".join(f"{name} {sec:.1f} s"
                                  for name, sec in phase_s.items()))
-    print("launches by phase (flash / weighted / SSD): " + ", ".join(
-        f"{name} " + " / ".join(str(n.get(k, 0)) for k in (
-            "flash_attention", "weighted_attention", "ssd"))
-        for name, n in phase_n.items() if any(n.values())))
+    print("launches by phase (flash / weighted / SSD / embedding "
+          "gradient): " + ", ".join(
+              f"{name} " + " / ".join(str(n.get(k, 0)) for k in (
+                  "flash_attention", "weighted_attention", "ssd",
+                  "embedding_grad"))
+              for name, n in phase_n.items() if any(n.values())))
 
     sources = {"flash_attention": (
         "src/repro_torch/csrc/flash_attention.cu",
@@ -5552,6 +5746,17 @@ def main() -> int:
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
         kernels.append(entry)
+    row = rows["embedding_grad"][0]
+    kernels.append({
+        "name": "embedding_grad", "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_grad.cu",
+        "replaces": "none (PyTorch's indexing_backward_kernel)",
+        "launches": launches["embedding_grad"],
+        "max_err_share_of_abs_sum": emb_err,
+        "shape": f"{row['shape']} float32", "ms": row["ms"],
+        "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "index_put_ms": row["index_put_ms"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -16,8 +16,9 @@ product is taken in the dtype JAX promotes its operands to (the compute
 dtype meeting f32 parameters gives f32) and the gates cast to f32; ``c``
 stays f32 and ``h`` is cast back to the input's dtype; a masked step
 carries ``h`` and ``c`` through unchanged.  The input products of every
-step are taken in one product before the loop.  There is no kernel
-here: the reference has no Pallas kernel for it.
+step are taken in one product before the loop.  The LSTM has no kernel
+(the reference has no Pallas kernel for it); the token gather is the
+predictor's ``embedding_lookup``, whose gradient on the card is a kernel.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import math
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.embedding.ops import embedding_lookup
 from repro_torch.models.layers import (ParamSpec, abstract_from_specs,
                                        dense_spec, init_from_specs,
                                        torch_dtype)
@@ -99,7 +101,7 @@ def forward(params: dict, batch: dict, cfg) -> torch.Tensor:
     clip_mask = batch["clip_mask"].float()
     B, L, T = clip_tokens.shape
     flat = clip_tokens.reshape(B * L, T)
-    x = params["embed"][flat].to(torch_dtype(cfg.dtype))
+    x = embedding_lookup(params["embed"], flat).to(torch_dtype(cfg.dtype))
     inst_emb = _lstm(params["tok_lstm"], x, (flat != 0).float())
     h = _lstm(params["inst_lstm"], inst_emb.reshape(B, L, -1), clip_mask)
     y = (_mm(h, params["head"]["w"]) + params["head"]["b"])[:, 0].float()

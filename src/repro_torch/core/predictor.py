@@ -14,7 +14,9 @@ Two-level architecture, Eq 5-9:
                         clip's instruction count (cycles).
 
 Training minimizes ``mape_loss`` (Eq 11) over the monolithic ``forward``;
-gradients come back through ``flash_attention``'s backward.  With
+gradients come back through ``flash_attention``'s backward, and reach the
+token table through ``embedding_lookup``'s (on the card a kernel,
+``csrc/embedding_grad.cu``; the serving-only gathers stay plain).  With
 ``cfg.remat`` (the full config's default) and grad on, each encoder
 layer runs under ``layers.remat_call``, as the reference's
 ``_scan_layers(remat=cfg.remat)``: the backward recomputes it, launching
@@ -43,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.embedding.ops import embedding_lookup
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.fused_serving.ops import weighted_attention
 from repro_torch.models.layers import (  # noqa: F401 (the bridge)
@@ -175,7 +178,7 @@ ENCODE_CHUNK = 4096
 def _encode_rows(params, flat, cfg):
     """(N, L_token) int rows -> (N, E): the 4 encoder layers, <REP> slot."""
     mask = (flat != 0).float()                           # <PAD> == 0
-    x = params["embed"][flat].to(torch_dtype(cfg.dtype))
+    x = embedding_lookup(params["embed"], flat).to(torch_dtype(cfg.dtype))
     inst = params["inst"]
 
     def layer(p, x):
@@ -249,7 +252,7 @@ def block_forward(params, rt, batch, cfg, use_context: bool = True):
     clip_mask = batch["clip_mask"].float()
     ctx = None
     if use_context:
-        ctx = params["embed"][batch["context_tokens"]].to(
+        ctx = embedding_lookup(params["embed"], batch["context_tokens"]).to(
             torch_dtype(cfg.dtype))
     out, out_mask = block_encoder(params, rt, ctx, clip_mask, cfg)
     y = _head(params, out, cfg)

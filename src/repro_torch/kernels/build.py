@@ -9,7 +9,8 @@ kernel up front (``chip_smoke.py``, ``SimulationService.start``).  A
 library is stale when it is missing or older than any source under
 ``csrc/``.  Building and loading hold one process-wide lock: the serving
 layer's flush threads may meet a stale library at once, and only the
-first of them runs ``nvcc``.
+first of them runs ``nvcc``.  The wrappers' launch helpers live here too:
+the current stream's handle, the launch's return code, the launch count.
 """
 from __future__ import annotations
 
@@ -24,9 +25,11 @@ import time
 from pathlib import Path
 from typing import Counter, Dict, Iterable, Optional, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention", "weighted_attention", "ssd")
+SOURCES = ("flash_attention", "weighted_attention", "ssd", "embedding_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -129,6 +132,20 @@ def count_launch(wrapper, heads: Optional[int] = None) -> None:
         wrapper.launches += 1
         if heads is not None:
             wrapper.heads[heads] = wrapper.heads.get(heads, 0) + 1
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream on ``device``, for a
+    launch (the private accessor where PyTorch has it: a Stream object
+    costs microseconds a launch)."""
+    if _RAW_STREAM is not None:
+        index = device.index
+        return _RAW_STREAM(index if index is not None
+                           else torch.cuda.current_device())
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -215,20 +215,6 @@ def launch_args(q, k, v, aux, o):
             qs[0], qs[1], ks[0], ks[1], vs[0], vs[1], ost[0], ost[1])
 
 
-_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def current_stream(device: torch.device) -> int:
-    """The raw handle of the current CUDA stream on ``device`` (the
-    private accessor where PyTorch has it: a Stream object costs
-    microseconds a launch)."""
-    if _RAW_STREAM is not None:
-        index = device.index
-        return _RAW_STREAM(index if index is not None
-                           else torch.cuda.current_device())
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def pad_head_dim(q, k, v):
     """q/k/v zero-padded along D to the instantiation a head dim in
     ``PADDED_HEAD_DIMS`` runs on (new dense tensors); others as they
@@ -325,7 +311,7 @@ def _launch(q, k, v, kv_mask, causal: bool, window: int) -> torch.Tensor:
     work = launch_cost(q, k, kv_mask, causal)
     q, k, v = pad_head_dim(q, k, v)
     o = torch.empty_like(q)     # q's head and feature axes are dense
-    stream = current_stream(q.device)
+    stream = build.current_stream(q.device)
     rc = fn(*launch_args(q, k, v, kv_mask, o), int(causal), int(window),
             1.0 / math.sqrt(D), stream)
     check_aligned(rc, q, k, v, "flash_attention")

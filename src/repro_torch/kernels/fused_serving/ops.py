@@ -34,7 +34,6 @@ from repro_torch.kernels import build, cost
 from repro_torch.kernels.flash_attention.ops import (ARG_TYPES,
                                                      check_aligned,
                                                      check_attention_args,
-                                                     current_stream,
                                                      launch_args,
                                                      launch_cost,
                                                      meta_attention,
@@ -87,7 +86,7 @@ def weighted_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     work = launch_cost(q, k, kv_weight, False)
     q, k, v = pad_head_dim(q, k, v)
     o = torch.empty_like(q)     # q's head and feature axes are dense
-    stream = current_stream(q.device)
+    stream = build.current_stream(q.device)
     rc = fn(*launch_args(q, k, v, kv_weight, o), 1.0 / math.sqrt(D), stream)
     check_aligned(rc, q, k, v, "weighted_attention")
     build.check(lib, rc, "weighted_attention")
