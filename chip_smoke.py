@@ -1133,6 +1133,17 @@ SSD_CHECKS = [
 ]
 
 
+# B/C in G groups, head h reading group h // (H / G): (label, Bt, S, H, P,
+# N, G, chunk).  Small and ragged shapes, and the LM train cell's
+# (nemo3.train-s4k-b2: NemotronH's mixer, 64 heads in 8 groups).
+SSD_GROUPED_PATH = ("nemo3_train", 2, 4096, 64, 64, 128, 8, 128)
+SSD_GROUPED_CHECKS = [
+    ("grouped_small", 2, 100, 8, 16, 32, 4, 32),
+    ("grouped_ragged", 1, 5 * 64 + 17, 6, 32, 64, 3, 64),
+    SSD_GROUPED_PATH,
+]
+
+
 def ssd_inputs(torch, gen, Bt, S, H, P, N, dtype, a_scale=1.0,
                pad_chunk=0):
     """x, dt, B, C, A on the card, drawn as the reference tests draw
@@ -1202,6 +1213,122 @@ def check_ssd(torch, ssd_ops):
             worst = max(worst, abs_err)
         errs[dtype] = worst
     return errs
+
+
+def grouped_inputs(torch, gen, Bt, S, H, P, N, G, dtype, one_projection):
+    """``ssd_inputs`` with B/C (Bt, S, G, N): contiguous, as the mixer's
+    two products give them, or (``one_projection``) sliced from one
+    (Bt, S, 2·G·N) product, their rows 2·G·N apart."""
+    x, dt, B, C, A = ssd_inputs(torch, gen, Bt, S, H, P, G * N, dtype)
+    if one_projection:
+        BC = torch.cat([B, C], -1)
+        B, C = BC[..., :G * N], BC[..., G * N:]
+    return x, dt, B.unflatten(-1, (G, N)), C.unflatten(-1, (G, N)), A
+
+
+def per_group_scan(torch, ssd_ops, x, dt, B, C, A, chunk):
+    """The one-group plain version once per group over its heads: the
+    grouped scan's meaning, apart from its own plain version."""
+    G = B.shape[2]
+    R = x.shape[2] // G
+    ys, sts = zip(*(ssd_ops.ssd_scan_plain(
+        x[:, :, g * R:(g + 1) * R], dt[:, :, g * R:(g + 1) * R],
+        B[:, :, g], C[:, :, g], A[g * R:(g + 1) * R], chunk)
+        for g in range(G)))
+    return torch.cat(ys, 2), torch.cat(sts, 1)
+
+
+def check_ssd_grouped(torch, ssd_ops):
+    """Every grouped case, both dtypes, both B/C layouts: the kernel
+    against the plain version and against the one-group plain version
+    per group; at the smallest case the backward too (the card's
+    ``_SSDScan`` against autograd through the per-group loop).  Returns
+    {dtype: max abs err}."""
+    gen = torch.Generator().manual_seed(6)
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        worst = 0.0
+        for (label, Bt, S, H, P, N, G, q) in SSD_GROUPED_CHECKS:
+            for one in (False, True):
+                args = grouped_inputs(torch, gen, Bt, S, H, P, N, G, tdt, one)
+                y, st = ssd_ops.ssd_scan(*args, chunk=q)
+                yp, sp = ssd_ops.ssd_scan_plain(*args, chunk=q)
+                yg, sg = per_group_scan(torch, ssd_ops, *args, q)
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(y.float()).all()
+                             and torch.isfinite(st).all()),
+                        f"ssd {label} {dtype}: non-finite output")
+                ey, es = rel_err(y, yp), rel_err(st, sp)
+                gy, gs = rel_err(y, yg), rel_err(st, sg)
+                abs_err = float(max((y.float() - yp.float()).abs().max(),
+                                    (st - sp).abs().max()))
+                layout = "one_projection" if one else "two_products"
+                print(f"kernel ssd {label:16s} {dtype:8s} Bt={Bt} S={S} "
+                      f"H={H} P={P} N={N} G={G} chunk={q} {layout}: vs "
+                      f"plain rel_err_y={ey:.3e} rel_err_state={es:.3e}; "
+                      f"vs per-group plain rel_err_y={gy:.3e} "
+                      f"rel_err_state={gs:.3e}; max_abs_err={abs_err:.3e}")
+                require(max(ey, gy) <= SSD_TOL[dtype]
+                        and max(es, gs) <= SSD_STATE_TOL[dtype],
+                        f"ssd {label} {dtype} {layout}: rel err y {ey} / "
+                        f"{gy} state {es} / {gs}")
+                worst = max(worst, abs_err)
+                del args, y, st, yp, sp, yg, sg
+        label, Bt, S, H, P, N, G, q = SSD_GROUPED_CHECKS[0]
+        args = [t.detach().requires_grad_(True) for t in grouped_inputs(
+            torch, gen, Bt, S, H, P, N, G, tdt, True)]
+        w = torch.randn(Bt, S, H, P, generator=gen).to("cuda", tdt)
+        y, _ = ssd_ops.ssd_scan(*args, chunk=q)
+        got = torch.autograd.grad((y.float() * w.float()).sum(), args)
+        y, _ = per_group_scan(torch, ssd_ops, *args, q)
+        want = torch.autograd.grad((y.float() * w.float()).sum(), args)
+        for name, a, b in zip(("x", "dt", "B", "C", "A"), got, want):
+            e = rel_err(a, b)
+            print(f"kernel ssd {label} {dtype} backward d{name} vs "
+                  f"per-group autograd rel_err={e:.3e}")
+            require(e <= SSD_TOL[dtype], f"ssd {label} {dtype}: backward "
+                    f"d{name} rel err {e}")
+        errs[dtype] = worst
+    torch.cuda.empty_cache()
+    return errs
+
+
+def time_ssd_grouped(torch, ssd_ops):
+    """Kernel / plain / per-group plain times and the bound at the LM
+    train cell's shape (B/C as the mixer gives them), both dtypes."""
+    gen = torch.Generator().manual_seed(7)
+    label, Bt, S, H, P, N, G, q = SSD_GROUPED_PATH
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        args = grouped_inputs(torch, gen, Bt, S, H, P, N, G,
+                              getattr(torch, dtype), False)
+        row = {"shape": label, "dtype": dtype,
+               "ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan(*args, chunk=q),
+                             iters=10, warmup=2),
+               "plain_ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan_plain(
+                   *args, chunk=q), iters=3, warmup=1, rounds=1),
+               "per_group_ms": cuda_ms(torch, lambda: per_group_scan(
+                   torch, ssd_ops, *args, q), iters=2, warmup=1, rounds=1),
+               "library_ms": None}
+        parts = device_breakdown(torch, lambda: ssd_ops.ssd_scan(
+            *args, chunk=q), SSD_KERNELS)
+        row["device_ms"] = sum(parts.values())
+        row["bound_ms"], row["bound_by"] = _roof(*ssd_ops.ssd_cost(
+            Bt, S, H, P, N, q, 4 if dtype == "float32" else 2, G), dtype)
+        rows.append(row)
+        print(f"time ssd {label:16s} {dtype:8s} Bt={Bt} S={S} H={H} P={P} "
+              f"N={N} G={G} chunk={q} kernel_ms={row['ms']:.4f} "
+              f"device_ms={row['device_ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} "
+              f"per_group_plain_ms={row['per_group_ms']:.4f} "
+              f"library_ms=none bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']}) bound_share="
+              f"{row['bound_ms'] / row['device_ms']:.4f}; device ms per "
+              "kernel: " + "; ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+        del args
+    torch.cuda.empty_cache()
+    return rows
 
 
 def ssd_bound(Bt, S, H, P, N, q, dtype: str):
@@ -5592,8 +5719,10 @@ def main() -> int:
 
     errs = check_kernels(torch, fa_ops, wa_ops)
     errs["ssd"] = check_ssd(torch, ssd_ops)
+    for dtype, err in check_ssd_grouped(torch, ssd_ops).items():
+        errs["ssd"][dtype] = max(errs["ssd"][dtype], err)
     rows = time_kernels(torch, fa_ops, wa_ops)
-    rows["ssd"] = time_ssd(torch, ssd_ops)
+    rows["ssd"] = time_ssd(torch, ssd_ops) + time_ssd_grouped(torch, ssd_ops)
     check_gates(rows)
     phase("kernels+timing")
     rows["embedding_grad"], emb_err = check_embedding(torch, emb_ops)

@@ -26,7 +26,13 @@ and every model of the LM zoo (``mamba2-780m``; the dense decoders
 ``olmo-1b``, ``qwen3-4b``, ``internlm2-20b``, ``nemotron-4-15b``; the MoE
 and hybrid models ``kimi-k2-1t-a32b``, ``llama4-maverick-400b-a17b``,
 ``jamba-1.5-large-398b``; the frontend and codebook models
-``qwen2-vl-2b`` and ``musicgen-large``).  An unknown name raises
+``qwen2-vl-2b`` and ``musicgen-large``), and one model the JAX package
+does not have, ``nemotron-3-nano-30b-a3b``: NemotronH's single-op layers
+in a lettered pattern (``layer_pattern``), grouped Mamba2 B/C
+(``ssm_groups``) with a head count of its own (``ssm_num_heads``), a
+sigmoid router with a correction bias and a shared expert, attention
+without RoPE (``rope``), and an expert layer told which experts it holds
+(``experts_held``, ``expert_shard``).  An unknown name raises
 ``KeyError``.
 """
 from __future__ import annotations
@@ -61,6 +67,11 @@ CAPSIM_SHAPES = {
 }
 
 
+# A lettered pattern's layer kinds: (mixer, ffn), one of them 'none'.
+LAYER_LETTERS = {"M": ("ssm", "none"), "E": ("none", "moe"),
+                 "*": ("attn", "none"), "-": ("none", "dense")}
+
+
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
@@ -79,24 +90,43 @@ class ArchConfig:
     moe_every: int = 1               # MoE FFN on layers with (i % moe_every == moe_offset)
     moe_offset: int = 0
     capacity_factor: float = 1.25
+    router: str = "softmax"          # softmax | sigmoid (NemotronH: sigmoid
+                                     # scores, a correction bias for the
+                                     # choice only, top-k weights renormalized
+                                     # and scaled; no auxiliary losses)
+    routed_scaling: float = 1.0      # sigmoid router: weights' scale
+    shared_expert_d_ff: int = 0      # one shared expert this wide (0: none)
+    experts_held: int = 0            # experts held here (0: all); the router
+                                     # keeps num_experts outputs
+    expert_shard: int = 0            # held: experts [s·held, (s+1)·held)
 
     # --- SSM / hybrid ---
     ssm_state: int = 0               # Mamba2 d_state (0 -> no ssm layers)
     ssm_head_dim: int = 64
+    ssm_num_heads: int = 0           # 0 -> ssm_expand·d_model / ssm_head_dim
+    ssm_groups: int = 1              # B/C groups: head h reads h // (heads /
+                                     # groups); the gate norm's groups too
+    ssm_conv_bias: bool = False
     ssm_expand: int = 2
     ssm_conv_width: int = 4
     ssm_chunk: int = 256             # SSD chunk size
     attn_every: int = 0              # hybrid: attention on layers with (i % attn_every == attn_offset)
     attn_offset: int = 0
+    layer_pattern: str = ""          # one op a layer (NemotronH's
+                                     # hybrid_override_pattern): M Mamba2,
+                                     # E MoE, * attention, - dense FFN; the
+                                     # model runs its first num_layers letters
 
     # --- attention features ---
     qk_norm: bool = False
+    rope: bool = True                # rotate q and k (NemotronH: no)
     rope_theta: float = 10_000.0
     mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (temporal, h, w) dims
 
     # --- FFN / norm features ---
     activation: str = "swiglu"       # swiglu | squared_relu | gelu
     nonparametric_norm: bool = False # olmo: LN without learnable params
+    norm_eps: float = 1e-6
     tie_embeddings: bool = False
 
     # --- modality frontend stubs ---
@@ -121,13 +151,23 @@ class ArchConfig:
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.layer_pattern:
+            bad = set(self.layer_pattern) - set(LAYER_LETTERS)
+            if bad or len(self.layer_pattern) < self.num_layers:
+                raise ValueError(
+                    f"{self.name}: layer_pattern needs {self.num_layers} "
+                    f"letters of {''.join(LAYER_LETTERS)}")
+            # one super-block of every layer: each letter its own layer
+            object.__setattr__(self, "pattern_len", self.num_layers)
         if self.num_layers % self.pattern_len != 0:
             raise ValueError(
                 f"{self.name}: num_layers={self.num_layers} not divisible by "
                 f"pattern_len={self.pattern_len}")
 
     def mixer_at(self, i: int) -> str:
-        """'attn' | 'ssm' for layer i."""
+        """'attn' | 'ssm' for layer i ('none' for a lettered FFN layer)."""
+        if self.layer_pattern:
+            return LAYER_LETTERS[self.layer_pattern[i]][0]
         if self.ssm_state == 0:
             return "attn"
         if self.attn_every == 0:
@@ -136,6 +176,8 @@ class ArchConfig:
 
     def ffn_at(self, i: int) -> str:
         """'dense' | 'moe' | 'none' for layer i."""
+        if self.layer_pattern:
+            return LAYER_LETTERS[self.layer_pattern[i]][1]
         if self.d_ff == 0 and self.num_experts == 0:
             return "none"
         if self.num_experts and (i % self.moe_every) == self.moe_offset:
@@ -158,6 +200,21 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+# The fields NemotronH brought, which the reference's ArchConfig lacks: at
+# their defaults a config computes what the reference's does.
+PORT_ONLY_FIELDS = ("router", "routed_scaling", "shared_expert_d_ff",
+                    "experts_held", "expert_shard", "ssm_num_heads",
+                    "ssm_groups", "ssm_conv_bias", "layer_pattern", "rope",
+                    "norm_eps")
+
+
+def port_only_at_defaults(cfg) -> bool:
+    """Whether every field of ``PORT_ONLY_FIELDS`` holds its default."""
+    return all(getattr(cfg, f.name) == f.default
+               for f in dataclasses.fields(ArchConfig)
+               if f.name in PORT_ONLY_FIELDS)
+
+
 # --------------------------------------------------------------------------- #
 # Registry
 # --------------------------------------------------------------------------- #
@@ -168,7 +225,8 @@ _PORTED = {"capsim": "capsim", "mamba2-780m": "mamba2_780m",
            "jamba-1.5-large-398b": "jamba_1_5_large_398b",
            "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
            "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
-           "qwen2-vl-2b": "qwen2_vl_2b", "musicgen-large": "musicgen_large"}
+           "qwen2-vl-2b": "qwen2_vl_2b", "musicgen-large": "musicgen_large",
+           "nemotron-3-nano-30b-a3b": "nemotron_3_nano_30b_a3b"}
 ARCH_NAMES = tuple(_PORTED)
 
 

@@ -11,8 +11,9 @@
 //   state <- state exp(seg_last) + sum_j dt_j exp(seg_last - seg_j) x_j (x) B_j
 //
 // x (Bt, S, H, P) and y in float32 or bfloat16, dt (Bt, S, H) and A (H,)
-// float32, B/C (Bt, S, N) in x's type and shared by every head, state
-// (Bt, H, P, N) float32, zero before the first chunk.  seg is accumulated
+// float32, B/C (Bt, S, G, N) in x's type, G groups each shared by H / G
+// heads (head h reads group h / (H / G); G = 1 is Mamba2's one B and C for
+// every head), state (Bt, H, P, N) float32, zero before the first chunk.  seg is accumulated
 // in f64: over a 256-step chunk it reaches -1e4 at large dt*|A|, where
 // f32 keeps only ~1e-3 of seg_i - seg_j.  The decay is always one exp of
 // a difference, never exp(seg_i) / exp(seg_j), which is 0/0 there.  S need
@@ -32,9 +33,9 @@
 // What the design does about it: Mamba2's own GPU algorithm, as four
 // launches on the caller's stream, every one of them parallel over chunks.
 //
-//   (a) ssd_cb          per (b, chunk, lower 64 x 64 tile): C . B^T,
-//                       once for all heads, into an f32 workspace
-//                       (Bt, nc, QP, QP).
+//   (a) ssd_cb          per (b, group, chunk, lower 64 x 64 tile):
+//                       C . B^T, once for the group's heads, into an f32
+//                       workspace (Bt, G, nc, QP, QP).
 //   (b) ssd_chunk_state per (b, h, chunk, P tile, N tile): seg, and the
 //                       chunk's own state contribution, transposed,
 //                       sum_j B_j (x) (w_j x_j), w_j = dt_j exp(seg_last -
@@ -128,14 +129,15 @@ struct Args {
   const float* A;
   void* y;
   float* state;
-  int Bt, S, H, P, N, q;
-  long long x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, y_sb, y_ss;
+  int Bt, S, H, P, N, q, G;
+  long long x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg,
+      y_sb, y_ss;
   // derived on the host
   int nc;        // chunks
   int QP;        // q rounded up to TILE
   int NP;        // N rounded up to 16 (zero-filled columns)
   int vec;       // x, B and C rows start on 16 bytes: copy by cp.async
-  float* cb;     // (Bt, nc, QP, QP) C.B^T, lower tiles only
+  float* cb;     // (Bt, G, nc, QP, QP) C.B^T, lower tiles only
   float* chunk;  // (Bt, H, nc, N, P) contribution, then incoming state
   float* decay;  // (Bt, H, nc) exp(seg_last)
 };
@@ -390,12 +392,13 @@ __device__ void chunk_seg(const Args& a, int b, int h, int t0, int qlen,
 }
 
 // ----------------------------------------------------------------------
-// (a) C.B^T per (b, chunk, lower tile)
+// (a) C.B^T per (b, group, chunk, lower tile)
 // ----------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(128) ssd_cb(Args a) {
-  const int b = blockIdx.x / a.nc;
+  const int b = blockIdx.x / a.nc / a.G;
+  const int g = blockIdx.x / a.nc % a.G;
   const int c = blockIdx.x % a.nc;
   const int t0 = c * a.q;
   const int qlen = min(a.q, a.S - t0);
@@ -407,8 +410,10 @@ __global__ void __launch_bounds__(128) ssd_cb(Args a) {
   T* Cs = reinterpret_cast<T*>(smem);          // [64][NP] C rows i
   T* Bs = Cs + TILE * cs;                      // [64][NP] B rows j
   const int i0 = it * TILE, j0 = jt * TILE;
-  const T* cg = static_cast<const T*>(a.C) + b * a.c_sb + t0 * a.c_ss;
-  const T* bg = static_cast<const T*>(a.B) + b * a.b_sb + t0 * a.b_ss;
+  const T* cg = static_cast<const T*>(a.C) + b * a.c_sb + g * a.c_sg +
+                t0 * a.c_ss;
+  const T* bg = static_cast<const T*>(a.B) + b * a.b_sb + g * a.b_sg +
+                t0 * a.b_ss;
   copy_tile(Cs, cs, cg + i0 * a.c_ss, a.c_ss, TILE, NP, qlen - i0, a.N,
             a.vec, a.C);
   copy_tile(Bs, cs, bg + j0 * a.b_ss, a.b_ss, TILE, NP, qlen - j0, a.N,
@@ -468,7 +473,8 @@ __global__ void __launch_bounds__(256) ssd_chunk_state(Args a, int NT) {
 
   const T* xg = static_cast<const T*>(a.x) + b * a.x_sb + t0 * a.x_ss +
                 h * a.P + p0;
-  const T* bg = static_cast<const T*>(a.B) + b * a.b_sb + t0 * a.b_ss + n0;
+  const T* bg = static_cast<const T*>(a.B) + b * a.b_sb +
+                h / (a.H / a.G) * a.b_sg + t0 * a.b_ss + n0;
   const int warp = threadIdx.x / 32;
   using G = Warp<T, PT, true, false>;
   float acc[PT / 8][4];
@@ -587,6 +593,7 @@ __global__ void __launch_bounds__(128) ssd_chunk_out(Args a) {
   const int c = bhc % a.nc;
   const int h = bhc / a.nc % a.H;
   const int b = bhc / a.nc / a.H;
+  const int g = h / (a.H / a.G);
   const int t0 = c * a.q;
   const int qlen = min(a.q, a.S - t0);
   const int p0 = blockIdx.y * PT;
@@ -628,8 +635,10 @@ __global__ void __launch_bounds__(128) ssd_chunk_out(Args a) {
 
   const T* xg = static_cast<const T*>(a.x) + b * a.x_sb + t0 * a.x_ss +
                 h * a.P + p0;
-  const T* cg = static_cast<const T*>(a.C) + b * a.c_sb + t0 * a.c_ss;
-  const float* cbg = a.cb + (long long)(b * a.nc + c) * a.QP * a.QP;
+  const T* cg = static_cast<const T*>(a.C) + b * a.c_sb + g * a.c_sg +
+                t0 * a.c_ss;
+  const float* cbg =
+      a.cb + (long long)((b * a.G + g) * a.nc + c) * a.QP * a.QP;
   T* yg = static_cast<T*>(a.y) + b * a.y_sb + t0 * a.y_ss + h * a.P + p0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // this thread's part of the decayed C.B^T tile: rows tid/16 + 8k,
@@ -721,10 +730,10 @@ inline int ceil_div(long long a, long long b) {
 struct Workspace {
   size_t cb, chunk, decay;
   static size_t up(size_t n) { return (n + 255) / 256 * 256; }
-  Workspace(int Bt, int S, int H, int P, int N, int q) {
+  Workspace(int Bt, int S, int H, int P, int N, int q, int G) {
     const long long nc = ceil_div(S, q);
     const long long QP = (long long)ceil_div(q, TILE) * TILE;
-    cb = up(sizeof(float) * Bt * nc * QP * QP);
+    cb = up(sizeof(float) * Bt * G * nc * QP * QP);
     chunk = up(sizeof(float) * Bt * H * nc * (long long)P * N);
     decay = up(sizeof(float) * Bt * H * nc);
   }
@@ -769,7 +778,8 @@ template <typename T, int PT>
 int launch_pt(const Args& a, cudaStream_t stream) {
   const Plan p = plan<T, PT>(a);
   const int nt = ceil_div(a.q, TILE);
-  int rc = launch_kernel(ssd_cb<T>, dim3(a.Bt * a.nc, nt * (nt + 1) / 2),
+  int rc = launch_kernel(ssd_cb<T>,
+                         dim3(a.Bt * a.G * a.nc, nt * (nt + 1) / 2),
                          128, p.smem[0], stream, a);
   if (rc != 0) return rc;
   rc = launch_kernel(
@@ -812,41 +822,46 @@ inline bool aligned16(const void* p, long long sb, long long ss, int elem) {
 // Bytes of device workspace a call of capsim_ssd_scan needs (the caller
 // allocates it; the kernels allocate nothing).
 extern "C" long long capsim_ssd_workspace_bytes(int Bt, int S, int H, int P,
-                                                int N, int q) {
-  if (Bt <= 0 || S <= 0 || H <= 0 || q <= 0) return 0;
+                                                int N, int q, int G) {
+  if (Bt <= 0 || S <= 0 || H <= 0 || q <= 0 || G <= 0) return 0;
   return static_cast<long long>(
-      capsim_ssd::Workspace(Bt, S, H, P, N, q).bytes());
+      capsim_ssd::Workspace(Bt, S, H, P, N, q, G).bytes());
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns 0, a cudaError_t, or -1 for
 // what the kernel is not built for: the one place that states its limits
 // (head_dim P a multiple of 16, d_state N a multiple of 4 and at most
-// MAX_STATE, chunk 0 < q <= MAX_CHUNK, y rows on 16 bytes).  Strides are
-// in elements; x, B, C, dt and y need a dense last axis, x and y dense
-// heads (stride P), and y is (Bt, S, H, P) like x.  `workspace` holds
-// capsim_ssd_workspace_bytes(Bt, S, H, P, N, q) bytes on 256 bytes.
+// MAX_STATE, chunk 0 < q <= MAX_CHUNK, G groups dividing H, y rows on 16
+// bytes).  Strides are in elements; x, B, C, dt and y need a dense last
+// axis, x and y dense heads (stride P), B and C step by b_sg / c_sg from
+// one group to the next, and y is (Bt, S, H, P) like x.  `workspace`
+// holds capsim_ssd_workspace_bytes(Bt, S, H, P, N, q, G) bytes on 256
+// bytes.
 extern "C" int capsim_ssd_scan(
     int dtype, const void* x, const float* dt, const void* B, const void* C,
     const float* A, void* y, float* state, int Bt, int S, int H, int P,
-    int N, int q, long long x_sb, long long x_ss, long long dt_sb,
-    long long dt_ss, long long b_sb, long long b_ss, long long c_sb,
-    long long c_ss, long long y_sb, long long y_ss, void* workspace,
-    void* stream) {
+    int N, int q, int G, long long x_sb, long long x_ss, long long dt_sb,
+    long long dt_ss, long long b_sb, long long b_ss, long long b_sg,
+    long long c_sb, long long c_ss, long long c_sg, long long y_sb,
+    long long y_ss, void* workspace, void* stream) {
   using namespace capsim_ssd;
   if (Bt == 0 || S == 0 || H == 0) return 0;
   const int elem = dtype == 0 ? 4 : 2;
   if ((dtype != 0 && dtype != 1) || P % 16 != 0 || N % 4 != 0 ||
-      N > MAX_STATE || q <= 0 || q > MAX_CHUNK ||
+      N > MAX_STATE || q <= 0 || q > MAX_CHUNK || G <= 0 || H % G != 0 ||
       !aligned16(y, y_sb, y_ss, elem))
     return -1;
   const bool vec = aligned16(x, x_sb, x_ss, elem) &&
                    aligned16(B, b_sb, b_ss, elem) &&
-                   aligned16(C, c_sb, c_ss, elem) && (N * elem) % 16 == 0;
-  const Workspace ws(Bt, S, H, P, N, q);
+                   aligned16(C, c_sb, c_ss, elem) && (N * elem) % 16 == 0 &&
+                   (G == 1 || ((b_sg * elem) % 16 == 0 &&
+                               (c_sg * elem) % 16 == 0));
+  const Workspace ws(Bt, S, H, P, N, q, G);
   unsigned char* w = static_cast<unsigned char*>(workspace);
   Args a{x,     dt,    B,     C,     A,     y,     state, Bt,    S,
-         H,     P,     N,     q,     x_sb,  x_ss,  dt_sb, dt_ss, b_sb,
-         b_ss,  c_sb,  c_ss,  y_sb,  y_ss,  ceil_div(S, q),
+         H,     P,     N,     q,     G,     x_sb,  x_ss,  dt_sb, dt_ss,
+         b_sb,  b_ss,  b_sg,  c_sb,  c_ss,  c_sg,  y_sb,  y_ss,
+         ceil_div(S, q),
          ceil_div(q, TILE) * TILE,   (N + 15) / 16 * 16,   vec,
          reinterpret_cast<float*>(w),
          reinterpret_cast<float*>(w + ws.cb),

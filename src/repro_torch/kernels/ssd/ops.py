@@ -3,7 +3,9 @@ version.
 
 Replaces ``repro/kernels/ssd/ops.py::ssd_scan`` (the Pallas kernel
 ``_ssd_kernel``).  Model layout: x (Bt, S, H, P), dt (Bt, S, H) f32,
-B/C (Bt, S, N) shared by every head, A (H,) f32 negative.  The scan runs
+B/C (Bt, S, N) shared by every head, or (Bt, S, G, N) in G groups (head
+h reads group h // (H / G): NemotronH's ``n_groups``), A (H,) f32
+negative.  The scan runs
 in chunks of ``q = min(chunk, S)`` steps; S is treated as padded up to a
 multiple of q with dt = 0, so padded steps neither decay nor inject.
 Within a chunk, with ``seg = cumsum(dt·A)``:
@@ -53,63 +55,79 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels import build, cost
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
+def _grouped(B: torch.Tensor) -> torch.Tensor:
+    """B or C as (Bt, S, G, N): a (Bt, S, N) tensor is one group."""
+    return B[:, :, None] if B.dim() == 3 else B
+
+
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                    C: torch.Tensor, A: torch.Tensor, chunk: int = 256):
     """The kernel's function in plain PyTorch: the chunk computation of
-    ``_ssd_kernel``, one chunk at a time over the whole batch."""
+    ``_ssd_kernel`` over B/C (Bt, S, N), or (Bt, S, G, N) with head h
+    reading group h // (H / G), every chunk at once (the heads as (G, H /
+    G)), and a loop over the chunks only for the state they carry.  The
+    card's backward recomputes through it, so it launches ~10x fewer
+    kernels than a loop over chunks would."""
+    B, C = _grouped(B), _grouped(C)
     Bt, S, H, P = x.shape
-    N = B.shape[-1]
+    G, N = B.shape[2], B.shape[3]
+    R = H // G
     q = min(chunk, S)
     pad = -S % q
     nc = (S + pad) // q
-    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).view(Bt, nc, q, H, P)
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).view(Bt, nc, q, G, R, P)
     dtf = F.pad(dt.float(), (0, 0, 0, pad)).view(Bt, nc, q, H)
-    Bf = F.pad(B.float(), (0, 0, 0, pad)).view(Bt, nc, q, N)
-    Cf = F.pad(C.float(), (0, 0, 0, pad)).view(Bt, nc, q, N)
-    Af = A.float()
+    Bf = F.pad(B.float(), (0, 0, 0, 0, 0, pad)).view(Bt, nc, q, G, N)
+    Cf = F.pad(C.float(), (0, 0, 0, 0, 0, pad)).view(Bt, nc, q, G, N)
     causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    dtc = dtf.permute(0, 3, 1, 2)                           # (Bt, H, nc, q)
+    seg = torch.cumsum((dtc * A.float()[None, :, None, None]).double(),
+                       dim=-1)
+    diff = (seg[..., :, None] - seg[..., None, :]).float()  # (Bt,H,nc,q,q)
+    L = torch.exp(diff.masked_fill(~causal, float("-inf")))
+    CB = torch.einsum("bcign,bcjgn->bgcij", Cf, Bf)          # (Bt,G,nc,q,q)
+    xdt = xf * dtf.view(Bt, nc, q, G, R, 1)
+    y = torch.einsum("bgrcij,bcjgrp->bcigrp",
+                     CB[:, :, None] * L.view(Bt, G, R, nc, q, q), xdt)
+    last = seg[..., -1:]
+    w = (dtc * torch.exp((last - seg).float())).view(Bt, G, R, nc, q)
+    upd = torch.einsum("bgrcj,bcjgrp,bcjgn->bcgrpn", w, xf, Bf)
+    decay = torch.exp(last[..., 0].float())                 # (Bt, H, nc)
     state = torch.zeros(Bt, H, P, N, dtype=torch.float32, device=x.device)
-    ys = []
+    incoming = []
     for c in range(nc):
-        xc, dtc, Bc, Cc = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
-        dtc = dtc.transpose(1, 2)                               # (Bt, H, q)
-        seg = torch.cumsum((dtc * Af[None, :, None]).double(), dim=-1)
-        diff = (seg[..., :, None] - seg[..., None, :]).float()  # (Bt,H,q,q)
-        L = torch.exp(diff.masked_fill(~causal, float("-inf")))
-        CB = torch.einsum("bin,bjn->bij", Cc, Bc)
-        xdt = xc * dtc.transpose(1, 2)[..., None]               # (Bt,q,H,P)
-        y = torch.einsum("bhij,bjhp->bihp", CB[:, None] * L, xdt)
-        y_off = torch.einsum("bin,bhpn->bihp", Cc, state)
-        y = y + torch.exp(seg.float()).transpose(1, 2)[..., None] * y_off
-        last = seg[..., -1:]
-        w = dtc * torch.exp((last - seg).float())               # (Bt, H, q)
-        upd = torch.einsum("bhj,bjhp,bjn->bhpn", w, xc, Bc)
-        state = state * torch.exp(last.float())[..., None] + upd
-        ys.append(y)
-    y = torch.stack(ys, dim=1).view(Bt, nc * q, H, P)[:, :S]
+        incoming.append(state)
+        state = state * decay[:, :, c, None, None] \
+            + upd[:, c].reshape(Bt, H, P, N)
+    y_off = torch.einsum("bcign,bcgrpn->bcigrp", Cf, torch.stack(
+        incoming, dim=1).view(Bt, nc, G, R, P, N))
+    y = y + torch.exp(seg.float()).permute(0, 2, 3, 1).reshape(
+        Bt, nc, q, G, R, 1) * y_off
+    y = y.reshape(Bt, nc * q, H, P)[:, :S]
     return y.to(x.dtype), state
 
 
 def ssd_cost(Bt: int, S: int, H: int, P: int, N: int, q: int,
-             elem_bytes: int):
+             elem_bytes: int, G: int = 1):
     """(FLOPs, HBM bytes) of one call.  Per chunk of L real steps (the
-    last one ragged) and batch row, C·Bᵀ over the causal half once,
-    L(L+1)/2 pairs of N MACs, since B and C are shared by every head; per
-    head the decayed causal product with x·dt, L(L+1)/2 pairs of P MACs,
-    and L·N·P MACs each for the carried state's output and the state
-    update.  Bytes: x read and y written, B/C, dt and A read, the f32
-    state written once.  ``chip_smoke.py``'s bound and the dry-run both
-    take it from here."""
+    last one ragged), batch row and group of B/C, C·Bᵀ over the causal
+    half once, L(L+1)/2 pairs of N MACs, since a group's B and C are
+    shared by its heads; per head the decayed causal product with x·dt,
+    L(L+1)/2 pairs of P MACs, and L·N·P MACs each for the carried state's
+    output and the state update.  Bytes: x read and y written, B/C of
+    every group, dt and A read, the f32 state written once.
+    ``chip_smoke.py``'s bound and the dry-run both take it from here."""
     lens = [min(q, S - t) for t in range(0, S, q)]
-    flops = float(Bt) * sum(L * (L + 1) * N for L in lens) \
+    flops = float(Bt * G) * sum(L * (L + 1) * N for L in lens) \
         + float(Bt * H) * sum(L * (L + 1) * P + 4 * L * N * P for L in lens)
-    nbytes = (2 * Bt * S * H * P + 2 * Bt * S * N) * elem_bytes \
+    nbytes = (2 * Bt * S * H * P + 2 * Bt * S * G * N) * elem_bytes \
         + 4 * (Bt * S * H + H + Bt * H * P * N)
     return flops, float(nbytes)
 
@@ -117,10 +135,10 @@ def ssd_cost(Bt: int, S: int, H: int, P: int, N: int, q: int,
 def check_ssd_args(x, dt, B, C, A) -> None:
     """Raise on a layout the CUDA kernel does not take.  Everything on one
     CUDA device (or, for the meta route, the meta device); x (Bt, S, H,
-    P) and B/C (Bt, S, N) in one dtype (float32
-    or bfloat16) with the last axis dense; dt (Bt, S, H) and A (H,)
-    float32 with dense last axes.  Batch and row strides are free: the
-    kernel reads the model's layout in place.  The limits on head_dim,
+    P) and B/C (Bt, S, N), or (Bt, S, G, N) with G dividing H, in one
+    dtype (float32 or bfloat16) with the last axis dense; dt (Bt, S, H)
+    and A (H,) float32 with dense last axes.  Batch, row and group strides
+    are free: the kernel reads the model's layout in place.  The limits on head_dim,
     d_state and chunk belong to the kernel's entry point
     (``capsim_ssd_scan``), which refuses what it was not built for."""
     Bt, S, H, P = x.shape
@@ -140,10 +158,12 @@ def check_ssd_args(x, dt, B, C, A) -> None:
                          "tensor")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"ssd_scan: dtype {x.dtype} not supported")
-    if B.dim() != 3 or B.shape[:2] != (Bt, S) or B.dtype != x.dtype \
+    if B.dim() not in (3, 4) or B.shape[:2] != (Bt, S) \
+            or (B.dim() == 4 and H % B.shape[2]) or B.dtype != x.dtype \
             or C.dtype != x.dtype:
         raise ValueError(f"ssd_scan: B/C must be (Bt, S, N) = ({Bt}, {S}, "
-                         f"N) in {x.dtype}")
+                         f"N) or (Bt, S, G, N) with G dividing {H}, in "
+                         f"{x.dtype}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise ValueError("ssd_scan: dt and A must be float32")
     if x.stride(3) != 1 or x.stride(2) != P:
@@ -155,9 +175,9 @@ def check_ssd_args(x, dt, B, C, A) -> None:
 def _kernel():
     lib = build.load("ssd")
     fn = lib.capsim_ssd_scan
-    fn.argtypes = [_I] + [_P] * 7 + [_I] * 6 + [_L] * 10 + [_P, _P]
+    fn.argtypes = [_I] + [_P] * 7 + [_I] * 7 + [_L] * 12 + [_P, _P]
     fn.restype = ctypes.c_int
-    lib.capsim_ssd_workspace_bytes.argtypes = [_I] * 6
+    lib.capsim_ssd_workspace_bytes.argtypes = [_I] * 7
     lib.capsim_ssd_workspace_bytes.restype = _L
     return lib, fn
 
@@ -165,8 +185,8 @@ def _kernel():
 def ssd_scan_backward(x, dt, B, C, A, chunk: int, gy, gstate):
     """(dx, ddt, dB, dC, dA) of ``ssd_scan`` for the gradients of its two
     outputs: the scan recomputed through ``ssd_scan_plain`` and
-    differentiated by autograd."""
-    with torch.enable_grad():
+    differentiated by autograd, inside the span ``ssd/backward``."""
+    with obs.span("ssd/backward"), torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (x, dt, B, C, A)]
         y, state = ssd_scan_plain(*ins, chunk)
         return torch.autograd.grad((y, state), ins, (gy, gstate))
@@ -191,9 +211,10 @@ class _SSDScan(torch.autograd.Function):
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, A: torch.Tensor, chunk: int = 256):
     """Returns (y (Bt, S, H, P) in x's dtype, final state (Bt, H, P, N)
-    f32).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel on the current stream, through ``_SSDScan`` where a gradient
-    is wanted."""
+    f32).  B and C are (Bt, S, N), shared by every head, or (Bt, S, G, N),
+    head h reading group h // (H / G).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel on the current stream, through
+    ``_SSDScan`` where a gradient is wanted."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, B, C, A, chunk)
     check_ssd_args(x, dt, B, C, A)
@@ -207,10 +228,12 @@ def _launch(x, dt, B, C, A, chunk: int):
     """One call's four launches on checked arguments; on meta the meta
     route (the module docstring)."""
     Bt, S, H, P = x.shape
-    N = B.shape[-1]
+    B, C = _grouped(B), _grouped(C)
+    G, N = B.shape[2], B.shape[3]
     q = min(chunk, S)
+    work = ssd_cost(Bt, S, H, P, N, q, x.element_size(), G)
     if x.device.type == "meta":
-        cost.report("ssd", *ssd_cost(Bt, S, H, P, N, q, x.element_size()))
+        cost.report("ssd", *work)
         return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
                 torch.empty(Bt, H, P, N, dtype=torch.float32,
                             device=x.device))
@@ -218,19 +241,19 @@ def _launch(x, dt, B, C, A, chunk: int):
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     state = torch.empty(Bt, H, P, N, dtype=torch.float32, device=x.device)
     workspace = torch.empty(
-        lib.capsim_ssd_workspace_bytes(Bt, S, H, P, N, q),
+        lib.capsim_ssd_workspace_bytes(Bt, S, H, P, N, q, G),
         dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
             B.data_ptr(), C.data_ptr(), A.data_ptr(), y.data_ptr(),
-            state.data_ptr(), Bt, S, H, P, N, q,
+            state.data_ptr(), Bt, S, H, P, N, q, G,
             x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
-            B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-            y.stride(0), y.stride(1), workspace.data_ptr(), stream)
+            B.stride(0), B.stride(1), B.stride(2), C.stride(0), C.stride(1),
+            C.stride(2), y.stride(0), y.stride(1), workspace.data_ptr(),
+            stream)
     build.check(lib, rc, f"ssd_scan (head_dim {P}, d_state {N}, chunk {q})")
     build.count_launch(ssd_scan, heads=H)
-    cost.launched("ssd", x.dtype,
-                  *ssd_cost(Bt, S, H, P, N, q, x.element_size()))
+    cost.launched("ssd", x.dtype, *work)
     return y, state
 
 

@@ -222,7 +222,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 def _project(params, x, q, positions, cfg, Hl: int):
     """(q, k, v): the query columns ``q`` (x @ wq) as Hl heads and x's
-    keys and values, qk-normed and rotated."""
+    keys and values, qk-normed and rotated (unrotated where ``cfg.rope``
+    is off: NemotronH's attention has no positional rotation)."""
     B, S, _ = x.shape
     KV, Dh = cfg.num_kv_heads, cfg.head_dim
     q = q.reshape(B, S, Hl, Dh)
@@ -231,8 +232,9 @@ def _project(params, x, q, positions, cfg, Hl: int):
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 

@@ -325,7 +325,7 @@ def nonparam_layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def norm(x: torch.Tensor, params: dict, cfg) -> torch.Tensor:
     if cfg.nonparametric_norm:
         return nonparam_layer_norm(x)
-    return rms_norm(x, params["scale"])
+    return rms_norm(x, params["scale"], cfg.norm_eps)
 
 
 def norm_spec(cfg) -> dict:

@@ -12,6 +12,14 @@ Two paths over the same math (arXiv:2405.21060):
 The reference's dtype order is kept: dt = softplus(f32(x·wdt) + dt_bias),
 A = -exp(A_log) in f32, the skip ``xh·D`` in x's dtype, and the gate
 ``rms_norm(y · silu(f32 z).to(y.dtype), gate_norm)``.
+
+NemotronH's mixer (``configs/nemotron_3_nano_30b_a3b.py``) adds to it:
+d_inner from its own head count (``ssm_num_heads``), B and C in
+``ssm_groups`` groups (head h reads group h // (heads / groups)), a bias
+on each depthwise convolution (``ssm_conv_bias``), and the gate norm
+over groups of d_inner / groups channels, each normalized on its own,
+with the config's ``norm_eps``.  One group is Mamba2's mixer, computed
+as before.
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ from repro_torch.models.layers import ParamSpec, dense_spec, rms_norm
 
 
 def ssm_dims(cfg):
+    if cfg.ssm_num_heads:
+        return cfg.ssm_num_heads * cfg.ssm_head_dim, cfg.ssm_num_heads
     d_inner = cfg.ssm_expand * cfg.d_model
     nheads = d_inner // cfg.ssm_head_dim
     return d_inner, nheads
@@ -35,8 +45,14 @@ def ssm_dims(cfg):
 def ssm_specs(cfg) -> dict:
     d = cfg.d_model
     d_inner, nheads = ssm_dims(cfg)
-    ds, w = cfg.ssm_state, cfg.ssm_conv_width
+    ds, w = cfg.ssm_groups * cfg.ssm_state, cfg.ssm_conv_width
+    bias = {}
+    if cfg.ssm_conv_bias:
+        bias = {"conv_x_bias": ParamSpec((d_inner,), ("ssm_inner",), std=0.1),
+                "conv_B_bias": ParamSpec((ds,), (None,), std=0.1),
+                "conv_C_bias": ParamSpec((ds,), (None,), std=0.1)}
     return {
+        **bias,
         "wz": dense_spec(d, d_inner, ("embed", "ssm_inner")),
         "wx": dense_spec(d, d_inner, ("embed", "ssm_inner")),
         "wB": dense_spec(d, ds, ("embed", None)),
@@ -55,8 +71,10 @@ def ssm_specs(cfg) -> dict:
 
 
 def _shift_conv(x: torch.Tensor, w: torch.Tensor,
-                cache: Optional[torch.Tensor] = None):
-    """Causal depthwise conv of width W via shifted adds, then SiLU.
+                cache: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None):
+    """Causal depthwise conv of width W via shifted adds, plus ``bias``
+    (C,) where given, then SiLU.
 
     x: (B, S, C); w: (W, C).  With a decode cache (B, W-1, C) holding the
     previous W-1 inputs, S may be 1.  Returns (y, new_cache).
@@ -72,30 +90,42 @@ def _shift_conv(x: torch.Tensor, w: torch.Tensor,
     y = xp[:, 0:S] * w[0]
     for i in range(1, W):
         y = y + xp[:, i: i + S] * w[i]
+    if bias is not None:
+        y = y + bias
     # a copy: a view would keep the whole padded prefill input alive
     new_cache = xp[:, xp.shape[1] - (W - 1):].clone()
     return F.silu(y), new_cache
 
 
 def ssd_decode_step(x, dt, B, C, A, state):
-    """One-token SSD update.  x: (Bt, H, P); dt: (Bt, H); B/C: (Bt, N);
-    state: (Bt, H, P, N) f32.  Returns (y in x's dtype, new_state)."""
+    """One-token SSD update.  x: (Bt, H, P); dt: (Bt, H); B/C: (Bt, N),
+    or (Bt, G, N) with head h reading group h // (H / G); state: (Bt, H, P,
+    N) f32.  Returns (y in x's dtype, new_state)."""
     dA = torch.exp(dt.float() * A[None, :])                     # (Bt, H)
-    upd = torch.einsum("bn,bh,bhp->bhpn", B.float(), dt.float(), x.float())
+    if B.dim() == 2:
+        upd = torch.einsum("bn,bh,bhp->bhpn", B.float(), dt.float(),
+                           x.float())
+        new_state = state * dA[..., None, None] + upd
+        y = torch.einsum("bn,bhpn->bhp", C.float(), new_state)
+        return y.to(x.dtype), new_state
+    rep = x.shape[1] // B.shape[1]
+    Bh = B.float().repeat_interleave(rep, dim=1)                # (Bt, H, N)
+    Ch = C.float().repeat_interleave(rep, dim=1)
+    upd = torch.einsum("bhn,bh,bhp->bhpn", Bh, dt.float(), x.float())
     new_state = state * dA[..., None, None] + upd
-    y = torch.einsum("bn,bhpn->bhp", C.float(), new_state)
+    y = torch.einsum("bhn,bhpn->bhp", Ch, new_state)
     return y.to(x.dtype), new_state
 
 
 def init_ssm_cache_specs(cfg, batch: int) -> dict:
     d_inner, nheads = ssm_dims(cfg)
-    ds, w = cfg.ssm_state, cfg.ssm_conv_width
+    ds, w = cfg.ssm_groups * cfg.ssm_state, cfg.ssm_conv_width
     return {
         "conv_x": ParamSpec((batch, w - 1, d_inner),
                             ("cache_batch", None, "act_ssm")),
         "conv_B": ParamSpec((batch, w - 1, ds), ("cache_batch", None, None)),
         "conv_C": ParamSpec((batch, w - 1, ds), ("cache_batch", None, None)),
-        "state": ParamSpec((batch, nheads, cfg.ssm_head_dim, ds),
+        "state": ParamSpec((batch, nheads, cfg.ssm_head_dim, cfg.ssm_state),
                            ("cache_batch", "act_ssm", None, None),
                            dtype="float32"),
     }
@@ -111,6 +141,20 @@ def _gate_out(params: dict, g: torch.Tensor, sumsq: torch.Tensor,
     y = g.float() * torch.rsqrt(sumsq / width + eps)
     y = (y * (1.0 + params["gate_norm"].float())).to(g.dtype)
     return (y @ params["out_proj"]).to(dtype)
+
+
+def gate_norm(g: torch.Tensor, scale: torch.Tensor, cfg) -> torch.Tensor:
+    """The gated y's RMS norm: over all d_inner channels with one group
+    (Mamba2's), else over each of ``ssm_groups`` groups of d_inner /
+    groups channels on its own (NemotronH's ``MambaRMSNormGated``)."""
+    G = cfg.ssm_groups
+    if G == 1:
+        return rms_norm(g, scale, cfg.norm_eps)
+    dt = g.dtype
+    gg = g.float().unflatten(-1, (G, g.shape[-1] // G))
+    y = (gg * torch.rsqrt(gg.square().mean(-1, keepdim=True) + cfg.norm_eps)
+         ).flatten(-2)
+    return (y * (1.0 + scale.float())).to(dt)
 
 
 def ssm_heads(params: dict, x: torch.Tensor, cfg, mode: str,
@@ -137,11 +181,18 @@ def ssm_heads(params: dict, x: torch.Tensor, cfg, mode: str,
     Dp = params["D"]
 
     xin, cx = _shift_conv(xin, params["conv_x"],
-                          None if cache is None else cache["conv_x"])
+                          None if cache is None else cache["conv_x"],
+                          params.get("conv_x_bias"))
     Bp, cB = _shift_conv(Bp, params["conv_B"],
-                         None if cache is None else cache["conv_B"])
+                         None if cache is None else cache["conv_B"],
+                         params.get("conv_B_bias"))
     Cp, cC = _shift_conv(Cp, params["conv_C"],
-                         None if cache is None else cache["conv_C"])
+                         None if cache is None else cache["conv_C"],
+                         params.get("conv_C_bias"))
+    if cfg.ssm_groups > 1:
+        # (Bt, S, G, N): head h reads group h // (heads / G)
+        Bp = Bp.view(Bt, S, cfg.ssm_groups, cfg.ssm_state)
+        Cp = Cp.view(Bt, S, cfg.ssm_groups, cfg.ssm_state)
     if heads is not None:
         dt, A, Dp = dt[..., heads], A[heads], Dp[heads]
     if widen is not None:
@@ -193,8 +244,12 @@ def ssm_forward(params: dict, x: torch.Tensor, cfg, mode: str,
     n = mesh.size(tp) if tp else 1
     if n == 1:
         y, z, new_cache = ssm_heads(params, x, cfg, mode, cache)
-        y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"])
+        y = gate_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"],
+                      cfg)
         return (y @ params["out_proj"]).to(x.dtype), new_cache
+    if cfg.ssm_groups > 1:
+        raise NotImplementedError("tensor parallelism over a mixer with "
+                                  "grouped B/C")
     if nheads % n == 0:
         hl = nheads // n
         y, z, new_cache = ssm_heads(params, x, cfg, mode, cache, slice(
@@ -217,6 +272,9 @@ def tp_shards(params: dict, x: torch.Tensor, cfg, n: int) -> list:
     its d_inner/n channels and nheads/n heads (the SSD kernel at nheads/n
     heads), the gate norm's sums of squares added over the shards."""
     d_inner, nheads = ssm_dims(cfg)
+    if cfg.ssm_groups > 1:
+        raise NotImplementedError("tensor parallelism over a mixer with "
+                                  "grouped B/C")
     if nheads % n:
         raise ValueError(f"{nheads} heads do not split into {n} shards")
     c, hl = d_inner // n, nheads // n

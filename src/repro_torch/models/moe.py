@@ -18,8 +18,9 @@ the meshless path ``_run_local_nomesh`` (:169-204).
   experts   ``torch.bmm`` over the buffer, every local expert, as the
             reference's einsums (no Pallas kernel there either):
             SwiGLU, squared ReLU or tanh GELU
-  combine   the k slots summed in the activation dtype, in slot order,
-            each gate cast to that dtype before it multiplies
+  combine   the k slots gathered from the experts' rows and summed in
+            the activation dtype, in slot order, each gate cast to that
+            dtype before it multiplies
 
 ``moe_shard`` is one device's body as a function of its 'model'
 coordinate ``m``; it returns the partials that the reference joins with
@@ -48,15 +49,41 @@ a mesh (``distributed/sharding.current_mesh``):
 A token's output depends on the batch it came in: the capacity counts
 the device's tokens, and positions run over its flattened tokens.
 
+NemotronH's layer (``cfg.router == "sigmoid"``): the scores are
+``sigmoid(x.float() @ router)``; the top-k choice is made on the scores
+plus ``router_bias`` (the published ``e_score_correction_bias``, which
+only chooses: no gradient reaches it), the chosen scores are the
+weights, renormalized (``/ (sum + 1e-20)``) and scaled by
+``cfg.routed_scaling``; there is no load-balance or z loss (zeros).  A
+shared expert (``cfg.shared_expert_d_ff``) runs on every token and is
+added after the routed experts' sum (after the 'model' all-reduce under
+a mesh, so it counts once).
+
+Expert parallelism without a mesh (``cfg.experts_held``): the layer
+holds ``experts_held`` experts, block ``cfg.expert_shard`` of them,
+routes every token over all ``num_experts`` with the capacity from all
+of them, and computes its own experts' part of the result, which is what
+one rank of an expert-parallel deployment adds before the exchange.
+
+Each call counts the (token, slot) pairs routed to the experts it holds
+in ``capsim_moe_slots_total{outcome="kept"|"dropped"}`` (over capacity:
+dropped; a remat recompute counts again).  The counts add up on the
+device and reach the registry when it is next read (``count_slots``), so
+a layer makes no host round trip for them; nothing is counted on
+``meta``.  Within ``recorded_choices()`` each routing also hands its
+expert choice to the caller, for a reference that replays it.
+
 Gradients flow through every gather and sum of the expert-parallel
 body (``distributed/collectives.py``'s adjoints), so the layer trains
 with 'model' > 1; the routing is computed alike on every 'model' rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Tuple
+import threading
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,21 +91,45 @@ from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharding import (current_layout, current_mesh,
                                               local_param)
 from repro_torch.models.layers import ParamSpec, activation
+from repro_torch.obs import REGISTRY
+
+SLOTS_TOTAL = "capsim_moe_slots_total"
+# sigmoid router: the spread of the drawn correction bias
+ROUTER_BIAS_STD = 0.05
 
 
 def moe_specs(cfg) -> dict:
+    """The router over all ``num_experts`` and the experts held here
+    (``experts_held``, or all); the sigmoid router's correction bias and
+    the shared expert where the config has them."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    held = cfg.experts_held or E
     std = 1.0 / math.sqrt(d)
-    return {
+    specs = {
         "router": ParamSpec((d, E), ("embed", None), std=std,
                             dtype="float32"),
-        "w_gate": ParamSpec((E, d, f), ("expert", "embed", "expert_mlp"),
-                            std=std),
-        "w_up": ParamSpec((E, d, f), ("expert", "embed", "expert_mlp"),
+        "w_up": ParamSpec((held, d, f), ("expert", "embed", "expert_mlp"),
                           std=std),
-        "w_down": ParamSpec((E, f, d), ("expert", "expert_mlp", "embed"),
+        "w_down": ParamSpec((held, f, d), ("expert", "expert_mlp", "embed"),
                             std=1.0 / math.sqrt(f)),
     }
+    if cfg.activation == "swiglu" or cfg.router == "softmax":
+        specs["w_gate"] = ParamSpec((held, d, f),
+                                    ("expert", "embed", "expert_mlp"),
+                                    std=std)
+    if cfg.router == "sigmoid":
+        specs["router_bias"] = ParamSpec((E,), (None,), std=ROUTER_BIAS_STD,
+                                         dtype="float32")
+    fs = cfg.shared_expert_d_ff
+    if fs:
+        # whole on every 'model' rank: it runs once, after the exchange
+        specs["shared_up"] = ParamSpec((d, fs), ("embed", None), std=std)
+        specs["shared_down"] = ParamSpec((fs, d), (None, "embed"),
+                                         std=1.0 / math.sqrt(fs))
+        if cfg.activation == "swiglu":
+            specs["shared_gate"] = ParamSpec((d, fs), ("embed", None),
+                                             std=std)
+    return specs
 
 
 def capacity(tokens: int, k: int, n_exp: int, cf: float) -> int:
@@ -121,14 +172,24 @@ def top_k(probs: torch.Tensor, k: int):
 
 
 def route(router: torch.Tensor, xf: torch.Tensor, k: int,
-          cf: float) -> Routing:
-    """Route the (T, d) tokens ``xf`` over the (d, E) ``router``."""
+          cf: float, bias: Optional[torch.Tensor] = None,
+          scaling: float = 1.0) -> Routing:
+    """Route the (T, d) tokens ``xf`` over the (d, E) ``router``: softmax
+    scores, or with ``bias`` (the sigmoid router's correction bias)
+    sigmoid scores, chosen on scores + bias, weighted by the chosen
+    scores renormalized and times ``scaling``."""
     T, E = xf.shape[0], router.shape[1]
     cap = capacity(T, k, E, cf)
     scores = xf.float() @ router
-    probs = torch.softmax(scores, dim=-1)
-    gates, idx = top_k(probs, k)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    if bias is None:
+        probs = torch.softmax(scores, dim=-1)
+        gates, idx = top_k(probs, k)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    else:
+        probs = torch.sigmoid(scores)
+        _, idx = top_k(probs + bias, k)
+        gates = probs.gather(1, idx)
+        gates = gates / (gates.sum(-1, keepdim=True) + 1e-20) * scaling
     # exclusive running count of each expert in flattened (t, slot) order:
     # a stable sort by expert keeps that order inside each expert's run
     flat = idx.reshape(-1)
@@ -138,7 +199,25 @@ def route(router: torch.Tensor, xf: torch.Tensor, k: int,
     rank = torch.empty_like(order)
     rank[order] = torch.arange(flat.numel(), device=flat.device)
     pos = (rank - starts[flat]).reshape(T, k)
+    for tap in _CHOICE_TAPS:
+        tap.append(idx)
     return Routing(scores, probs, gates, idx, pos, pos < cap, cap)
+
+
+_CHOICE_TAPS: list = []
+
+
+@contextlib.contextmanager
+def recorded_choices():
+    """Within the block every routing appends its (T, k) expert choice
+    (``Routing.idx``, in the order the routings run) to the yielded
+    list."""
+    got: list = []
+    _CHOICE_TAPS.append(got)
+    try:
+        yield got
+    finally:
+        _CHOICE_TAPS.remove(got)
 
 
 @dataclasses.dataclass
@@ -152,17 +231,20 @@ class Partial:
     mean_probs: torch.Tensor
     z: torch.Tensor
     routing: Routing
+    slots: torch.Tensor = None     # (2,) int64: this shard's kept, dropped
 
 
 def moe_shard(xf: torch.Tensor, router: torch.Tensor, w_gate, w_up,
               w_down: torch.Tensor, *, m: int, k: int, cf: float,
-              activation_kind: str) -> Partial:
+              activation_kind: str, bias: Optional[torch.Tensor] = None,
+              scaling: float = 1.0) -> Partial:
     """The body of one device (``_moe_local``): route every token of
     ``xf`` (T, d) over all E experts, with the capacity from T; keep the
     pairs whose expert is among this shard's ``E_loc = w_up.shape[0]``
-    (experts ``m·E_loc ..``); run them."""
+    (experts ``m·E_loc ..``); run them.  ``bias`` and ``scaling``: the
+    sigmoid router (``route``)."""
     E, e_loc, d = router.shape[1], w_up.shape[0], xf.shape[1]
-    r = route(router, xf, k, cf)
+    r = route(router, xf, k, cf, bias, scaling)
     cap = r.cap
     local_e = r.idx - m * e_loc
     is_local = (local_e >= 0) & (local_e < e_loc)
@@ -183,14 +265,68 @@ def moe_shard(xf: torch.Tensor, router: torch.Tensor, w_gate, w_up,
     down = torch.bmm(h, w_down)                              # (E_loc, cap, d)
 
     y = torch.zeros_like(xf)
+    rows = down.reshape(e_loc * cap, d)
     for j in range(k):
         p = torch.where(keep[:, j], r.pos[:, j], 0)
         w = (r.gates[:, j] * keep[:, j]).to(xf.dtype)
-        y = y + down[e_sel[:, j], p] * w[:, None]
+        # a gather by index_select: its gradient is an index_add, parallel
+        # over the pairs.  Advanced indexing's sorts the rows and walks each
+        # row's repeats in series, and every pair not kept here reads row 0
+        # (with weight 0): ~43,000 repeats a slot with 16 of 128 experts.
+        y = y + rows.index_select(0, e_sel[:, j] * cap + p) * w[:, None]
 
     counts = expert_counts(r.idx.reshape(-1), E).float()
     z = torch.logsumexp(r.scores, dim=-1).square().mean()
-    return Partial(y, counts, r.probs.mean(0), z, r)
+    slots = torch.stack([keep.sum(), (is_local & ~r.keep).sum()])
+    return Partial(y, counts, r.probs.mean(0), z, r, slots)
+
+
+# device -> (2,) int64: kept and dropped pairs not yet in the registry
+_PENDING_SLOTS: dict = {}
+_PENDING_LOCK = threading.Lock()
+
+
+def count_slots(parts) -> None:
+    """Add the parts' kept and dropped pairs to the device's running
+    total (no host round trip); ``_fold_slots`` moves it into
+    ``capsim_moe_slots_total`` when the registry is read.  Nothing on
+    ``meta``."""
+    dev = parts[0].slots.device
+    if dev.type == "meta":
+        return
+    total = torch.stack([p.slots for p in parts]).sum(0)
+    with _PENDING_LOCK:
+        acc = _PENDING_SLOTS.get(dev)
+        _PENDING_SLOTS[dev] = total if acc is None else acc + total
+
+
+def _fold_slots() -> None:
+    with _PENDING_LOCK:
+        totals = list(_PENDING_SLOTS.values())
+        _PENDING_SLOTS.clear()
+    if not totals:
+        return
+    fam = REGISTRY.counter(SLOTS_TOTAL, "(token, slot) pairs routed to the "
+                           "experts held here, kept or dropped over their "
+                           "capacity.", ("outcome",))
+    for t in totals:
+        kept, dropped = t.tolist()
+        fam.labels(outcome="kept").inc(kept)
+        fam.labels(outcome="dropped").inc(dropped)
+
+
+REGISTRY.before_read(_fold_slots)
+
+
+def shared_expert(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The shared expert over every token of ``x`` (.., d), in x's
+    dtype."""
+    h = x @ params["shared_up"]
+    if cfg.activation == "swiglu":
+        h = activation(x @ params["shared_gate"], "silu") * h
+    else:
+        h = activation(h, cfg.activation)
+    return h @ params["shared_down"]
 
 
 def load_balance(counts, mean_probs, tokens: int, k: int) -> torch.Tensor:
@@ -218,13 +354,25 @@ def moe_forward(params: dict, x: torch.Tensor,
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     mesh = current_mesh()
+    sigmoid = cfg.router == "sigmoid"
+    kw = dict(k=k, cf=cfg.capacity_factor, activation_kind=cfg.activation,
+              bias=params["router_bias"] if sigmoid else None,
+              scaling=cfg.routed_scaling)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if mesh is None:
         p = moe_shard(x.reshape(B * S, d), params["router"],
-                      params["w_gate"], params["w_up"],
-                      params["w_down"], m=0, k=k, cf=cfg.capacity_factor,
-                      activation_kind=cfg.activation)
-        return (p.y.reshape(B, S, d),
-                load_balance(p.counts, p.mean_probs, B * S, k), p.z)
+                      params.get("w_gate"), params["w_up"],
+                      params["w_down"], m=cfg.expert_shard, **kw)
+        count_slots([p])
+        y = p.y.reshape(B, S, d)
+        if cfg.shared_expert_d_ff:
+            y = y + shared_expert(params, x, cfg)
+        if sigmoid:
+            return y, zero, zero
+        return y, load_balance(p.counts, p.mean_probs, B * S, k), p.z
+    if cfg.experts_held:
+        raise NotImplementedError("experts_held is the meshless layer of "
+                                  "one expert-parallel rank")
 
     lay = current_layout()
     n_model = mesh.size("model") if "model" in mesh.axis_names else 1
@@ -253,9 +401,9 @@ def moe_forward(params: dict, x: torch.Tensor,
     if w["w_up"].shape[0] != E // n_model:
         raise ValueError(f"{cfg.name}: experts held {w['w_up'].shape[0]}, "
                          f"expected {E // n_model} a 'model' shard")
-    parts = [moe_shard(b, w["router"], w["w_gate"], w["w_up"],
-                       w["w_down"], m=m, k=k, cf=cfg.capacity_factor,
-                       activation_kind=cfg.activation) for b in blocks]
+    parts = [moe_shard(b, w["router"], w.get("w_gate"), w["w_up"],
+                       w["w_down"], m=m, **kw) for b in blocks]
+    count_slots(parts)
     if len(parts) == 1:
         p = parts[0]
         y, counts, mean_probs, z = p.y, p.counts, p.mean_probs, p.z
@@ -271,7 +419,12 @@ def moe_forward(params: dict, x: torch.Tensor,
         z = coll.mean_local_grad(z, mesh, dp_axes)
     lb = load_balance(counts, mean_probs, t_loc * dp, k)
     y = coll.take_block(y.reshape(xg.shape), mesh, extra, 0)
-    return coll.take_block(y, mesh, lay.seq, 1), lb, z
+    y = coll.take_block(y, mesh, lay.seq, 1)
+    if cfg.shared_expert_d_ff:
+        y = y + shared_expert(local_experts(params, cfg), x, cfg)
+    if sigmoid:
+        return y, zero, zero
+    return y, lb, z
 
 
 def moe_shards(params: dict, x: torch.Tensor, cfg, n_model: int) -> list:
@@ -280,10 +433,14 @@ def moe_shards(params: dict, x: torch.Tensor, cfg, n_model: int) -> list:
     ``Partial`` over all of x's tokens, their y to be summed."""
     e_loc = cfg.num_experts // n_model
     xf = x.reshape(-1, x.shape[-1])
+    gate = params.get("w_gate")
     return [moe_shard(xf, params["router"],
-                      params["w_gate"][m * e_loc:(m + 1) * e_loc],
+                      None if gate is None
+                      else gate[m * e_loc:(m + 1) * e_loc],
                       params["w_up"][m * e_loc:(m + 1) * e_loc],
                       params["w_down"][m * e_loc:(m + 1) * e_loc], m=m,
                       k=cfg.experts_per_token, cf=cfg.capacity_factor,
-                      activation_kind=cfg.activation)
+                      activation_kind=cfg.activation,
+                      bias=params.get("router_bias"),
+                      scaling=cfg.routed_scaling)
             for m in range(n_model)]

@@ -13,7 +13,10 @@ modality frontend stubs (precomputed embeddings prepended to the token
 embeddings) and MusicGen's parallel codebooks (a (C, V, d) embedding
 table summed over the codebooks, a (C, d, V) unembedding giving (B, S,
 C, V) logits), and ``loss_fn``, the causal-LM loss with the MoE's
-load-balance and router z losses that training minimizes.
+load-balance and router z losses that training minimizes.  A lettered
+pattern (NemotronH's ``cfg.layer_pattern``) gives each layer one op, a
+mixer or an FFN: the layer has no parameters, cache or residual for the
+other, and the one super-block holds every layer.
 
 Decode writes each attention layer's new key and value into the caches
 it is given, in place, and returns those caches; an SSM layer's new
@@ -80,6 +83,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharding import (Layout, axis_rules,
@@ -116,9 +120,11 @@ def _ffn_specs(cfg) -> dict:
 
 
 def _block_specs(cfg, mixer: str, ffn: str) -> dict:
-    specs = {"norm1": norm_spec(cfg)}
-    specs["mixer"] = (attn_mod.attn_specs(cfg) if mixer == "attn"
-                      else ssm_mod.ssm_specs(cfg))
+    specs = {}
+    if mixer != "none":
+        specs["norm1"] = norm_spec(cfg)
+        specs["mixer"] = (attn_mod.attn_specs(cfg) if mixer == "attn"
+                          else ssm_mod.ssm_specs(cfg))
     if ffn == "dense":
         specs["norm2"] = norm_spec(cfg)
         specs["ffn"] = _ffn_specs(cfg)
@@ -163,11 +169,15 @@ def model_specs(cfg) -> dict:
 def cache_specs(cfg, batch: int, max_seq: int) -> dict:
     """Stacked per-layer decode caches (leading num_repeats dim): the
     attention KV cache (B, max_seq, KV, Dh), or the SSM cache, which does
-    not grow with the sequence."""
-    return {f"i{j}": specs_with_leading_stack(
-        attn_mod.init_cache_specs(cfg, batch, max_seq) if mixer == "attn"
-        else ssm_mod.init_ssm_cache_specs(cfg, batch), cfg.num_repeats)
-        for j, (mixer, _) in enumerate(cfg.pattern())}
+    not grow with the sequence; none (an empty dict) for a layer without
+    a mixer."""
+    def layer(mixer):
+        if mixer == "attn":
+            return attn_mod.init_cache_specs(cfg, batch, max_seq)
+        return ssm_mod.init_ssm_cache_specs(cfg, batch) if mixer == "ssm" \
+            else {}
+    return {f"i{j}": specs_with_leading_stack(layer(mixer), cfg.num_repeats)
+            for j, (mixer, _) in enumerate(cfg.pattern())}
 
 
 def init_params(cfg, seed: int = 0, device: DeviceLike = "cuda",
@@ -266,8 +276,9 @@ def place_caches(cfg, caches: dict, max_seq: int,
                          "the batch differently")
     out = dict(caches)
     for j, (mixer, _) in enumerate(cfg.pattern()):
-        if mixer != "attn":
+        if mixer == "ssm":
             out[f"i{j}"] = _place_ssm_cache(cfg, caches[f"i{j}"])
+        if mixer != "attn":
             continue
         out[f"i{j}"] = {}
         for name, x in caches[f"i{j}"].items():
@@ -375,29 +386,37 @@ def _layer_specs(cfg, kind=None) -> dict:
 def _block_forward(bparams, x, cfg, mode, cache, positions=None,
                    cache_pos=None, kind=None):
     """One layer: pre-norm mixer and residual, then (dense or MoE FFN)
-    pre-norm FFN and residual.  ``kind`` is its (mixer, ffn), by default
-    the schedule's first; ``positions`` and ``cache_pos`` feed attention.
-    Returns (x, new cache, lb, z): the MoE FFN's auxiliary losses, f32
-    zeros for another layer."""
+    pre-norm FFN and residual; a lettered pattern's layer has one of the
+    two ('none' the other).  ``kind`` is its (mixer, ffn), by default the
+    schedule's first; ``positions`` and ``cache_pos`` feed attention.
+    The mixer runs in the span ``lm/attention`` or ``lm/mamba``, the MoE
+    FFN in ``lm/moe``.  Returns (x, new cache ({} without a mixer), lb,
+    z): the MoE FFN's auxiliary losses, f32 zeros for another layer."""
     mixer, ffn = kind or cfg.pattern()[0]
     bparams = local_params(bparams, _layer_specs(cfg, (mixer, ffn)))
-    h = norm(x, bparams["norm1"], cfg)
+    new_cache = {}
     if mixer == "attn":
-        y, new_cache = attn_mod.attention_forward(
-            bparams["mixer"], h, positions, cfg, mode, cache, cache_pos)
-    else:
+        with obs.span("lm/attention"):
+            y, new_cache = attn_mod.attention_forward(
+                bparams["mixer"], norm(x, bparams["norm1"], cfg), positions,
+                cfg, mode, cache, cache_pos)
+        x = x + y
+    elif mixer == "ssm":
         # the scan runs over the whole sequence: gather, scan, keep the
         # rank's slice (the prefill state is the whole sequence's)
         mesh, seq = current_mesh(), current_layout().seq
-        y, new_cache = ssm_mod.ssm_forward(
-            bparams["mixer"], coll.all_gather(h, mesh, seq, 1), cfg, mode,
-            cache)
-        y = coll.take_block(y, mesh, seq, 1)
-    x = x + y
+        with obs.span("lm/mamba"):
+            y, new_cache = ssm_mod.ssm_forward(
+                bparams["mixer"], coll.all_gather(
+                    norm(x, bparams["norm1"], cfg), mesh, seq, 1), cfg,
+                mode, cache)
+            y = coll.take_block(y, mesh, seq, 1)
+        x = x + y
     lb = z = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "moe":
-        y, lb, z = moe_mod.moe_forward(bparams["ffn"],
-                                       norm(x, bparams["norm2"], cfg), cfg)
+        with obs.span("lm/moe"):
+            y, lb, z = moe_mod.moe_forward(
+                bparams["ffn"], norm(x, bparams["norm2"], cfg), cfg)
         x = x + y
     elif ffn == "dense":
         h = norm(x, bparams["norm2"], cfg)
@@ -436,24 +455,34 @@ def _stack_forward(params, x, cfg, mode: str, caches=None, positions=None,
     order.  In decode an attention layer's cache is a view of ``caches``,
     updated in place, so those stay as they are.  In train mode with
     ``cfg.remat`` (and grad on) each super-block runs under
-    ``layers.remat_call``: its backward recomputes it."""
+    ``layers.remat_call``: its backward recomputes it; a lettered
+    pattern's one super-block is every layer, so there each layer is
+    recomputed on its own."""
     pattern = cfg.pattern()
     per_repeat = []
     lb_sum = z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "train":
-        def super_block(bparams, x, lb_sum, z_sum):
-            for j, kind in enumerate(pattern):
-                x, _, lb, z = _block_forward(bparams[f"i{j}"], x, cfg, mode,
-                                             None, positions, None, kind)
-                lb_sum = lb_sum + lb
-                z_sum = z_sum + z
-            return x, lb_sum, z_sum
+        def layers_of(kinds):
+            def run(bparams, x, lb_sum, z_sum):
+                for j, kind in kinds:
+                    x, _, lb, z = _block_forward(bparams[f"i{j}"], x, cfg,
+                                                 mode, None, positions, None,
+                                                 kind)
+                    lb_sum = lb_sum + lb
+                    z_sum = z_sum + z
+                return x, lb_sum, z_sum
+            return run
+        units = ([[(j, kind)] for j, kind in enumerate(pattern)]
+                 if cfg.layer_pattern else [list(enumerate(pattern))])
         for r in range(cfg.num_repeats):
-            # remat: each super-block's activations are recomputed in the
+            # remat: each unit's activations are recomputed in the
             # backward (the reference's jax.checkpoint of the scan body)
-            x, lb_sum, z_sum = remat_call(
-                cfg.remat, super_block, _index(params["blocks"], r), x,
-                lb_sum, z_sum)
+            bparams = _index(params["blocks"], r)
+            for unit in units:
+                x, lb_sum, z_sum = remat_call(
+                    cfg.remat, layers_of(unit),
+                    {f"i{j}": bparams[f"i{j}"] for j, _ in unit}, x, lb_sum,
+                    z_sum)
         return x, None, lb_sum, z_sum
     for r in range(cfg.num_repeats):
         bparams = _index(params["blocks"], r)

@@ -24,7 +24,7 @@ import bisect
 import itertools
 import math
 import threading
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 COUNTER = "counter"
 GAUGE = "gauge"
@@ -207,6 +207,7 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self._families: Dict[str, Family] = {}
         self._instance_seq = itertools.count()
+        self._before_read: List[Callable[[], None]] = []
 
     # -- family registration ------------------------------------------------
     def _family(self, name: str, kind: str, help: str,
@@ -243,12 +244,25 @@ class MetricsRegistry:
         """A process-unique instance label, e.g. ``predictor3``."""
         return f"{prefix}{next(self._instance_seq)}"
 
+    def before_read(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` at the start of every read (``value``, ``collect``,
+        ``snapshot``, ``render_prometheus``), outside the lock: a writer
+        that keeps its adds on a device folds them in there."""
+        with self._lock:
+            if fn not in self._before_read:
+                self._before_read.append(fn)
+
+    def _settle(self) -> None:
+        for fn in list(self._before_read):
+            fn()
+
     # -- reads --------------------------------------------------------------
     def value(self, name: str, **labels: object) -> float:
         """Current value of one cell; 0.0 if the cell never existed.
 
         Counters/gauges return their value; histograms their ``sum``.
         """
+        self._settle()
         with self._lock:
             fam = self._families.get(name)
             if fam is None:
@@ -268,6 +282,7 @@ class MetricsRegistry:
         """
         out: List[Tuple[Dict[str, str], object]] = []
         smatch = {k: str(v) for k, v in match.items()}
+        self._settle()
         with self._lock:
             fam = self._families.get(name)
             if fam is None:
@@ -285,6 +300,7 @@ class MetricsRegistry:
     def snapshot(self) -> Dict[str, dict]:
         """JSON-able dump of every family (for bench artifacts)."""
         snap: Dict[str, dict] = {}
+        self._settle()
         with self._lock:
             for name in sorted(self._families):
                 fam = self._families[name]
@@ -310,6 +326,7 @@ class MetricsRegistry:
     def render_prometheus(self) -> str:
         """Prometheus text exposition format (version 0.0.4)."""
         lines: List[str] = []
+        self._settle()
         with self._lock:
             for name in sorted(self._families):
                 fam = self._families[name]

@@ -129,12 +129,14 @@ def _flat(tree, is_spec, prefix=""):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match_the_reference(arch):
-    port_fields = {f.name for f in dataclasses.fields(tcfgs.ArchConfig)}
+    port_fields = {f.name for f in dataclasses.fields(tcfgs.ArchConfig)
+                   } - set(tcfgs.PORT_ONLY_FIELDS)
     for getter in ("get_config", "get_smoke_config"):
         jc = getattr(jcfgs, getter)(arch)
         tc = getattr(tcfgs, getter)(arch)
         for name in port_fields:
             assert getattr(tc, name) == getattr(jc, name), (getter, name)
+        assert tcfgs.port_only_at_defaults(tc), getter
         assert tc.pattern() == jc.pattern() == (("attn", "dense"),)
         assert tc.num_repeats == jc.num_repeats
     assert arch in tcfgs.ARCH_NAMES

@@ -148,15 +148,19 @@ def _flat(tree, is_spec, prefix=""):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match_the_reference(arch):
     """Field by field, less the XLA knobs the port leaves out; the
-    port's fields are the reference's, less those it names as left out."""
-    port_fields = {f.name for f in dataclasses.fields(tcfgs.ArchConfig)}
+    port's fields are the reference's, less those it names as left out,
+    and those NemotronH brought, at their defaults."""
+    port_fields = {f.name for f in dataclasses.fields(tcfgs.ArchConfig)
+                   } - set(tcfgs.PORT_ONLY_FIELDS)
     ref_fields = {f.name for f in dataclasses.fields(jcfgs.ArchConfig)}
     assert port_fields < ref_fields and not port_fields & LEFT_OUT
+    assert not set(tcfgs.PORT_ONLY_FIELDS) & ref_fields
     for getter in ("get_config", "get_smoke_config"):
         jc = getattr(jcfgs, getter)(arch)
         tc = getattr(tcfgs, getter)(arch)
         for name in port_fields:
             assert getattr(tc, name) == getattr(jc, name), (getter, name)
+        assert tcfgs.port_only_at_defaults(tc), getter
         assert tc.pattern() == jc.pattern() == (("attn", "dense"),)
     assert arch in tcfgs.ARCH_NAMES
 

@@ -379,6 +379,44 @@ def test_ssd_kernel_on_unaligned_views(dtype):
         assert err < SSD_TOL[dtype], err
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_ssd_kernel_matches_plain(dtype):
+    """B/C in G groups (head h reads group h // (H / G)): the kernel
+    against the plain version at small shapes, a ragged last chunk, and
+    NemotronH's layer (Bt 2, S 4096, 64 heads x 64, N 128, G 8, chunk
+    128); B/C as slices of one (Bt, S, 2, G, N) projection, as the mixer
+    gives them.  One group as a 4-d view launches the same bits as the
+    shared (Bt, S, N) layout."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    cases = [((2, 300, 8, 64, 32, 128), 2), ((1, 200, 16, 64, 128, 64), 8),
+             ((2, 4096, 64, 64, 128, 128), 8)]
+    for case, G in cases:
+        Bt, S, H, P, N, q = case
+        x, dt, _, _, A = ssd_inputs(case, seed=11)
+        bc = np.random.RandomState(3).randn(Bt, S, 2, G, N).astype(
+            np.float32) * 0.3
+        bc = _cuda(bc, tdt)
+        args = (_cuda(x, tdt), _cuda(dt, torch.float32), bc[:, :, 0],
+                bc[:, :, 1], _cuda(A, torch.float32))
+        y, st = ssd_ops.ssd_scan(*args, chunk=q)
+        yp, sp = ssd_ops.ssd_scan_plain(*args, chunk=q)
+        torch.cuda.synchronize()
+        for out, ref in ((y, yp), (st, sp)):
+            err = scaled_err(out.float().cpu().numpy(),
+                             ref.float().cpu().numpy())
+            assert err < SSD_TOL[dtype], (case, G, err)
+    x, dt, B, C, A = ssd_inputs(SSD_CASES[0])
+    args = [_cuda(t, d) for t, d in ((x, tdt), (dt, torch.float32), (B, tdt),
+                                     (C, tdt), (A, torch.float32))]
+    shared = ssd_ops.ssd_scan(*args, chunk=SSD_CASES[0][-1])
+    one = ssd_ops.ssd_scan(args[0], args[1], args[2][:, :, None],
+                           args[3][:, :, None], args[4],
+                           chunk=SSD_CASES[0][-1])
+    for a, b in zip(shared, one):
+        assert torch.equal(a, b)
+
+
 def test_ssd_kernel_refuses_what_it_does_not_take():
     _need_card()
     x = torch.zeros(1, 8, 2, 8, device="cuda")          # head_dim 8
@@ -580,7 +618,8 @@ def _leaves(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
-                                  "kimi-k2-1t-a32b", "jamba-1.5-large-398b"])
+                                  "kimi-k2-1t-a32b", "jamba-1.5-large-398b",
+                                  "nemotron-3-nano-30b-a3b"])
 def test_moe_on_card_matches_cpu(arch):
     """The MoE and hybrid smoke models, f32 (TF32 off): one seed gives
     the same parameters on the card as on the CPU, bit for bit (bf16

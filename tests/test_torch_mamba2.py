@@ -77,12 +77,14 @@ def _tokens(cfg, shape, seed=0):
 # --------------------------------------------------------------------- #
 
 def test_configs_match_the_reference():
-    port_fields = {f.name for f in dataclasses.fields(tcfgs.ArchConfig)}
+    port_fields = {f.name for f in dataclasses.fields(tcfgs.ArchConfig)
+                   } - set(tcfgs.PORT_ONLY_FIELDS)
     for getter in ("get_config", "get_smoke_config"):
         jc = getattr(jcfgs, getter)(ARCH)
         tc = getattr(tcfgs, getter)(ARCH)
         for name in port_fields:
             assert getattr(tc, name) == getattr(jc, name), (getter, name)
+        assert tcfgs.port_only_at_defaults(tc), getter
         assert tc.pattern() == jc.pattern() == (("ssm", "none"),)
         assert tc.num_repeats == jc.num_repeats
     assert tcfgs.LM_SHAPES == {k: tcfgs.ShapeConfig(*dataclasses.astuple(v))

@@ -134,10 +134,14 @@ def test_extrapolate_costs_linear_and_equal_to_reference():
 
 
 def test_arch_names_are_the_references():
-    assert set(ARCH_NAMES) == set(J_ARCHS)
+    """Every arch of the reference is in the port; the port's one more,
+    NemotronH, has no reference arch to equal (its counts are held to
+    the published model in ``test_torch_nemotron_h.py``)."""
+    assert set(J_ARCHS) <= set(ARCH_NAMES)
+    assert set(ARCH_NAMES) - set(J_ARCHS) == {"nemotron-3-nano-30b-a3b"}
 
 
-@pytest.mark.parametrize("arch", sorted(ARCH_NAMES))
+@pytest.mark.parametrize("arch", sorted(J_ARCHS))
 def test_param_counts_and_model_flops_equal_the_reference(arch):
     cfg, jcfg = get_config(arch), j_get_config(arch)
     assert rf.param_counts(cfg) == jrf.param_counts(jcfg)
