@@ -266,9 +266,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               flash timed at (4, 4096, 12, 128) and (4, 4096, 32, 64) in
               bf16 like phase 13.
  15. train grads  the flash and SSD kernels' gradients: each wrapper's
-              ``torch.autograd.Function`` (the kernel's launch forward,
-              the plain version's recompute backward) against autograd
-              through the plain version on the card, at the CAPSim train
+              ``torch.autograd.Function`` (the kernel's launch forward;
+              the backward the f32 flash backward kernels, or the plain
+              version's recompute for bf16 flash and the SSD scan)
+              against autograd through the plain version on the card,
+              at the CAPSim train
               step's attention shapes at batch 32 (instruction encoder
               4096 x 16 with its mask, block self 360 / 369, cross 360 /
               369 -> 128 with clip_mask), causal (1, 1024, 32, 128) and
@@ -276,6 +278,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               relative norm per input, bf16 reported, all finite, the
               forward bitwise the no-grad launch.  Each flash shape timed
               forward (kernel, plain, SDPA, bound) and backward.
+              Then the f32 flash backward kernels
+              (``csrc/flash_attention_bwd.cu``, no TPU kernel: the
+              reference recomputes through ``attention_ref``) at the
+              train cells' shapes (4096 x 16 masked, 256 x 360^2,
+              256 x 360 -> 128, 32 x 1476^2, 32 x 1476 -> 128), a causal
+              window, causal (1, 1024, 32, 128), every f32 head dim and
+              the one-tile kernel: the forward's log-sum-exp against the
+              plain one with the output bitwise the launch without it;
+              dq/dk/dv against the plain equations and against the plain
+              recompute, f32 <= 1e-4 relative norm; two calls the same
+              bits; keyless rows and masked keys exactly 0; timed
+              (kernels, recompute, SDPA's backward, bound).
  16. train capsim the CAPSim predictor at full width in f32 on 750 clips
               (every Table II benchmark, 2 checkpoints of 10 000): card
               vs CPU from one init over 3 batches of 32 (the first
@@ -284,16 +298,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
               ``launch/train.py``'s ``train_capsim`` for 100 steps through
               ResilientTrainer and CheckpointManager (a save every 50),
               launch counters reset just before and read just after (12
-              flash launches a forward), the MAPE curve, steps/s and
+              flash launches a forward, 12 flash backward launches a
+              step), the MAPE curve, steps/s and
               clips/s; its restart resumes at step 100 with the state
               bitwise the saved one; one step of the real train step
               profiled and cut at its ``record_function`` ranges
-              (forward, backward with the flash recompute apart,
-              update); a throughput row at batch 256.
+              (forward, backward with the flash backward kernels apart,
+              update); a throughput row at batch 256 (40 flash backward
+              launches a step).
  17. train multicore  ``train_capsim_multicore`` on 4 cores at interval
               20 000 for 20 steps, at context width 369 and with peer
               channels (1476 rows): finite losses, steps/s, the flash
-              launches exactly 12 a forward.
+              launches exactly 12 a forward and 12 backward a step.
  18. train lm  qwen3-4b (2 layers) and mamba2-780m (4 layers) at full
               width in bf16, batch 1 x 4096: 3 AdamW steps on one batch,
               the loss finite and falling, every leaf's first gradient
@@ -543,6 +559,27 @@ FA_TRAIN = (("inst", 4096, 16, 16, 4, 32, False, True),
             ("causal_lm", 1, 1024, 1024, 32, 128, True, False))
 SSD_TRAIN = ("mamba2_train", 1, 4096, 48, 64, 128, 256)
 GRAD_TOL = 1e-4
+# the f32 flash backward kernels (csrc/flash_attention_bwd.cu) at the train
+# cells' shapes (an instruction-encoder pass, b256's block self and cross,
+# mc4's over 1476 context rows), a causal window, the LM zoo's causal
+# D=128 gradient check, every other head dim and the one-tile kernel
+# (Sq, Skv <= 16) off its path shape: (label, B, Sq, Skv, H, D, causal,
+# window, masked); a masked case leaves batch row 0 no key
+FA_BWD = (("inst_4096", 4096, 16, 16, 4, 32, False, 0, True),
+          ("block_self_b256", 256, 360, 360, 4, 32, False, 0, False),
+          ("block_cross_b256", 256, 360, 128, 4, 32, False, 0, True),
+          ("block_self_m1476", 32, 1476, 1476, 4, 32, False, 0, False),
+          ("block_cross_m1476", 32, 1476, 128, 4, 32, False, 0, True),
+          ("causal_window", 2, 300, 517, 4, 32, True, 100, True),
+          ("causal_lm", 1, 1024, 1024, 32, 128, True, 0, False),
+          ("q17_kv40_d32", 3, 17, 40, 4, 32, True, 0, True),
+          ("d16", 3, 100, 257, 2, 16, False, 0, True),
+          ("d64_causal", 2, 200, 200, 2, 64, True, 0, False),
+          ("d128", 2, 100, 257, 2, 128, False, 0, True),
+          ("d112_window", 2, 33, 257, 2, 112, True, 50, True),
+          ("one_tile_causal", 5, 9, 14, 3, 64, True, 4, True),
+          ("one_tile_d16", 7, 16, 11, 2, 16, False, 0, True),
+          ("one_tile_d128", 3, 16, 16, 2, 128, True, 0, False))
 # CAPSim training at full width: the data (Table II benchmarks, interval,
 # checkpoints: every benchmark, since the first 3 give 27 training clips,
 # less than one batch), the paper's batch, the trainer's steps and
@@ -704,7 +741,7 @@ def bound(B, Sq, Skv, H, D, dtype: str, aux: bool, causal: bool = False):
 
 
 KERNEL_NAMES = r"(ssd_chunk_state|ssd_chunk_out|ssd_state_pass|ssd_cb|" \
-    r"fa_fwd_bf16|fa_fwd_f32)"
+    r"fa_fwd_bf16|fa_fwd_f32|fa_bwd_delta_f32|fa_bwd_dkdv_f32|fa_bwd_dq_f32)"
 
 
 def kernel_label(mangled: str):
@@ -715,7 +752,7 @@ def kernel_label(mangled: str):
         return None
     name = kind.group(1)
     dtype = ("bf16" if "13__nv_bfloat16" in mangled or name == "fa_fwd_bf16"
-             else "f32" if name == "fa_fwd_f32" or re.search(
+             else "f32" if name.startswith("fa_") or re.search(
                  r"\d" + name + r"If", mangled) else None)
     ints = [int(v) for v in re.findall(r"Li(\d+)E", mangled)]
     flags = re.findall(r"Lb([01])E", mangled)
@@ -740,7 +777,8 @@ def sass_pipes(torch, build, fa_ops, ssd_ops):
                 for dt, name in (("f32", "float32"), ("bf16", "bfloat16"))}
     ssd_slot = {"ssd_cb": 0, "ssd_chunk_state": 1, "ssd_state_pass": 2,
                 "ssd_chunk_out": 3}
-    for lib in ("flash_attention", "weighted_attention", "ssd"):
+    for lib in ("flash_attention", "flash_attention_bwd",
+                "weighted_attention", "ssd"):
         path = build.library_path(lib)
         hmma = {k: v["HMMA"] for k, v in build.sass_opcodes(path).items()}
         usage = build.resource_usage(path)
@@ -752,7 +790,9 @@ def sass_pipes(torch, build, fa_ops, ssd_ops):
             label, dtype, ints = found
             regs, static = usage.get(name, ("not measured", "not measured"))
             base = label.split("<")[0]
-            if base.startswith("fa_fwd"):
+            if base.startswith("fa_bwd"):
+                dyn = "- (fa_bwd: DkvSmem / DqSmem)"
+            elif base.startswith("fa_fwd"):
                 tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
                 dyn = fa_ops.shared_bytes(tdt, ints[0])
                 seen.add((dtype, ints[0]))
@@ -771,7 +811,13 @@ def sass_pipes(torch, build, fa_ops, ssd_ops):
             else:
                 require(count == 0, f"{lib} {label} has {count} HMMA: f32 "
                         "must stay on the FMA pipes")
-        if lib != "ssd":
+        if lib == "flash_attention_bwd":
+            want = {f"{k}<{d}>" for k in ("fa_bwd_delta_f32",
+                                          "fa_bwd_dkdv_f32", "fa_bwd_dq_f32")
+                    for d in fa_ops.HEAD_DIMS}
+            require(want <= seen, f"{lib}: f32 instantiations in the SASS "
+                    f"{sorted(seen)}")
+        elif lib != "ssd":
             want = {(k, d) for k in ("bf16", "f32") for d in fa_ops.HEAD_DIMS}
             require(want <= seen, f"{lib} instantiations in the SASS: "
                     f"{sorted(x for x in seen if isinstance(x, tuple))}")
@@ -3815,6 +3861,113 @@ def check_train_grads(torch, fa_ops, ssd_ops):
     return rows
 
 
+def check_flash_backward(torch, fa_ops):
+    """The f32 flash backward kernels at FA_BWD's shapes: the forward's
+    log-sum-exp against the plain one (rows with a live key within 1e-5,
+    +inf where none) with the output bitwise the launch without it; the
+    kernels' dq/dk/dv against the plain equations from the same o and lse
+    (``flash_attention_backward_plain``) and against autograd through the
+    plain recompute (``flash_attention_backward``), f32 <= GRAD_TOL
+    relative norm per input, all finite; two calls the same bits; a
+    keyless row's dq and a masked key's dk, dv exactly 0; one launch
+    counted a call.  Each shape timed: the kernels, the plain recompute,
+    SDPA's f32 backward (masks as an additive bias; no window, so none
+    there) and the bound (``attention_bwd_cost``: five products at 67
+    TFLOP/s or the bytes)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = []
+    for label, B, Sq, Skv, H, D, causal, window, masked in FA_BWD:
+        q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+                   for S in (Sq, Skv, Skv))
+        g = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
+        m = None
+        if masked:
+            m = (torch.rand(B, Skv, generator=gen, device="cuda") > 0.3
+                 ).float()
+            m[0] = 0.0
+        kw = dict(causal=causal, window=window, kv_mask=m)
+        lse = torch.empty(B, H, Sq, device="cuda")
+        o = fa_ops._launch(q, k, v, m, causal, window, lse)
+        o_ref, lse_ref = fa_ops.flash_attention_plain(q, k, v, **kw,
+                                                      return_lse=True)
+        same_o = torch.equal(o, fa_ops._launch(q, k, v, m, causal, window))
+        keyless = torch.isinf(lse_ref)
+        lse_err = float((lse - lse_ref)[~keyless].abs().max()) \
+            if bool((~keyless).any()) else 0.0
+        lse_ok = bool(torch.isposinf(lse[keyless]).all()) and lse_err <= 1e-5
+        before = fa_ops.flash_attention_bwd.launches
+        got = fa_ops.flash_attention_bwd(q, k, v, o, lse, g, m, causal,
+                                         window)
+        again = fa_ops.flash_attention_bwd(q, k, v, o, lse, g, m, causal,
+                                           window)
+        n = fa_ops.flash_attention_bwd.launches - before
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        plain = fa_ops.flash_attention_backward_plain(q, k, v, o, lse, g, m,
+                                                      causal, window)
+        e_plain = [rel_norm_err(a, b) for a, b in zip(got, plain)]
+        del plain
+        recompute = fa_ops.flash_attention_backward(q, k, v, m, g, causal,
+                                                    window)
+        e_rec = [rel_norm_err(a, b) for a, b in zip(got, recompute)]
+        del recompute
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        zeros = True
+        if m is not None:
+            off = m == 0
+            zeros = bool((got[0][0] == 0).all()) and bool(
+                (got[1][off] == 0).all()) and bool((got[2][off] == 0).all())
+        print(f"flash_bwd {label:18s} B={B} Sq={Sq} Skv={Skv} H={H} D={D} "
+              f"causal={causal} window={window} masked={masked}: rel_norm "
+              "dq/dk/dv vs plain equations "
+              + "/".join(f"{e:.3e}" for e in e_plain) + " vs recompute "
+              + "/".join(f"{e:.3e}" for e in e_rec)
+              + f"; lse max err {lse_err:.3e} (keyless rows "
+              f"{int(keyless.sum())} +inf: {lse_ok}); o bitwise without "
+              f"lse {same_o}; two calls bitwise {bitwise}; finite {finite}; "
+              f"masked zeros {zeros}; launches {n}")
+        require(finite and bitwise and same_o and lse_ok and zeros and n == 2,
+                f"flash backward {label}: finite {finite}, bitwise "
+                f"{bitwise}, o {same_o}, lse {lse_ok} ({lse_err}), zeros "
+                f"{zeros}, launches {n}")
+        require(max(e_plain + e_rec) <= GRAD_TOL,
+                f"flash backward {label}: rel norm {e_plain} / {e_rec}")
+        row = {"shape": f"bwd_{label}", "dtype": "float32",
+               "ms": cuda_ms(torch, lambda: fa_ops.flash_attention_bwd(
+                   q, k, v, o, lse, g, m, causal, window), iters=10),
+               "recompute_ms": cuda_ms(
+                   torch, lambda: fa_ops.flash_attention_backward(
+                       q, k, v, m, g, causal, window), iters=3, warmup=1,
+                   rounds=2)}
+        row["library_ms"] = float("nan")
+        if window == 0:
+            sq, sk, sv = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            bias = None
+            if masked or (causal and Sq != Skv):
+                bias = torch.where(fa_ops.live_pairs(q, k, causal, 0, m),
+                                   0.0, -1e30)
+            out = F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=bias,
+                is_causal=causal and bias is None)
+            gt = g.transpose(1, 2)
+            row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+                out, (sq, sk, sv), gt, retain_graph=True), iters=5)
+            del sq, sk, sv, bias, out, gt
+        row["bound_ms"], row["bound_by"] = _roof(*fa_ops.attention_bwd_cost(
+            B, Sq, Skv, H, D, 4, masked, causal), "float32")
+        print(f"time flash_attention_bwd {label:18s} float32 kernel_ms="
+              f"{row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']}) bound_share="
+              f"{row['bound_ms'] / row['ms']:.3f} recompute_ms="
+              f"{row['recompute_ms']:.4f} library_ms="
+              f"{row['library_ms']:.4f} (sdpa backward)")
+        rows.append(row)
+        del q, k, v, g, m, o, lse, got, again, o_ref, lse_ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 @contextlib.contextmanager
 def recorded_steps(torch, train_mod, last: int):
     """``train_mod.make_train_step`` wrapped for the duration: each step
@@ -3854,6 +4007,15 @@ def emb_per_step(batch: int) -> int:
     return -(-batch * 128 // predictor.ENCODE_CHUNK) + 1
 
 
+def bwd_per_step(batch: int) -> int:
+    """The flash backward kernels' launches in a CAPSim train step of
+    ``batch`` clips (f32): one a layer of each instruction-encoder pass
+    (4 layers), and the block encoder's self and cross attention (4
+    layers each); remat recomputes forwards, not backwards."""
+    from repro_torch.core import predictor
+    return 4 * -(-batch * 128 // predictor.ENCODE_CHUNK) + 8
+
+
 def steps_per_s(seen) -> float:
     """Steps a second of a recorded run: all its steps over the span from
     the first step's entry to the last step's end (its work done on the
@@ -3862,7 +4024,7 @@ def steps_per_s(seen) -> float:
 
 
 # the train step's ``record_function`` ranges (training/train_loop.py)
-# and the flash Function's recompute (kernels/flash_attention/ops.py)
+# and the flash Function's backward (kernels/flash_attention/ops.py)
 TRAIN_RANGES = ("train/forward", "train/backward", "train/update",
                 "flash_attention_backward")
 
@@ -3874,9 +4036,12 @@ def train_step_split(torch, fn, what: str) -> dict:
     kernels launched inside each, and the host ms each range spans.  The
     autograd engine launches the backward's kernels from its own thread,
     outside the main thread's ``train/backward`` range, so the backward's
-    device time is the busy time that the forward and the update leave;
-    the flash Function's recompute runs in that thread inside its own
-    range.  Returns {part: device ms}."""
+    device time is the busy time that the forward and the update leave.
+    The flash Function's backward runs in that thread inside its own
+    range; in f32 it launches the backward kernels through ctypes, which
+    the profiler does not charge to the range, so its part is their
+    device time by name (``capsim_fa_bwd::``).  Returns {part: device
+    ms}."""
     from torch.autograd import DeviceType
     _, wall, avg = _capture(torch, fn)
     busy, ours, top = _summary(avg)
@@ -3887,18 +4052,21 @@ def train_step_split(torch, fn, what: str) -> dict:
             f"{what}: the profiler holds the ranges {sorted(ranges)}")
     dev = {k: e.device_time_total / 1e3 for k, e in ranges.items()}
     host = {k: e.cpu_time_total / 1e3 for k, e in ranges.items()}
+    flash_bwd = sum(e.self_device_time_total for e in avg
+                    if e.device_type == DeviceType.CUDA
+                    and "capsim_fa_bwd::" in e.key) / 1e3
     parts = {"forward": dev["train/forward"],
              "backward": 1e3 * busy - dev["train/forward"]
              - dev["train/update"],
-             "of which flash recompute": dev["flash_attention_backward"],
+             "of which flash backward": flash_bwd,
              "update": dev["train/update"]}
     require(parts["forward"] > 0 and parts["update"] > 0
-            and parts["of which flash recompute"] > 0,
-            f"{what}: a range holds no device time {parts}")
+            and parts["of which flash backward"] > 0,
+            f"{what}: a part holds no device time {parts}")
     print(f"{what} split (device ms of the kernels each part launched): "
           + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
-          + f"; busy {1e3 * busy:.2f}, the flash recompute "
-          f"{parts['of which flash recompute'] / (1e3 * busy):.3f} of it; "
+          + f"; busy {1e3 * busy:.2f}, the flash backward "
+          f"{parts['of which flash backward'] / (1e3 * busy):.3f} of it; "
           "host ms in each range: "
           + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
     return parts
@@ -4002,13 +4170,15 @@ def check_train_capsim(torch, fa_ops, wa_ops):
             fa_ops.flash_attention.launches = 0
             wa_ops.weighted_attention.launches = 0
             emb_ops.embedding_grad.launches = 0
+            fa_ops.flash_attention_bwd.launches = 0
             t0 = time.perf_counter()
             state = train_mod.train_capsim(args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             n = (fa_ops.flash_attention.launches,
                  wa_ops.weighted_attention.launches,
-                 emb_ops.embedding_grad.launches)
+                 emb_ops.embedding_grad.launches,
+                 fa_ops.flash_attention_bwd.launches)
         peak = torch.cuda.max_memory_allocated() / 2**30
         mape = [float(loss) for loss in seen["losses"]]
         sps = steps_per_s(seen)
@@ -4018,15 +4188,18 @@ def check_train_capsim(torch, fa_ops, wa_ops):
         # instruction encoder's passes and the context (validation: none)
         per_step = 12 * (2 if cfg.remat else 1)
         expect = (per_step * TRAIN_STEPS + 12 * n_eval, 0,
-                  TRAIN_STEPS * emb_per_step(TRAIN_BATCH))
+                  TRAIN_STEPS * emb_per_step(TRAIN_BATCH),
+                  TRAIN_STEPS * bwd_per_step(TRAIN_BATCH))
         print(f"train capsim launcher: {len(mape)} steps in {wall:.2f} s "
               f"(data build and validation included); {sps:.2f} steps/s = "
               f"{sps * TRAIN_BATCH:.1f} clips/s (checkpoints every "
               f"{TRAIN_SAVE_EVERY} included); peak {peak:.2f} GiB; launches "
               f"flash={n[0]} weighted={n[1]} embedding_grad={n[2]} "
-              f"(expected {expect}: 4 + 8 flash a forward, twice a step "
-              f"with remat={cfg.remat}, {n_eval} validation batches; "
-              f"{emb_per_step(TRAIN_BATCH)} embedding gradients a step)")
+              f"flash_bwd={n[3]} (expected {expect}: 4 + 8 flash a "
+              f"forward, twice a step with remat={cfg.remat}, {n_eval} "
+              f"validation batches; {emb_per_step(TRAIN_BATCH)} embedding "
+              f"gradients and {bwd_per_step(TRAIN_BATCH)} flash backwards "
+              "a step)")
         require(n == expect and len(mape) == TRAIN_STEPS,
                 f"capsim training launches {n} / steps {len(mape)}")
         require(all(math.isfinite(x) for x in mape), "capsim: non-finite MAPE")
@@ -4067,11 +4240,18 @@ def check_train_capsim(torch, fa_ops, wa_ops):
     s, m = step(s, big[0])                                       # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    n_bwd = fa_ops.flash_attention_bwd.launches
     t0 = time.perf_counter()
     for b in big[1:]:
         s, m = step(s, b)
     float(m["loss"])
     dt = time.perf_counter() - t0
+    n_bwd = fa_ops.flash_attention_bwd.launches - n_bwd
+    print(f"train capsim batch {TRAIN_BIG_BATCH}: flash backward launches "
+          f"{n_bwd} over {len(big) - 1} steps (expected "
+          f"{bwd_per_step(TRAIN_BIG_BATCH)} a step)")
+    require(n_bwd == (len(big) - 1) * bwd_per_step(TRAIN_BIG_BATCH),
+            f"flash backward launches at batch {TRAIN_BIG_BATCH}: {n_bwd}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     sps = (len(big) - 1) / dt
     print(f"train capsim batch {TRAIN_BIG_BATCH}: {sps:.2f} steps/s = "
@@ -4126,18 +4306,21 @@ def check_train_multicore(torch, fa_ops, wa_ops):
             remat = train_mod._capsim_cfg(args, build_vocab()).remat
             expect = (12 * (2 if remat else 1) * TRAIN_MC_STEPS
                       + 12 * n_eval, 0,
-                      TRAIN_MC_STEPS * emb_per_step(TRAIN_BATCH))
+                      TRAIN_MC_STEPS * emb_per_step(TRAIN_BATCH),
+                      TRAIN_MC_STEPS * bwd_per_step(TRAIN_BATCH))
             torch.cuda.reset_peak_memory_stats()
             with recorded_steps(torch, train_mod, TRAIN_MC_STEPS) as seen:
                 fa_ops.flash_attention.launches = 0
                 wa_ops.weighted_attention.launches = 0
                 emb_ops.embedding_grad.launches = 0
+                fa_ops.flash_attention_bwd.launches = 0
                 t0 = time.perf_counter()
                 train_mod.train_capsim_multicore(args)
                 wall = time.perf_counter() - t0
                 n = (fa_ops.flash_attention.launches,
                      wa_ops.weighted_attention.launches,
-                     emb_ops.embedding_grad.launches)
+                     emb_ops.embedding_grad.launches,
+                     fa_ops.flash_attention_bwd.launches)
             losses = [float(loss) for loss in seen["losses"]]
             sps = steps_per_s(seen)
         width = 369 * (TRAIN_MC_CORES if peer else 1)
@@ -4147,8 +4330,8 @@ def check_train_multicore(torch, fa_ops, wa_ops):
               f"{wall:.2f} s (build and eval included), peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
               f"launches flash={n[0]} weighted={n[1]} embedding_grad={n[2]} "
-              f"(expected {expect}: {n_eval} validation and held-out "
-              f"batches); mape "
+              f"flash_bwd={n[3]} (expected {expect}: {n_eval} validation "
+              f"and held-out batches); mape "
               f"first/last {losses[0]:.4f} / {losses[-1]:.4f}")
         require(len(losses) == TRAIN_MC_STEPS and n == expect
                 and all(math.isfinite(x) for x in losses),
@@ -5792,6 +5975,7 @@ def main() -> int:
                                                  per_prefill, 13)
     phase("frontends")
     rows["flash_attention"] += check_train_grads(torch, fa_ops, ssd_ops)
+    rows["flash_attention_bwd"] = check_flash_backward(torch, fa_ops)
     phase("train grads")
     for name, n in check_train_capsim(torch, fa_ops, wa_ops).items():
         launches[name] += n
@@ -5886,6 +6070,16 @@ def main() -> int:
         "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"], "index_put_ms": row["index_put_ms"]})
+    row = next(r for r in rows["flash_attention_bwd"]
+               if r["shape"] == "bwd_block_self_m1476")
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "none (the reference's custom VJP recomputes through "
+                    "attention_ref)",
+        "shape": f"{row['shape']} float32", "ms": row["ms"],
+        "recompute_ms": row["recompute_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

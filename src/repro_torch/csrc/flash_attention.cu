@@ -4,7 +4,9 @@
 // f32 register-tiled on the FMA pipes), what bounds them and the design
 // are in flash_attention.cuh; this file instantiates them without weights
 // (W = false) and is their plain-C entry point, loaded from Python with
-// ctypes (repro_torch/kernels/flash_attention/ops.py).
+// ctypes (repro_torch/kernels/flash_attention/ops.py).  `lse` (null, or
+// (B, H, Sq) f32) asks the f32 body for each row's log-sum-exp, which the
+// backward (flash_attention_bwd.cu) reads; the bf16 body ignores it.
 #include "flash_attention.cuh"
 
 extern "C" int capsim_flash_attention_fwd(
@@ -12,10 +14,11 @@ extern "C" int capsim_flash_attention_fwd(
     const float* kv_mask, void* o, int B, int Sq, int Skv, int H,
     long long q_sb, long long q_ss, long long k_sb, long long k_ss,
     long long v_sb, long long v_ss, long long o_sb, long long o_ss,
-    int causal, int window, float scale, void* stream) {
+    int causal, int window, float scale, float* lse, void* stream) {
   capsim_fa::Args a{q,    k,    v,    kv_mask, o,    B,    Sq,
                     Skv,  H,    q_sb, q_ss,    k_sb, k_ss, v_sb,
-                    v_ss, o_sb, o_ss, causal,  window, Skv - Sq, scale};
+                    v_ss, o_sb, o_ss, causal,  window, Skv - Sq, scale,
+                    lse};
   return capsim_fa::launch<false>(dtype, head_dim, a,
                            static_cast<cudaStream_t>(stream));
 }

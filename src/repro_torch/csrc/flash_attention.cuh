@@ -57,7 +57,9 @@
 //   ldmatrix (and .trans for V) is free of bank conflicts.
 //
 //   f32: the same tiling on the FMA pipes, in full f32 (no mma of any
-//   precision, no TF32).  Each thread owns 4 queries x 8 keys of S (rows
+//   precision, no TF32).  Asked (Args::lse), the flash body also stores
+//   each row's log-sum-exp for the backward (flash_attention_bwd.cu),
+//   after O and without touching it.  Each thread owns 4 queries x 8 keys of S (rows
 //   16w + lane/8 + 4i, keys lane%8 + 8j), so per 4 features four 16-byte
 //   Q loads and eight K loads feed 128 FMAs; the row max and sum reduce
 //   over the 8 lanes of a row.  P goes through a per-warp slice of shared
@@ -85,6 +87,7 @@ using namespace capsim;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int BK = 64;       // keys per tile
 constexpr int MAX_WARPS = 4;
 
@@ -98,6 +101,11 @@ struct Args {
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss;  // in elements
   int causal, window, q_offset;
   float scale;
+  // (B, H, Sq) f32 or null: where the f32 flash body (W = false) stores
+  // each row's log-sum-exp of its scaled live scores, ln(sum exp(s*scale)),
+  // for the backward (flash_attention_bwd.cu); +inf for a row with no
+  // valid key, so every p recomputed from it is exactly 0
+  float* lse = nullptr;
 };
 
 // ----------------------------------------------------------------------
@@ -682,6 +690,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) fa_fwd_f32(Args a) {
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    l[i] = sum;
     const float den = sum == 0.f ? 1.f : sum;   // keyless row -> zeros
     const int qi = w0 + qy + 4 * i;
     if (qi >= a.Sq) continue;
@@ -697,6 +706,25 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) fa_fwd_f32(Args a) {
         *reinterpret_cast<float2*>(op + 8 * VEC * c) =
             make_float2(o[i][2 * c] / den, o[i][2 * c + 1] / den);
       }
+    }
+  }
+  // the rows' log-sum-exp, after O, lane kx < 4 of a row group its row
+  // qy + 4 kx (one store a warp, 16 rows in a row): ln 2 (m + log2 l),
+  // where l >= 1 on a row with a live key (its max scores 2^0), so
+  // lg2.approx's absolute error (~2^-22) holds; +inf on a keyless row
+  if constexpr (!W) {
+    if (a.lse != nullptr && kx < QI) {
+      float lv = l[0], mv = m[0];
+#pragma unroll
+      for (int i = 1; i < QI; ++i) {
+        lv = kx == i ? l[i] : lv;
+        mv = kx == i ? m[i] : mv;
+      }
+      const int qi = w0 + qy + 4 * kx;
+      if (qi < a.Sq)
+        a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + qi] =
+            lv == 0.f ? __int_as_float(0x7f800000)
+                      : (mv + __log2f(lv)) * LN2;
     }
   }
 }

@@ -29,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention", "weighted_attention", "ssd", "embedding_grad")
+SOURCES = ("flash_attention", "flash_attention_bwd", "weighted_attention", "ssd",
+           "embedding_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -11,21 +11,37 @@ and runs ``flash_attention_plain`` for CPU tensors (meta: below).
 It carries a gradient to q, k and v (the mask gets none).  On the CPU
 autograd differentiates the plain version.  On the card, when grad mode
 is on and q, k or v requires grad, the launch is the forward of a
-``torch.autograd.Function`` that saves q, k, v and the mask; its backward,
-``flash_attention_backward``, recomputes the attention through the plain
-version and differentiates that, as the reference's custom VJP
-recomputes through ``attention_ref``.  The forward launch is the same
-either way: same arguments, same bits, one launch counted
-(``flash_attention.launches``; ``flash_attention.heads`` counts the
-launches by q's head count), its ``attention_cost`` added to the
-registry's ``capsim_kernel_*`` counters (``kernels.cost.launched``).
+``torch.autograd.Function``, whose backward the dtype chooses (there is
+no knob):
+
+- float32: the forward launch also writes each row's log-sum-exp (B, H,
+  Sq) and the Function saves it with the output; the backward is
+  ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``: dq, dk, dv
+  from them, deterministic, no atomics), in the span
+  ``flash_attention_backward``.  It replaces no TPU kernel: the
+  reference's custom VJP recomputes through ``attention_ref``.  Its
+  plain version is ``flash_attention_backward_plain``; the plain
+  log-sum-exp is ``flash_attention_plain(..., return_lse=True)``.
+- bfloat16: ``flash_attention_backward`` recomputes the attention
+  through the plain version and differentiates that, as the reference's
+  custom VJP recomputes through ``attention_ref``.
+
+Each backward counts its route in the registry,
+``capsim_flash_backward_total{route="kernel"|"recompute", dtype}``.  The
+forward launch is the same either way: same arguments, same output
+bits, one launch counted (``flash_attention.launches``;
+``flash_attention.heads`` counts the launches by q's head count), its
+``attention_cost`` added to the registry's ``capsim_kernel_*`` counters
+(``kernels.cost.launched``); the backward kernels count apart
+(``flash_attention_bwd.launches``, ``kernel="flash_attention_bwd"``).
 On ``meta`` tensors (the dry-run's, ``launch/dryrun.py``) nothing runs:
 the wrapper returns an empty output of the shape the kernel writes and
 reports ``attention_cost``, the launch's FLOPs and HBM bytes, to
 ``kernels.cost`` (the plain version's S×S scores, which the card never
 holds, are never built); under grad it goes through the same
-``_FlashAttention``, whose backward is the plain recompute, on meta, as
-the card runs it.  A meta tensor computes nothing, so this route hides
+``_FlashAttention``, whose backward on meta takes the card's route:
+float32 reports ``attention_bwd_cost`` (``flash_attention_bwd``) and
+allocates the card's outputs, bfloat16 runs the plain recompute.  A meta tensor computes nothing, so this route hides
 no device and no kernel.  Any other device raises.
 The kernel copies q/k/v rows 16 bytes at a time, so each must start on a
 16-byte boundary and step by a multiple of 16 bytes per batch and row;
@@ -43,6 +59,7 @@ from typing import Optional
 import torch
 from repro_torch import obs
 from repro_torch.kernels import build, cost
+from repro_torch.obs import REGISTRY
 
 NEG_INF = -1e30
 KEY_TILE = 64                   # keys per tile of the kernels (BK)
@@ -55,8 +72,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 
 
 def softmax_pv_plain(s: torch.Tensor, valid: torch.Tensor, weight,
-                     v: torch.Tensor, out_dtype: torch.dtype
-                     ) -> torch.Tensor:
+                     v: torch.Tensor, out_dtype: torch.dtype,
+                     return_lse: bool = False):
     """Shared tail of the plain versions, in the kernels' order: keys in
     tiles of ``KEY_TILE``, in key order; per tile the running f32 row max
     over the live scores, exp against it, the weight after the shift, l
@@ -66,7 +83,9 @@ def softmax_pv_plain(s: torch.Tensor, valid: torch.Tensor, weight,
     of p against the running max (not the row's final max) is the
     kernels' own: in bf16 it moves a model's logits by about as much as
     bf16 itself does.  s/valid: (B, H, Sq, Skv); weight (B, Skv) or
-    None."""
+    None.  With ``return_lse``, also each row's log-sum-exp as the f32
+    kernel stores it for the backward, m + log(l) (B, H, Sq), +inf where
+    the row has no live key."""
     B, H, Sq, Skv = s.shape
     m = torch.full((B, H, Sq, 1), NEG_INF, device=s.device)
     den = torch.zeros(B, H, Sq, 1, device=s.device)
@@ -84,18 +103,20 @@ def softmax_pv_plain(s: torch.Tensor, valid: torch.Tensor, weight,
                                      v[:, k0:k0 + KEY_TILE].float())
         m = m_new
     o = o / torch.where(den == 0.0, torch.ones_like(den), den)
-    return o.transpose(1, 2).to(out_dtype)
+    o = o.transpose(1, 2).to(out_dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(den == 0.0, torch.inf, m + torch.log(den))
+    return o, lse[..., 0]
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = False, window: int = 0,
-                          kv_mask: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, one materialized tile."""
-    B, Sq, H, D = q.shape
+def live_pairs(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int,
+               kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The (query, key) pairs the kernels score, (B, H, Sq, Skv) bool:
+    the key valid under ``kv_mask`` and seen under the causal and window
+    masks, q aligned to the end of kv."""
+    B, Sq, H, _ = q.shape
     Skv = k.shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        * (1.0 / math.sqrt(D))
     qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
     kpos = torch.arange(Skv, device=q.device)[None, :]
     valid = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
@@ -106,8 +127,48 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid = valid[None, None]
     if kv_mask is not None:
         valid = valid & (kv_mask[:, None, None, :] > 0)
-    return softmax_pv_plain(s, valid.expand(B, H, Sq, Skv), None, v,
-                            q.dtype)
+    return valid.expand(B, H, Sq, Skv)
+
+
+def scores_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """scale q.k in f32, (B, H, Sq, Skv), scale = 1/sqrt(head_dim)."""
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * (1.0 / math.sqrt(q.shape[3]))
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = False, window: int = 0,
+                          kv_mask: Optional[torch.Tensor] = None,
+                          return_lse: bool = False):
+    """The kernel's function in plain PyTorch, one materialized tile.  With
+    ``return_lse``, (output, log-sum-exp (B, H, Sq)) as the f32 kernel
+    writes them for the backward (``softmax_pv_plain``)."""
+    return softmax_pv_plain(scores_plain(q, k),
+                            live_pairs(q, k, causal, window, kv_mask), None,
+                            v, q.dtype, return_lse)
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, g, kv_mask=None,
+                                   causal: bool = False, window: int = 0):
+    """The backward kernels' function in plain PyTorch, materialized, with
+    no key tiles: (dq, dk, dv) from the forward's output ``o`` and its
+    log-sum-exp ``lse`` (B, H, Sq) for the output gradient ``g``.  With s
+    the scaled scores, P = exp(s - lse) on the live pairs (0 elsewhere,
+    and on every key of a row whose lse is +inf), Δ = rowsum(g ∘ o),
+    dV = Pᵀ g, dS = P ∘ (g Vᵀ - Δ), dQ = scale dS K, dK = scale dSᵀ Q;
+    in f32, cast to q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[3])
+    qf, kf, vf, of, gf = (x.float() for x in (q, k, v, o, g))
+    live = live_pairs(q, k, causal, window, kv_mask)
+    p = torch.exp(scores_plain(q, k) - lse[..., None]).masked_fill(~live,
+                                                                   0.0)
+    delta = (gf * of).sum(-1).transpose(1, 2)               # (B, H, Sq)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    return tuple(x.to(q.dtype) for x in (dq, dk, dv))
 
 
 def attention_cost(B: int, Sq: int, Skv: int, H: int, D: int,
@@ -122,6 +183,20 @@ def attention_cost(B: int, Sq: int, Skv: int, H: int, D: int,
         + (4 * B * Skv if aux else 0)
     pairs = (Sq * (Skv - Sq) + Sq * (Sq + 1) / 2) if causal else Sq * Skv
     return 4.0 * B * H * pairs * D, float(nbytes)
+
+
+def attention_bwd_cost(B: int, Sq: int, Skv: int, H: int, D: int,
+                       elem_bytes: int, aux: bool, causal: bool = False):
+    """(FLOPs, HBM bytes) of one backward call: the five products (S
+    again, dP = dO Vᵀ, dV, dQ, dK) over the pairs ``attention_cost``
+    counts, 2.5 times its FLOPs; q, O and dO read and dQ written, k and v
+    read and dK, dV written, each once, the forward's f32 log-sum-exp
+    read once and the mask (f32) once.  What the kernels compute beyond
+    it (S and dP twice, Δ written and read) is left out: a least."""
+    flops, _ = attention_cost(B, Sq, Skv, H, D, elem_bytes, aux, causal)
+    nbytes = 4 * B * (Sq + Skv) * H * D * elem_bytes + 4 * B * H * Sq \
+        + (4 * B * Skv if aux else 0)
+    return 2.5 * flops, float(nbytes)
 
 
 def launch_cost(q, k, aux, causal: bool):
@@ -244,9 +319,82 @@ ARG_TYPES = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
 def _kernel():
     lib = build.load("flash_attention")
     fn = lib.capsim_flash_attention_fwd
-    fn.argtypes = ARG_TYPES + [_I, _I, _F, _P]
+    fn.argtypes = ARG_TYPES + [_I, _I, _F, _P, _P]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+@functools.cache
+def _bwd_kernel():
+    lib = build.load("flash_attention_bwd")
+    fn = lib.capsim_flash_attention_bwd
+    fn.argtypes = [_I] + [_P] * 11 + [_I] * 4 + [_L] * 10 + [_I, _I, _F, _P]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def flash_attention_bwd(q, k, v, o, lse, g, kv_mask=None,
+                        causal: bool = False, window: int = 0):
+    """(dq, dk, dv) by ``csrc/flash_attention_bwd.cu`` on the current
+    stream: float32 CUDA q/k/v as ``flash_attention`` checked them, the
+    forward's output ``o`` and its log-sum-exp ``lse`` (B, H, Sq), the
+    output gradient ``g``.  Its kernels (three, or one where Sq and Skv
+    are at most 16) count as one launch
+    (``flash_attention_bwd.launches``, apart from the forward's), its
+    ``attention_bwd_cost`` added to the registry's ``capsim_kernel_*``
+    counters under ``kernel="flash_attention_bwd"``.  Head dim 112 runs
+    zero-padded to 128 and is cut back.  The function is
+    ``flash_attention_backward_plain``'s.  On meta it computes nothing:
+    it allocates what the card does and reports ``attention_bwd_cost`` to
+    ``kernels.cost`` (the dry-run's route)."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    work = attention_bwd_cost(B, Sq, Skv, H, D, 4, kv_mask is not None,
+                              causal)
+    q, k, v = pad_head_dim(q, k, v)
+    o, g = (x.contiguous() for x in pad_head_dim(o, g, g)[:2])
+    Dp = q.shape[3]
+    dq = torch.empty(B, Sq, H, Dp, dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty(B, Skv, H, Dp, dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        cost.report("flash_attention_bwd", *work)
+    else:
+        lib, fn = _bwd_kernel()
+        rc = fn(Dp, *(None if x is None else x.data_ptr() for x in (
+            q, k, v, o, g, kv_mask, lse, delta, dq, dk, dv)), B, Sq, Skv, H,
+            *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
+            *o.stride()[:2], *g.stride()[:2], int(causal), int(window),
+            1.0 / math.sqrt(D), build.current_stream(q.device))
+        check_aligned(rc, q, k, v, "flash_attention_bwd")
+        build.check(lib, rc, "flash_attention_bwd")
+        build.count_launch(flash_attention_bwd)
+        cost.launched("flash_attention_bwd", q.dtype, *work)
+    if Dp == D:
+        return dq, dk, dv
+    return tuple(x[..., :D].contiguous() for x in (dq, dk, dv))
+
+
+flash_attention_bwd.launches = 0
+
+BACKWARD_TOTAL = "capsim_flash_backward_total"
+_ROUTES = {}
+
+
+def count_backward(route: str, dtype: torch.dtype) -> None:
+    """One backward of ``_FlashAttention`` by its route, ``kernel`` or
+    ``recompute``, and q's dtype: the registry's
+    ``capsim_flash_backward_total{route, dtype}``."""
+    handle = _ROUTES.get((route, dtype))
+    if handle is None:
+        handle = REGISTRY.counter(
+            BACKWARD_TOTAL, "Backwards of the flash attention Function, by "
+            "route (the f32 kernel or the plain recompute) and dtype.",
+            ("route", "dtype")).labels(
+            route=route, dtype=str(dtype).removeprefix("torch."))
+        handle = _ROUTES.setdefault((route, dtype), handle)
+    handle.inc()
 
 
 def flash_attention_backward(q, k, v, kv_mask, g, causal: bool = False,
@@ -255,7 +403,8 @@ def flash_attention_backward(q, k, v, kv_mask, g, causal: bool = False,
     gradient ``g``: the attention recomputed through
     ``flash_attention_plain`` and differentiated by autograd, in a span
     of the same name (``obs.span``: a profiler range while one
-    records)."""
+    records).  ``_FlashAttention``'s backward for bfloat16 and meta;
+    float32 on the card takes ``flash_attention_bwd``."""
     with torch.enable_grad(), obs.span("flash_attention_backward"):
         qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
         o = flash_attention_plain(*qkv, causal=causal, window=window,
@@ -264,20 +413,37 @@ def flash_attention_backward(q, k, v, kv_mask, g, causal: bool = False,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernel's launch as the forward, the plain version's recompute
-    as the backward."""
+    """The kernel's launch as the forward; the backward by dtype: float32
+    (on the card, and on meta as the card runs it), the backward kernels
+    (``flash_attention_bwd``) from the output and the log-sum-exp the
+    forward wrote; bfloat16 the plain version's recompute,
+    ``flash_attention_backward``.  Each backward is counted by its route
+    (``count_backward``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, window):
-        ctx.save_for_backward(q, k, v, kv_mask)
+        lse = None
+        if q.dtype == torch.float32:
+            B, Sq, H, _ = q.shape
+            lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+        o = _launch(q, k, v, kv_mask, causal, window, lse)
+        ctx.save_for_backward(q, k, v, kv_mask, None if lse is None else o,
+                              lse)
         ctx.causal, ctx.window = causal, window
-        return _launch(q, k, v, kv_mask, causal, window)
+        return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, kv_mask = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, kv_mask, g,
-                                              ctx.causal, ctx.window)
+        q, k, v, kv_mask, o, lse = ctx.saved_tensors
+        if lse is None:
+            count_backward("recompute", q.dtype)
+            dq, dk, dv = flash_attention_backward(q, k, v, kv_mask, g,
+                                                  ctx.causal, ctx.window)
+        else:
+            count_backward("kernel", q.dtype)
+            with obs.span("flash_attention_backward"):
+                dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, kv_mask,
+                                                 ctx.causal, ctx.window)
         return dq, dk, dv, None, None, None
 
 
@@ -301,9 +467,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch(q, k, v, kv_mask, causal, window)
 
 
-def _launch(q, k, v, kv_mask, causal: bool, window: int) -> torch.Tensor:
+def _launch(q, k, v, kv_mask, causal: bool, window: int,
+            lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the kernel on checked arguments; head dim 112 runs
-    zero-padded to 128 and is cut back.  On meta: the meta route."""
+    zero-padded to 128 and is cut back.  ``lse``: None, or a float32 (B,
+    H, Sq) tensor the f32 kernel fills with each row's log-sum-exp.  On
+    meta: the meta route."""
     if q.device.type == "meta":
         return meta_attention("flash_attention", q, k, kv_mask, causal)
     lib, fn = _kernel()
@@ -313,7 +482,8 @@ def _launch(q, k, v, kv_mask, causal: bool, window: int) -> torch.Tensor:
     o = torch.empty_like(q)     # q's head and feature axes are dense
     stream = build.current_stream(q.device)
     rc = fn(*launch_args(q, k, v, kv_mask, o), int(causal), int(window),
-            1.0 / math.sqrt(D), stream)
+            1.0 / math.sqrt(D), None if lse is None else lse.data_ptr(),
+            stream)
     check_aligned(rc, q, k, v, "flash_attention")
     build.check(lib, rc, "flash_attention")
     build.count_launch(flash_attention, heads=q.shape[2])

@@ -31,10 +31,11 @@ While the step runs, four counters watch it:
   once, rounded up to the caching allocator's 512-byte blocks, and
   freed when its last tensor dies.
 
-Flash attention's backward is the plain recompute, on meta as on the
-card; it runs once per signature, and a later call with the same shapes
-replays its counts (``_ReplayedBackward``), since its key tiles cost
-thousands of Python-dispatched meta ops a layer.  The predictor's
+Flash attention's backward takes the card's route on meta: in float32
+the backward kernels, whose cost ``kernels.cost`` counts; in bfloat16
+the plain recompute, which runs once per signature, a later call with
+the same shapes replaying its counts (``_ReplayedBackward``), since its
+key tiles cost thousands of Python-dispatched meta ops a layer.  The predictor's
 instruction encoder takes the card's path on meta (passes of
 ``ENCODE_CHUNK`` rows), so the counts are the card's.
 
@@ -197,7 +198,7 @@ class StepCounter(TorchDispatchMode):
 
 
 class _ReplayedBackward:
-    """Flash attention's backward (the plain recompute, ``fa_ops.
+    """Flash attention's bfloat16 backward (the plain recompute, ``fa_ops.
     flash_attention_backward``) runs on meta once per signature (shapes,
     dtypes, causal, window, mask); a later call with the same one
     creates its three gradients and adds what the first added to the

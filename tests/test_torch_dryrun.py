@@ -102,8 +102,10 @@ def test_causal_prefill_flops_match_the_bound_formula():
 @pytest.mark.parametrize("remat", [False, True])
 def test_replayed_backward_counts_as_the_real_one(monkeypatch, remat):
     """The second layer's flash backward, replayed from the first's
-    counts, adds what running it adds: FLOPs, bytes and the peak."""
-    cfg = _cfg().replace(remat=remat)
+    counts, adds what running it adds: FLOPs, bytes and the peak.  In
+    bfloat16, the dtype whose backward is the plain recompute (float32
+    takes the backward kernels' cost on meta, as on the card)."""
+    cfg = _cfg().replace(remat=remat, dtype="bfloat16")
     replayed = dry.measure_cell(cfg, TRAIN, None, None, TrainConfig())
     monkeypatch.setattr(dry._ReplayedBackward, "__call__",
                         lambda self, *a: self.real(*a))

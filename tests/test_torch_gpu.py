@@ -734,6 +734,48 @@ def test_flash_gradient_matches_plain_on_card(dtype):
         assert got[0].shape == q.shape
 
 
+def test_flash_backward_kernel_matches_plain_equations_on_card():
+    """The f32 backward kernels against ``flash_attention_backward_plain``
+    from the same forward output and log-sum-exp, at the kernel cases,
+    its edges and the one-tile shapes (Sq, Skv <= 16): <= 1e-4 relative
+    norm per input, the same bits twice, a masked key's dk and dv 0, one
+    launch counted a call, the Function's backward routed to the kernel
+    (``capsim_flash_backward_total{route="kernel"}``)."""
+    _need_card()
+    from repro_torch.obs import REGISTRY
+    cases = FA_CASES + FA_EDGE_CASES + [(6, 16, 16, 4, 32, False, 0, True),
+                                        (3, 9, 14, 2, 64, True, 4, True)]
+    for case in cases:
+        q, k, v, m = (None if x is None else _cuda(x, torch.float32)
+                      for x in fa_inputs(case))
+        B, Sq, Skv, H, D, causal, window, _ = case
+        g = torch.randn_like(q)
+        lse = torch.empty(B, H, Sq, device="cuda")
+        o = fa_ops._launch(q, k, v, m, causal, window, lse)
+        before = fa_ops.flash_attention_bwd.launches
+        got = fa_ops.flash_attention_bwd(q, k, v, o, lse, g, m, causal,
+                                         window)
+        again = fa_ops.flash_attention_bwd(q, k, v, o, lse, g, m, causal,
+                                           window)
+        assert fa_ops.flash_attention_bwd.launches == before + 2
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), case
+        ref = fa_ops.flash_attention_backward_plain(q, k, v, o, lse, g, m,
+                                                    causal, window)
+        _grads_close(got, ref, 1e-4, case)
+        if m is not None:
+            off = m == 0
+            assert bool((got[1][off] == 0).all() and (got[2][off] == 0).all())
+    qg = q.clone().requires_grad_(True)
+
+    def routed():
+        found = REGISTRY.collect(fa_ops.BACKWARD_TOTAL, route="kernel",
+                                 dtype="float32")
+        return found[0][1] if found else 0.0
+    was = routed()
+    torch.autograd.grad(fa_ops.flash_attention(qg, k, v, kv_mask=m), qg, g)
+    assert routed() == was + 1
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_gradient_matches_plain_on_card(dtype):
     """The SSD Function's gradients from both outputs against autograd

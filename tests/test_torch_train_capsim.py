@@ -210,6 +210,83 @@ def test_flash_backward_matches_reference_vjp(name, shape, causal, window):
         assert err <= FLASH_GRAD_REL, (name, what, err)
 
 
+# the plain backward from the forward's output and log-sum-exp: the cases
+# above and the other head dims the f32 backward kernel takes (112 pads
+# to 128 on the card; the plain version is width-blind)
+FA_LSE_CASES = FA_GRAD_CASES + [
+    ("d16_masked", (3, 40, 70, 2, 16, True), False, 0),
+    ("d64_causal", (2, 70, 70, 2, 64, False), True, 0),
+    ("d112_cross", (2, 33, 65, 1, 112, True), False, 0),
+]
+
+
+def _fa_torch_case(name, shape):
+    q, k, v, g, m = (None if x is None else torch.from_numpy(x)
+                     for x in _fa_case(np.random.RandomState(5), *shape))
+    return q, k, v, g, m
+
+
+@pytest.mark.parametrize("name,shape,causal,window", FA_LSE_CASES,
+                         ids=[c[0] for c in FA_LSE_CASES])
+def test_flash_backward_plain_matches_autograd(name, shape, causal, window):
+    """``flash_attention_backward_plain`` (from o, lse and Δ) against
+    autograd through ``flash_attention_plain``, the recompute the card's
+    f32 route no longer takes."""
+    q, k, v, g, m = _fa_torch_case(name, shape)
+    kw = dict(causal=causal, window=window, kv_mask=m)
+    qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = torch.autograd.grad(tfa.flash_attention_plain(*qkv, **kw), qkv, g)
+    o, lse = tfa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    got = tfa.flash_attention_backward_plain(q, k, v, o, lse, g, m, causal,
+                                             window)
+    for a, b, what in zip(got, ref, "qkv"):
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        assert bool(torch.isfinite(a).all()), (name, what)
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= FLASH_GRAD_REL, (name, what, err)
+
+
+@pytest.mark.parametrize("name,shape,causal,window", FA_LSE_CASES,
+                         ids=[c[0] for c in FA_LSE_CASES])
+def test_flash_plain_lse_matches_logsumexp(name, shape, causal, window):
+    """The plain log-sum-exp (the kernels' tiled m + log l) is
+    ``torch.logsumexp`` of the scaled scores over the live keys, and +inf
+    on a row with none."""
+    q, k, v, _, m = _fa_torch_case(name, shape)
+    o, lse = tfa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                       kv_mask=m, return_lse=True)
+    assert torch.equal(o, tfa.flash_attention_plain(
+        q, k, v, causal=causal, window=window, kv_mask=m))
+    live = tfa.live_pairs(q, k, causal, window, m)
+    s = tfa.scores_plain(q, k).masked_fill(~live, -torch.inf)
+    ref = torch.logsumexp(s, dim=-1)
+    keyless = ~live.any(-1)
+    assert lse.shape == ref.shape == (q.shape[0], q.shape[2], q.shape[1])
+    assert bool(torch.isposinf(lse[keyless]).all())
+    torch.testing.assert_close(lse[~keyless], ref[~keyless], rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("name,shape,causal,window",
+                         [c for c in FA_LSE_CASES if c[1][-1] is True],
+                         ids=[c[0] for c in FA_LSE_CASES if c[1][-1]])
+def test_flash_backward_plain_masked_rows_and_keys(name, shape, causal,
+                                                   window):
+    """A row with every key masked (batch row 0) gets zero dq and no NaN,
+    and masked keys get zero dk and dv."""
+    q, k, v, g, m = _fa_torch_case(name, shape)
+    o, lse = tfa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                       kv_mask=m, return_lse=True)
+    dq, dk, dv = tfa.flash_attention_backward_plain(q, k, v, o, lse, g, m,
+                                                    causal, window)
+    assert all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+    assert bool((m[0] == 0).all()) and bool((dq[0] == 0).all())
+    off = m == 0
+    assert bool(off.any()) and bool((dk[off] == 0).all()) \
+        and bool((dv[off] == 0).all())
+    assert bool(dq[1:].abs().max() > 0) and bool(dk[~off].abs().max() > 0)
+
+
 def _datasets_equal(a, b):
     return (np.array_equal(a.clip_tokens, b.clip_tokens)
             and np.array_equal(a.context_tokens, b.context_tokens)
