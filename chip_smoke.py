@@ -1906,7 +1906,7 @@ def check_rt_store(torch):
                 res, wall, eng = run_multicore(torch, params, cfg, vocab,
                                                mbenches, ec)
                 rt = eng.last_rt_stats
-                table = eng._rt_cache.table[:eng._rt_cache.n_rows]
+                table = eng._stack.cache.table[:eng._stack.cache.n_rows]
                 runs.append(([c.predicted_cycles for r in res
                               for c in r.cores], rt, table))
                 print(f"rt-store {precision} {attempt}: {wall:.3f} s, "
@@ -2045,7 +2045,7 @@ def check_mesh(torch, fa_ops, wa_ops):
             total[0] += counts[0]
             total[1] += counts[1]
         require(len(drained) == 1, f"mesh {what}: {len(drained)} drains")
-        cache = engine._rt_cache
+        cache = engine._stack.cache
         table = cache.table[:cache.n_rows].clone()
         return res, drained[0], table, counts, wall, engine
 
@@ -2459,17 +2459,18 @@ def check_service(torch, fa_ops, wa_ops):
             b.add(check.clip_tokens, check.context_tokens, check.clip_mask)
             return b.drain()
     want = float(tier_times(svc._reference).sum())
-    for tier in svc._tiers[:-1]:
+    for tier, name in zip(svc._tiers[:-1],
+                          (s.name for s in svc.tier_stats)):
         err = svc._spot_check(tier, [qr])
         times = tier_times(tier)
         total = abs(float(times.sum()) - want) / abs(want)
-        gate = SERVICE_GATES[tier.name]
-        print(f"service spot check {tier.name} vs monolithic fp32 ({k} "
+        gate = SERVICE_GATES[name]
+        print(f"service spot check {name} vs monolithic fp32 ({k} "
               f"clips): max rel per clip {err!r} (gate {gate:g}), rel of "
               f"the total {total!r}")
         require(err is not None and err <= gate,
-                f"service spot check {tier.name}: {err} > {gate}")
-        if tier.name == "fused_int8":
+                f"service spot check {name}: {err} > {gate}")
+        if name == "fused_int8":
             # the quantized model's own error depends on the parameters;
             # what the port must hold is its CPU int8 path
             cpu = PredictorEngine(params, cfg, tier.config, device="cpu")

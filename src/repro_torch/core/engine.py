@@ -78,6 +78,16 @@ def params_to_device(params, device: torch.device):
     return params.to(device)
 
 
+def config_faults(config: EngineConfig):
+    """The fault injector ``config.faults`` asks for, None without
+    faults."""
+    if not config.faults:
+        return None
+    # deferred import: repro_torch.serving imports this module
+    from repro_torch.serving.faults import FaultInjector
+    return FaultInjector.from_config(config)
+
+
 @dataclasses.dataclass
 class SimResult:
     name: str
@@ -353,11 +363,8 @@ class BatchedPredictor:
             "capsim_predictor_in_flight",
             "Un-retired device batches (the double buffer).",
             ("instance",)).labels(instance=self.instance)
-        if fault_injector is None and config.faults:
-            # deferred import: repro_torch.serving imports this module
-            from repro_torch.serving.faults import FaultInjector
-            fault_injector = FaultInjector.from_config(config)
-        self._faults = fault_injector
+        self._faults = (fault_injector if fault_injector is not None
+                        else config_faults(config))
         self.params = params
         self.cfg = pred_mod.inference_config(cfg, config.precision)
         self.batch_size = config.batch_size
@@ -598,6 +605,83 @@ class BatchedPredictor:
         return preds
 
 
+class PredictStack:
+    """What one front end predicts with: ``SimulationEngine``,
+    ``PredictorEngine`` and each rung of ``SimulationService``, its
+    auditor included, hold one.  What a precision means is decided here
+    alone: ``params`` is the tree on ``device``, fake-quantized per
+    channel when ``config.precision == "int8"`` (cache, serving plan and
+    predict step all see that tree); ``cfg`` is ``inference_config(cfg,
+    config.precision)`` (None keeps ``cfg``'s dtype); ``cache`` the RT
+    cache, or None without ``config.rt_cache``, on the stack's mesh and
+    consulting ``faults``, its store keyed with ``store_extra`` (default:
+    the vocabulary's signature).  ``backend`` is a ``BatchedPredictor``
+    built on first use; ``new_predictor`` builds a fresh one.
+
+    ``shared``, one dict a caller passes to several stacks, holds one
+    device tree, one quantized tree and one RT cache per (tree, resolved
+    numerics): the service's ``fused`` and ``rt`` rungs share a cache.
+    Each stack keeps its own backend and config."""
+
+    def __init__(self, params, cfg, config: EngineConfig, *,
+                 device: DeviceLike, obs: Observability,
+                 mesh: Optional[DataMesh] = None, faults=None,
+                 store_extra: Optional[str] = None,
+                 shared: Optional[dict] = None):
+        shared = {} if shared is None else shared
+        self.config = config
+        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(config.n_shards, self.device, mesh)
+        self.obs = obs
+        self.faults = faults
+        if "device" not in shared:
+            shared["device"] = params_to_device(params, self.device)
+        self.params = shared["device"]
+        if config.precision == "int8":
+            if "int8" not in shared:
+                from repro_torch.core import quant
+                shared["int8"] = quant.quantize_dequant_params(self.params)
+            self.params = shared["int8"]
+        self.cfg = pred_mod.inference_config(cfg, config.precision)
+        self.cache: Optional[RTCache] = None
+        if config.rt_cache:
+            # params are pinned for the cache's lifetime, so the table
+            # never goes stale: new programs only append unseen rows.
+            # With rt_store_dir it loads (or later persists) the table
+            # under a (params, cfg, l_token, store_extra, device) key
+            key = (id(self.params), self.cfg)
+            if key not in shared:
+                if store_extra is None:
+                    store_extra = std_mod.build_vocab().signature()
+                shared[key] = RTCache(
+                    self.params, self.cfg, config.l_token,
+                    device=self.device, n_shards=config.n_shards,
+                    mesh=self.mesh, store_dir=config.rt_store_dir,
+                    store_extra=store_extra, fault_injector=faults,
+                    obs=obs)
+            self.cache = shared[key]
+        self._backend: Optional[BatchedPredictor] = None
+
+    def new_predictor(self) -> BatchedPredictor:
+        return BatchedPredictor(self.params, self.cfg, config=self.config,
+                                rt_cache=self.cache,
+                                fault_injector=self.faults, obs=self.obs,
+                                device=self.device, mesh=self.mesh)
+
+    def backend(self) -> BatchedPredictor:
+        """The stack's lasting backend, built on first use and then
+        reused with its serving plan."""
+        if self._backend is None:
+            self._backend = self.new_predictor()
+        return self._backend
+
+    def invalidate_backend(self) -> None:
+        """Drop the backend after a mid-flush fault or watchdog abort:
+        its buffered and in-flight state is lost; the (append-only) RT
+        cache is not, and survives."""
+        self._backend = None
+
+
 @dataclasses.dataclass
 class _Job:
     bench: object                     # Benchmark or (multicore) core label
@@ -689,7 +773,6 @@ class SimulationEngine:
                  mesh: Optional[DataMesh] = None):
         config = config or EngineConfig()
         self.device = resolve_device(device)
-        self.mesh = resolve_mesh(config.n_shards, self.device, mesh)
         self.config = config
         self.obs = Observability.from_config(config.observability)
         self.instance = self.obs.metrics.next_instance("engine")
@@ -701,14 +784,17 @@ class SimulationEngine:
             "capsim_frontend_clips_total",
             "Clips sliced/tokenized by the front-end.",
             ("instance",)).labels(instance=self.instance)
-        params = params_to_device(params, self.device)
-        if config.precision == "int8":
-            # per-channel weight fake-quantization at engine build: the
-            # cache, plan and predict step all see the same quantized tree
-            from repro_torch.core import quant
-            params = quant.quantize_dequant_params(params)
-        self.params = params
-        self.cfg = pred_mod.inference_config(cfg, config.precision)
+        # one fault injector per engine (None without config.faults): the
+        # cache and every per-run BatchedPredictor share its RNG stream,
+        # so a chaos run's injection schedule is one deterministic
+        # sequence across the whole stack.  One cache per engine, on the
+        # engine's mesh (encode passes shard too), its store keyed by
+        # the vocabulary
+        self._stack = PredictStack(params, cfg, config, device=self.device,
+                                   obs=self.obs, mesh=mesh,
+                                   faults=config_faults(config),
+                                   store_extra=vocab.signature())
+        self.mesh = self._stack.mesh
         self.vocab = vocab
         self.interval_size = config.interval_size
         self.warmup = config.warmup
@@ -719,27 +805,6 @@ class SimulationEngine:
         self.with_oracle = config.with_oracle
         self.timing_params = (timing_params if timing_params is not None
                               else timing.TimingParams())
-        # one fault injector per engine (None without config.faults): the
-        # cache and every per-run BatchedPredictor share its RNG stream,
-        # so a chaos run's injection schedule is one deterministic
-        # sequence across the whole stack
-        self._faults = None
-        if config.faults:
-            from repro_torch.serving.faults import FaultInjector
-            self._faults = FaultInjector.from_config(config)
-        # one cache per engine: params are pinned at construction, so the
-        # table never goes stale; new programs just append unseen rows.
-        # With rt_store_dir the cache loads (or later persists) the table
-        # under a (params, cfg, l_token, vocab, framework/device) key.
-        # The cache shares the engine's mesh: encode passes shard too.
-        self._rt_cache = (RTCache(self.params, self.cfg, config.l_token,
-                                  device=self.device,
-                                  n_shards=config.n_shards, mesh=self.mesh,
-                                  store_dir=config.rt_store_dir,
-                                  store_extra=vocab.signature(),
-                                  fault_injector=self._faults,
-                                  obs=self.obs)
-                          if config.rt_cache else None)
         self._queue: List[progen.Benchmark] = []
         self.last_stats: Optional[PredictorStats] = None
         self.last_rt_stats = None
@@ -761,12 +826,6 @@ class SimulationEngine:
     def submit_names(self, names: Sequence[str]) -> None:
         for name in names:
             self.submit(progen.build_benchmark(name))
-
-    def _new_predictor(self) -> BatchedPredictor:
-        return BatchedPredictor(self.params, self.cfg, config=self.config,
-                                rt_cache=self._rt_cache,
-                                fault_injector=self._faults, obs=self.obs,
-                                device=self.device, mesh=self.mesh)
 
     def _feed_trace(self, trace, token_table, static_ids,
                     pred: BatchedPredictor, job: _Job,
@@ -836,7 +895,7 @@ class SimulationEngine:
             strata, scfg.fraction, scfg.min_clips_per_stratum,
             scfg.seed, key=job_key)
         if sampled.shape[0]:
-            if self._rt_cache is not None:
+            if self._stack.cache is not None:
                 pred.add_indexed(tok[sampled], ctx[sampled], mask[sampled])
             else:
                 pred.add(tok[sampled], ctx[sampled], mask[sampled])
@@ -859,10 +918,10 @@ class SimulationEngine:
         cprog = bench.compiled()
         token_table = cprog.token_table(self.vocab, self.l_token)
         static_ids = None
-        if self._rt_cache is not None:
+        if self._stack.cache is not None:
             # one instruction-encoder pass over n_static rows serves every
             # dynamic clip of this benchmark (and dedupes across programs)
-            static_ids = self._rt_cache.ensure_rows(
+            static_ids = self._stack.cache.ensure_rows(
                 token_table,
                 keys=cprog.token_row_keys(self.vocab, self.l_token))
         st = progen.fresh_compiled_state(bench)
@@ -904,8 +963,8 @@ class SimulationEngine:
             jobs.extend(_Job(b, name=b.name) for b in benches)
         sampling = self.config.sampling is not None
         self.frontend_stats = FrontendStats(self.obs, self.instance)
-        pred = self._new_predictor()
-        rt_stats = (self._rt_cache.stats if self._rt_cache is not None
+        pred = self._stack.new_predictor()
+        rt_stats = (self._stack.cache.stats if self._stack.cache is not None
                     else RTCacheStats())
         plans = []                    # (features, strata, sampled) per job
         offset = 0
@@ -948,11 +1007,11 @@ class SimulationEngine:
         """Retire every batch, persist the RT store, keep the run's stats,
         and check that exactly the ``n_fed`` clips came back."""
         preds = pred.drain()
-        if self._rt_cache is not None:
-            self._rt_cache.persist()          # no-op without a store_dir
+        if self._stack.cache is not None:
+            self._stack.cache.persist()    # no-op without a store_dir
         self.last_stats = pred.stats
         self.last_rt_stats = (rt_stats.freeze()
-                              if self._rt_cache is not None else None)
+                              if self._stack.cache is not None else None)
         if not preds.shape[0] == n_fed == pred.stats.n_predicted:
             raise RuntimeError("clip accounting mismatch between the fed "
                                "clips and the predictions")
@@ -1023,8 +1082,8 @@ class SimulationEngine:
                        else multicore.DEFAULT_QUANTUM)
         sampling = self.config.sampling is not None
         self.frontend_stats = FrontendStats(self.obs, self.instance)
-        pred = self._new_predictor()
-        rt_stats = (self._rt_cache.stats if self._rt_cache is not None
+        pred = self._stack.new_predictor()
+        rt_stats = (self._stack.cache.stats if self._stack.cache is not None
                     else RTCacheStats())
         all_jobs: List[List[_Job]] = []
         segments: List[Tuple[_Job, int]] = []   # unsampled demux
@@ -1035,12 +1094,12 @@ class SimulationEngine:
             token_tables = [cp.token_table(self.vocab, self.l_token)
                             for cp in cprogs]
             static_ids = None
-            if self._rt_cache is not None:
+            if self._stack.cache is not None:
                 # all cores of one program share identical token tables
                 # (immediates collapse to <CONST>), so rows dedupe to one
                 # RT-table entry set across the whole benchmark
                 static_ids = [
-                    self._rt_cache.ensure_rows(
+                    self._stack.cache.ensure_rows(
                         tt, keys=cp.token_row_keys(self.vocab,
                                                    self.l_token))
                     for cp, tt in zip(cprogs, token_tables)]

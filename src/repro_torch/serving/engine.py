@@ -22,26 +22,26 @@ cache's encode passes over the data mesh (``launch/mesh.py``), equal to
 the unsharded engine.
 
 The production front-end that puts a queue, deadlines and graceful
-degradation on top is ``repro_torch.serving.service.SimulationService``.
+degradation on top is ``repro_torch.serving.service.SimulationService``;
+its flushes and the engine's run one body, ``flush_requests``.
 Like every entry point of the port, the engine runs on the card unless
 the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core import analytical
 from repro_torch.core import context as ctx_mod
-from repro_torch.core import predictor as pred_mod
 from repro_torch.core import sampler as sampler_mod
-from repro_torch.core.engine import BatchedPredictor, params_to_device
+from repro_torch.core.engine import (BatchedPredictor, PredictStack,
+                                     config_faults)
 from repro_torch.core.engine_config import EngineConfig
-from repro_torch.core.rt_cache import RTCache, RTCacheStats
+from repro_torch.core.rt_cache import RTCacheStats
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.launch.mesh import resolve_mesh
 from repro_torch.obs import Observability
 
 
@@ -111,51 +111,83 @@ def validate_request(req: Request, config: EngineConfig,
                          f"float mask dtype (expected float32)")
 
 
+def flush_requests(backend: BatchedPredictor, reqs: Sequence[Request],
+                   bootstrap_resamples: Optional[int] = None) -> list:
+    """One flush of ``reqs`` through ``backend``, the body of
+    ``PredictorEngine.flush`` and of ``SimulationService``'s flushes: the
+    pool's context width unpinned (flushes are independent: each may
+    carry a different, internally consistent, context layout), each
+    request added whole, the backend drained.  Returns each request's
+    per-clip times.
+
+    Under ``backend.config.sampling`` (the analytical-ML fusion path) a
+    request adds only its stratified sample: strata over token-derived
+    features (``analytical.token_clip_features``: serving never sees the
+    columnar trace), keyed on clip occupancy (column 0, the work-amount
+    proxy: token features have no analytical-cycles column), the draw
+    keyed by ``request_id`` so that a retried request samples alike.
+    Each request then gets its ``fuse_predictions`` report instead, with
+    ``bootstrap_resamples`` resamples (None: the sampling config's)."""
+    backend.reset_context_width()
+    scfg = backend.config.sampling
+    if scfg is None:
+        for r in reqs:
+            backend.add(r.clip_tokens, r.context_tokens, r.clip_mask)
+        times = backend.drain()               # exactly this flush's clips
+        return np.split(times, np.cumsum(
+            [r.clip_tokens.shape[0] for r in reqs])[:-1])
+    plans = []
+    for r in reqs:
+        feats = analytical.token_clip_features(r.clip_tokens, r.clip_mask)
+        strata = analytical.stratify(feats, scfg.strata, key_column=0)
+        sampled, _ = sampler_mod.stratified_sample(
+            strata, scfg.fraction, scfg.min_clips_per_stratum, scfg.seed,
+            key=r.request_id)
+        if sampled.shape[0]:
+            backend.add(r.clip_tokens[sampled], r.context_tokens[sampled],
+                        r.clip_mask[sampled])
+        plans.append((feats, strata, sampled))
+    preds = backend.drain()                   # exactly the sampled clips
+    if bootstrap_resamples is None:
+        bootstrap_resamples = scfg.bootstrap_resamples
+    reports = []
+    off = 0
+    for r, (feats, strata, sampled) in zip(reqs, plans):
+        k = int(sampled.shape[0])
+        reports.append(analytical.fuse_predictions(
+            feats, strata, sampled, preds[off:off + k],
+            bootstrap_resamples=bootstrap_resamples, seed=scfg.seed,
+            key=r.request_id))
+        off += k
+    return reports
+
+
 class PredictorEngine:
     """Synchronous submit/flush serving engine.  Batching, precision and
     the RT cache travel in one ``EngineConfig``; ``config.sampling``
     switches flushes to the analytical-ML fusion path (only a stratified
     sample of each request's clips runs through the predictor, the rest
     extrapolate from token-derived features, and each ``Result`` carries
-    a bootstrap CI); ``config.faults`` builds a fault injector the
-    backend consults at dispatch and retire; ``config.mesh_shape``
-    shards the backend and the RT cache over one data mesh
-    (``make_data_mesh(n, device)``)."""
+    a bootstrap CI); ``config.faults`` builds a fault injector the RT
+    cache consults at the store's load and persist and the backend at
+    dispatch and retire; ``config.mesh_shape`` shards the backend and
+    the RT cache over one data mesh (``make_data_mesh(n, device)``)."""
 
     def __init__(self, params, cfg, config: Optional[EngineConfig] = None,
                  *, device: DeviceLike = "cuda"):
         config = config or EngineConfig()
         self.device = resolve_device(device)
-        self.mesh = resolve_mesh(config.n_shards, self.device)
         self.config = config
         self.obs = Observability.from_config(config.observability)
         self.instance = self.obs.metrics.next_instance("pengine")
-        params = params_to_device(params, self.device)
-        if config.precision == "int8":
-            from repro_torch.core import quant
-            params = quant.quantize_dequant_params(params)
-        self.params = params
-        self.cfg = pred_mod.inference_config(cfg, config.precision)
         # params are pinned for the engine's lifetime, so the RT table
         # survives across flushes: only unseen static rows ever encode;
-        # with rt_store_dir it also survives process restarts.  The cache
-        # shares the engine's mesh: encode passes shard too.
-        if config.rt_cache:
-            from repro_torch.core.standardize import build_vocab
-            self._cache = RTCache(params, self.cfg, config.l_token,
-                                  device=self.device,
-                                  n_shards=config.n_shards, mesh=self.mesh,
-                                  store_dir=config.rt_store_dir,
-                                  store_extra=build_vocab().signature(),
-                                  obs=self.obs)
-        else:
-            self._cache = None
-        self._faults = None
-        if config.faults:
-            from repro_torch.serving.faults import FaultInjector
-            self._faults = FaultInjector.from_config(config)
+        # with rt_store_dir it also survives process restarts
+        self._stack = PredictStack(params, cfg, config, device=self.device,
+                                   obs=self.obs,
+                                   faults=config_faults(config))
+        self.mesh = self._stack.mesh
         self._pending: List[Request] = []
-        self._backend: Optional[BatchedPredictor] = None
 
     @classmethod
     def from_config(cls, params, cfg, config: Optional[EngineConfig] = None,
@@ -165,7 +197,8 @@ class PredictorEngine:
 
     @property
     def rt_stats(self) -> Optional[RTCacheStats]:
-        return self._cache.stats if self._cache is not None else None
+        cache = self._stack.cache
+        return cache.stats if cache is not None else None
 
     def submit(self, req: Request) -> None:
         """Queue one request, validating the full payload contract at
@@ -179,101 +212,38 @@ class PredictorEngine:
     def backend(self) -> BatchedPredictor:
         """The engine-lifetime batch backend (built lazily on the first
         flush, then reused with its RT table and serving plan)."""
-        if self._backend is None:
-            self._backend = BatchedPredictor(self.params, self.cfg,
-                                             config=self.config,
-                                             rt_cache=self._cache,
-                                             fault_injector=self._faults,
-                                             obs=self.obs,
-                                             device=self.device,
-                                             mesh=self.mesh)
-        return self._backend
+        return self._stack.backend()
 
     def flush(self) -> List[Result]:
         """Run every pending clip through the predictor; one device batch
-        may span many requests."""
+        may span many requests.  Under ``config.sampling`` each result
+        carries its request's fused total and bootstrap CI."""
         if not self._pending:
             return []
         reqs = self._pending
         self._pending = []
-        if self.config.sampling is not None:
-            return self._flush_sampled(reqs)
+        sampled = self.config.sampling is not None
+        args = {"requests": len(reqs)}
+        if sampled:
+            args["sampled"] = True
         with self.obs.span("serving.flush", instance=self.instance,
-                           args={"requests": len(reqs)}) as sp:
-            backend = self.backend()
-            # flushes are independent: each may carry a different (but
-            # internally consistent) context layout
-            backend.reset_context_width()
-            for r in reqs:
-                backend.add(r.clip_tokens, r.context_tokens, r.clip_mask)
-            times = backend.drain()           # exactly this flush's clips
-            if self._cache is not None:
-                self._cache.persist()         # no-op without a store_dir
-        n = times.shape[0]
-        seconds = sp.seconds
-
-        results = []
-        off = 0
-        for r in reqs:
-            k = r.clip_tokens.shape[0]
-            results.append(Result(
-                request_id=r.request_id,
-                total_cycles=float(times[off:off + k].sum()),
-                n_clips=k,
-                seconds=seconds * (k / max(n, 1))))
-            off += k
-        return results
-
-    def _flush_sampled(self, reqs: List[Request]) -> List[Result]:
-        """Fusion path of ``flush()``: per request, stratify on
-        token-derived features (``analytical.token_clip_features``:
-        serving never sees the columnar trace), predict only the
-        stratified sample, extrapolate the rest, and attach the
-        bootstrap CI.  The draw is keyed by ``request_id``, so a retried
-        request samples identically."""
-        scfg = self.config.sampling
-        plans = []
-        with self.obs.span("serving.flush", instance=self.instance,
-                           args={"requests": len(reqs),
-                                 "sampled": True}) as sp:
-            backend = self.backend()
-            backend.reset_context_width()
-            for r in reqs:
-                feats = analytical.token_clip_features(r.clip_tokens,
-                                                       r.clip_mask)
-                # token features have no analytical-cycles column; clip
-                # occupancy (column 0) is the work-amount proxy
-                strata = analytical.stratify(feats, scfg.strata,
-                                             key_column=0)
-                sampled, _ = sampler_mod.stratified_sample(
-                    strata, scfg.fraction, scfg.min_clips_per_stratum,
-                    scfg.seed, key=r.request_id)
-                if sampled.shape[0]:
-                    backend.add(r.clip_tokens[sampled],
-                                r.context_tokens[sampled],
-                                r.clip_mask[sampled])
-                plans.append((feats, strata, sampled))
-            preds = backend.drain()           # exactly the sampled clips
-            if self._cache is not None:
-                self._cache.persist()         # no-op without a store_dir
-        n = preds.shape[0]
-        seconds = sp.seconds
-
-        results = []
-        off = 0
-        for r, (feats, strata, sampled) in zip(reqs, plans):
-            k = int(sampled.shape[0])
-            rep = analytical.fuse_predictions(
-                feats, strata, sampled, preds[off:off + k],
-                bootstrap_resamples=scfg.bootstrap_resamples,
-                seed=scfg.seed, key=r.request_id)
-            results.append(Result(
-                request_id=r.request_id,
-                total_cycles=rep.total_cycles,
-                n_clips=int(r.clip_tokens.shape[0]),
-                seconds=seconds * (k / max(n, 1)),
-                cycles_ci=rep.cycles_ci,
-                clips_predicted=rep.clips_predicted,
-                clips_extrapolated=rep.clips_extrapolated))
-            off += k
-        return results
+                           args=args) as sp:
+            preds = flush_requests(self.backend(), reqs)
+            if self._stack.cache is not None:
+                self._stack.cache.persist()   # no-op without a store_dir
+        if not sampled:
+            n = sum(t.shape[0] for t in preds)
+            return [Result(request_id=r.request_id,
+                           total_cycles=float(t.sum()), n_clips=t.shape[0],
+                           seconds=sp.seconds * (t.shape[0] / max(n, 1)))
+                    for r, t in zip(reqs, preds)]
+        n = sum(rep.clips_predicted for rep in preds)
+        return [Result(request_id=r.request_id,
+                       total_cycles=rep.total_cycles,
+                       n_clips=int(r.clip_tokens.shape[0]),
+                       seconds=sp.seconds * (rep.clips_predicted
+                                             / max(n, 1)),
+                       cycles_ci=rep.cycles_ci,
+                       clips_predicted=rep.clips_predicted,
+                       clips_extrapolated=rep.clips_extrapolated)
+                for r, rep in zip(reqs, preds)]

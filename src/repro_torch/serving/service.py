@@ -84,16 +84,13 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import analytical
-from repro_torch.core import predictor as pred_mod
-from repro_torch.core import sampler as sampler_mod
-from repro_torch.core.engine import BatchedPredictor, params_to_device
+from repro_torch.core.engine import PredictStack
 from repro_torch.core.engine_config import EngineConfig
-from repro_torch.core.rt_cache import RTCache
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.launch.mesh import DataMesh, resolve_mesh
+from repro_torch.launch.mesh import resolve_mesh
 from repro_torch.obs import Observability
-from repro_torch.serving.engine import Request, validate_request
+from repro_torch.serving.engine import (Request, flush_requests,
+                                        validate_request)
 from repro_torch.serving.faults import FaultInjector
 
 # service-level metric names (see README's Observability section).
@@ -121,7 +118,8 @@ STATUSES = (STATUS_OK, STATUS_DEGRADED, STATUS_OVERLOADED,
             STATUS_DEADLINE, STATUS_FAILED, STATUS_CANCELLED)
 
 # the degradation ladder, fastest first.  Tolerances are the existing
-# CI gates for each rung measured against the monolithic fp32 reference:
+# CI gates for each rung measured against the monolithic auditor (at the
+# config's own dtype):
 # fused is ≤1e-3 vs unfused, int8 is width-dependent (~0.6% at the
 # paper's d_model=128, gated 1% full scale / 5% quick), RT is bitwise
 # (any drift at all means the table is corrupt).
@@ -336,42 +334,6 @@ class DegradationController:
         return None
 
 
-class _Tier:
-    """One rung of the ladder: its config, resolved numerics, RT cache
-    (possibly shared with a sibling rung) and lazily built backend."""
-
-    def __init__(self, name: str, config: EngineConfig, params, cfg,
-                 cache: Optional[RTCache],
-                 injector: Optional[FaultInjector],
-                 obs: Optional[Observability] = None,
-                 device: DeviceLike = "cuda",
-                 mesh: Optional[DataMesh] = None):
-        self.name = name
-        self.device = device
-        self.mesh = mesh
-        self.config = config
-        self.params = params
-        self.cfg = cfg
-        self.cache = cache
-        self._injector = injector
-        self._obs = obs
-        self._backend: Optional[BatchedPredictor] = None
-
-    def backend(self) -> BatchedPredictor:
-        if self._backend is None:
-            self._backend = BatchedPredictor(
-                self.params, self.cfg, config=self.config,
-                rt_cache=self.cache, fault_injector=self._injector,
-                obs=self._obs, device=self.device, mesh=self.mesh)
-        return self._backend
-
-    def invalidate_backend(self) -> None:
-        """Drop the backend after a mid-flush fault or watchdog abort:
-        its buffered/in-flight state is unrecoverable, the (append-only)
-        RT cache is not and survives."""
-        self._backend = None
-
-
 def build_ladder(config: EngineConfig) -> List[Tuple[str, EngineConfig]]:
     """The degradation ladder as (name, EngineConfig) rungs, fastest
     first, honoring the base config's structural axes (a config without
@@ -404,9 +366,13 @@ class SimulationService:
     The service manages precision/fusion itself via the degradation
     ladder — the base config's ``precision``/``fused_serving`` fields
     are overridden per rung; batching, scale, mesh, store and fault
-    fields pass through.  Every rung and its RT cache shard over one data
-    mesh (``make_data_mesh(n, device)``); the trusted auditor stays
-    unsharded.
+    fields pass through.  Each rung, and the auditor that spot-checks
+    them, holds a ``PredictStack``; the stacks share one parameter tree,
+    one quantized tree and one RT cache per (tree, numerics), so the
+    ``fused`` and ``rt`` rungs share a cache.  Every rung and its RT cache
+    shard over one data mesh (``make_data_mesh(n, device)``).  The
+    auditor is the ``monolithic`` rung at the config's own dtype (not
+    necessarily f32), unsharded, without the service's injector.
     """
 
     def __init__(self, params, cfg, config: Optional[EngineConfig] = None,
@@ -416,7 +382,6 @@ class SimulationService:
         self.config = config or EngineConfig()
         self.device = resolve_device(device)
         self.mesh = resolve_mesh(self.config.n_shards, self.device)
-        params = params_to_device(params, self.device)
         self.sla = sla or ServiceSLA()
         self.obs = Observability.from_config(self.config.observability)
         m = self.obs.metrics
@@ -429,49 +394,29 @@ class SimulationService:
                 self.config, slow_seconds=self.sla.watchdog_s * 3)
 
         ladder = build_ladder(self.config)
-        self._tiers: List[_Tier] = []
-        caches: Dict[Tuple[int, object], Optional[RTCache]] = {}
-        int8_params = None
-        for name, tcfg in ladder:
-            tparams = params
-            if tcfg.precision == "int8":
-                if int8_params is None:
-                    from repro_torch.core import quant
-                    int8_params = quant.quantize_dequant_params(params)
-                tparams = int8_params
-            rcfg = pred_mod.inference_config(cfg, tcfg.precision)
-            cache = None
-            if tcfg.rt_cache:
-                key = (id(tparams), rcfg)
-                if key not in caches:
-                    from repro_torch.core.standardize import build_vocab
-                    caches[key] = RTCache(
-                        tparams, rcfg, tcfg.l_token,
-                        device=self.device,
-                        n_shards=tcfg.n_shards, mesh=self.mesh,
-                        store_dir=tcfg.rt_store_dir,
-                        store_extra=build_vocab().signature(),
-                        fault_injector=self._injector,
-                        obs=self.obs)
-                cache = caches[key]
-            self._tiers.append(_Tier(name, tcfg, tparams, rcfg, cache,
-                                     self._injector, self.obs,
-                                     self.device, self.mesh))
-        # the trusted auditor: monolithic fp32, unsharded, NO fault
-        # injector — spot checks must measure the tier under test, not
-        # their own chaos
-        mono_cfg = ladder[-1][1].replace(mesh_shape=())
-        self._reference = _Tier("reference", mono_cfg, params,
-                                pred_mod.inference_config(cfg, None),
-                                None, None, self.obs, self.device)
+        shared: Dict[object, object] = {}
+        # one stack a rung, named by its tier_stats entry
+        self._tiers = [PredictStack(params, cfg, tcfg, device=self.device,
+                                    obs=self.obs, mesh=self.mesh,
+                                    faults=self._injector, shared=shared)
+                       for _, tcfg in ladder]
+        # the trusted auditor: the monolithic rung at the config's own
+        # dtype, unsharded, without the service's injector, so that its
+        # checks draw nothing from the rungs' fault schedule.  Under a
+        # chaos config its backend builds a private injector from the
+        # config, as every BatchedPredictor given none does; a fault
+        # there makes the spot check return None, not demote
+        self._reference = PredictStack(
+            params, cfg, ladder[-1][1].replace(mesh_shape=()),
+            device=self.device, obs=self.obs, shared=shared)
 
         if not 0 <= start_tier < len(self._tiers):
             raise ValueError(f"start_tier {start_tier} outside the "
                              f"{len(self._tiers)}-rung ladder")
         self._ctrl = DegradationController(len(self._tiers), self.sla)
         self._ctrl.idx = start_tier
-        self.tier_stats = [TierStats(t.name, self.obs, self.instance)
-                           for t in self._tiers]
+        self.tier_stats = [TierStats(name, self.obs, self.instance)
+                           for name, _ in ladder]
         self._status_counts: Dict[str, int] = {s: 0 for s in STATUSES}
         self._n_submitted = 0
         self._n_flushes = 0
@@ -670,7 +615,7 @@ class SimulationService:
 
     @property
     def current_tier(self) -> str:
-        return self._tiers[self._ctrl.idx].name
+        return self.tier_stats[self._ctrl.idx].name
 
     def _serve_loop(self) -> None:
         with torch.inference_mode():
@@ -760,38 +705,38 @@ class SimulationService:
             ts = self.tier_stats[idx]
             try:
                 with self.obs.span("service.flush", instance=self.instance):
-                    times, flush_s = self._flush_watchdogged(tier, batch)
+                    times, flush_s = self._flush_watchdogged(idx, batch)
             except FlushTimeout:
                 ts.inc("watchdog_trips")
                 tier.invalidate_backend()
                 last_error = (f"watchdog abort after "
-                              f"{self.sla.watchdog_s:.2f}s at {tier.name}")
+                              f"{self.sla.watchdog_s:.2f}s at {ts.name}")
                 self._demote(idx, "watchdog", last_error)
                 continue
             except Exception as exc:          # noqa: BLE001 — typed fail
                 ts.inc("fault_trips")
                 tier.invalidate_backend()
-                last_error = f"{type(exc).__name__}: {exc} at {tier.name}"
+                last_error = f"{type(exc).__name__}: {exc} at {ts.name}"
                 self._demote(idx, "fault", last_error)
                 continue
 
             if not np.isfinite(times).all():
                 ts.inc("nan_trips")
-                last_error = f"non-finite predictions at {tier.name}"
+                last_error = f"non-finite predictions at {ts.name}"
                 self._demote(idx, "nan", last_error)
                 continue
 
             self._n_flushes += 1
-            if (tier.name != "monolithic"
+            if (ts.name != "monolithic"
                     and self.sla.check_every > 0
                     and self._n_flushes % self.sla.check_every == 0):
                 err = self._spot_check(tier, batch)
                 tol = self.sla.tier_tolerances.get(
-                    tier.name, float("inf"))
+                    ts.name, float("inf"))
                 if err is not None and err > tol:
                     ts.inc("relerr_trips")
                     last_error = (f"spot-check rel err {err:.2e} > "
-                                  f"{tol:.2e} gate at {tier.name}")
+                                  f"{tol:.2e} gate at {ts.name}")
                     self._demote(idx, "relerr", last_error)
                     continue
 
@@ -811,15 +756,15 @@ class SimulationService:
                     self._finish(qr, ServiceResult(
                         request_id=qr.req.request_id, status=status,
                         total_cycles=float(times[off:off + k].sum()),
-                        tier=tier.name, n_clips=k,
+                        tier=ts.name, n_clips=k,
                         queue_seconds=t_start - qr.arrival,
                         service_seconds=done_t - t_start))
                     off += k
                 promoted = self._ctrl.on_healthy()
                 if promoted is not None:
                     self.tier_stats[promoted].inc("promotions")
-                    self._transition(tier.name,
-                                     self._tiers[promoted].name,
+                    self._transition(ts.name,
+                                     self.tier_stats[promoted].name,
                                      "promotion")
             return
 
@@ -847,9 +792,9 @@ class SimulationService:
                 detail: str = "") -> None:
         self.tier_stats[from_idx].inc("demotions")
         new_idx = self._ctrl.on_trip()
-        from_name = self._tiers[from_idx].name
+        from_name = self.tier_stats[from_idx].name
         if new_idx is not None:
-            self._transition(from_name, self._tiers[new_idx].name,
+            self._transition(from_name, self.tier_stats[new_idx].name,
                              reason)
         else:
             # ladder floor: a trip with nowhere to go is still an event
@@ -862,12 +807,14 @@ class SimulationService:
             state["detail"] = detail
         self.obs.postmortem(f"demote_{reason}", state=state)
 
-    def _flush_watchdogged(self, tier: _Tier,
+    def _flush_watchdogged(self, idx: int,
                            batch: Sequence[_QueuedRequest]
                            ) -> Tuple[np.ndarray, float]:
-        """Run one flush on a watchdog thread.  Returns (times, flush
-        seconds); raises ``FlushTimeout`` after ``sla.watchdog_s`` (the
-        stuck thread is abandoned — see the module docstring)."""
+        """Run one flush on rung ``idx`` on a watchdog thread.  Returns
+        (times, flush seconds); raises ``FlushTimeout`` after
+        ``sla.watchdog_s`` (the stuck thread is abandoned — see the
+        module docstring)."""
+        tier, name = self._tiers[idx], self.tier_stats[idx].name
         box: Dict[str, object] = {}
         done = threading.Event()
         t0 = time.perf_counter()
@@ -881,19 +828,19 @@ class SimulationService:
             finally:
                 done.set()
 
-        th = threading.Thread(target=_run, name=f"flush-{tier.name}",
+        th = threading.Thread(target=_run, name=f"flush-{name}",
                               daemon=True)
         th.start()
         if not done.wait(self.sla.watchdog_s):
             self._abandoned.append(th)
             self._c_abandoned.inc()
             self._prune_abandoned()
-            raise FlushTimeout(tier.name)
+            raise FlushTimeout(name)
         if "exc" in box:
             raise box["exc"]                  # type: ignore[misc]
         flush_s = time.perf_counter() - t0
         self._h_flush.labels(instance=self.instance,
-                             tier=tier.name).observe(flush_s)
+                             tier=name).observe(flush_s)
         if tier.cache is not None:
             # persist failures must not discard a finished flush: the
             # previous store generation is intact (atomic publish), so
@@ -901,66 +848,29 @@ class SimulationService:
             try:
                 tier.cache.persist()
             except Exception:                 # noqa: BLE001
-                self.tier_stats[self._tiers.index(tier)] \
-                    .inc("persist_failures")
+                self.tier_stats[idx].inc("persist_failures")
         return box["times"], flush_s          # type: ignore[return-value]
 
-    def _flush(self, tier: _Tier,
+    def _flush(self, tier: PredictStack,
                batch: Sequence[_QueuedRequest]) -> np.ndarray:
-        """One flush of ``batch`` on ``tier``'s backend: per-clip times."""
-        backend = tier.backend()
-        backend.reset_context_width()
-        if self.config.sampling is not None:
-            return self._drain_sampled(backend, batch)
-        for qr in batch:
-            r = qr.req
-            backend.add(r.clip_tokens, r.context_tokens, r.clip_mask)
-        return backend.drain()
+        """One flush of ``batch`` on ``tier``'s backend: per-clip times.
+        Under ``config.sampling`` they are each request's fused per-clip
+        times, extrapolated where not sampled, so the vector is full
+        length and the NaN guard and per-request scatter in
+        ``_serve_batch`` (and hence the typed-result contract) hold
+        alike.  The bootstrap is skipped: ``ServiceResult`` carries
+        totals, not intervals; ``PredictorEngine`` with sampling gives
+        CIs."""
+        preds = flush_requests(tier.backend(), [qr.req for qr in batch],
+                               bootstrap_resamples=0)
+        if tier.config.sampling is not None:
+            preds = [np.asarray(rep.times, np.float64) for rep in preds]
+        return np.concatenate(preds)
 
-    def _drain_sampled(self, backend: BatchedPredictor,
-                       batch: Sequence[_QueuedRequest]) -> np.ndarray:
-        """Fusion flush body (``config.sampling``): predict only each
-        request's stratified clip sample, extrapolate the rest from
-        token-derived features, and synthesize a FULL-length per-clip
-        times vector — so the NaN guard and per-request scatter in
-        ``_serve_batch`` (and hence the typed-result contract) are
-        untouched.  The bootstrap is skipped here: ``ServiceResult``
-        carries totals, not intervals — use ``PredictorEngine`` with
-        sampling for CIs."""
-        scfg = self.config.sampling
-        plans = []
-        for qr in batch:
-            r = qr.req
-            feats = analytical.token_clip_features(r.clip_tokens,
-                                                   r.clip_mask)
-            strata = analytical.stratify(feats, scfg.strata,
-                                         key_column=0)
-            sampled, _ = sampler_mod.stratified_sample(
-                strata, scfg.fraction, scfg.min_clips_per_stratum,
-                scfg.seed, key=r.request_id)
-            if sampled.shape[0]:
-                backend.add(r.clip_tokens[sampled],
-                            r.context_tokens[sampled],
-                            r.clip_mask[sampled])
-            plans.append((feats, strata, sampled))
-        preds = backend.drain()
-        full: List[np.ndarray] = []
-        off = 0
-        for qr, (feats, strata, sampled) in zip(batch, plans):
-            k = int(sampled.shape[0])
-            rep = analytical.fuse_predictions(
-                feats, strata, sampled, preds[off:off + k],
-                bootstrap_resamples=0, seed=scfg.seed,
-                key=qr.req.request_id)
-            full.append(np.asarray(rep.times, np.float64))
-            off += k
-        return (np.concatenate(full) if full
-                else np.zeros(0, np.float64))
-
-    def _spot_check(self, tier: _Tier,
+    def _spot_check(self, tier: PredictStack,
                     batch: Sequence[_QueuedRequest]) -> Optional[float]:
         """Re-run a small sample of the window's clips through the
-        trusted monolithic fp32 reference and return the max rel err
+        trusted auditor (the monolithic rung) and return the max rel err
         (None when the reference itself fails — a reference fault must
         not demote the tier under test)."""
         k = self.sla.check_clips
@@ -1027,8 +937,7 @@ class SimulationService:
                 queued_clips=self._queued_clips,
                 clips_per_s_ewma=self._rate,
                 n_flushes=self._n_flushes,
-                tiers={t.name: s.as_dict() for t, s in
-                       zip(self._tiers, self.tier_stats)},
+                tiers={s.name: s.as_dict() for s in self.tier_stats},
                 faults_fired=(self._injector.stats()
                               if self._injector is not None else {}),
                 abandoned_flush_threads=len(self._abandoned),

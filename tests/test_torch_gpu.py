@@ -294,7 +294,7 @@ def _mesh_runs(fused, meshes):
                                **kw)
         eng.submit_names(["503.bwaves", "541.leela"])
         res = eng.run()
-        cache = eng._rt_cache
+        cache = eng._stack.cache
         runs.append((res, cache.table[:cache.n_rows].cpu()))
     return runs
 
@@ -553,7 +553,8 @@ def test_service_on_card():
                    for t in [svc.submit(r) for r in reqs]]
     assert all(r.status == "ok" and r.tier == "fused_int8" for r in results)
     qr = _QueuedRequest(req=reqs[2], ticket=None, arrival=0.0, deadline=0.0)
-    errs = {t.name: svc._spot_check(t, [qr]) for t in svc._tiers[:-1]}
+    errs = {s.name: svc._spot_check(t, [qr])
+            for t, s in zip(svc._tiers[:-1], svc.tier_stats)}
     assert errs["rt"] == 0.0
     for name, err in errs.items():
         assert err <= svc.sla.tier_tolerances[name], (name, err)

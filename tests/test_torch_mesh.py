@@ -76,7 +76,7 @@ def _run(params, config, names=MIX, **kw):
 
 
 def _table(eng):
-    cache = eng._rt_cache
+    cache = eng._stack.cache
     return cache.table[:cache.n_rows]
 
 
@@ -203,8 +203,8 @@ def test_mesh8_single_core_bitwise(params, kw):
     r8, e8 = _run(params, EC.replace(mesh_shape=(8,), **kw))
     _same(r0, r8)
     assert e8.last_stats.n_batches == e0.last_stats.n_batches
-    if e0._rt_cache is not None:
-        assert e8._rt_cache.n_rows == e0._rt_cache.n_rows
+    if e0._stack.cache is not None:
+        assert e8._stack.cache.n_rows == e0._stack.cache.n_rows
         assert torch.equal(_table(e8), _table(e0))
         assert _table(e8).view(torch.uint8).numpy().tobytes() == \
             _table(e0).view(torch.uint8).numpy().tobytes()

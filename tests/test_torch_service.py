@@ -45,7 +45,7 @@ from repro_torch.serving import (FaultInjected, FaultInjector,  # noqa: E402
                                  SimulationService, build_ladder)
 from repro_torch.serving.service import (STATUSES,  # noqa: E402
                                          DegradationController,
-                                         _QueuedRequest)
+                                         ServiceTicket, _QueuedRequest)
 
 VOCAB = build_vocab()
 # the reference tests' SMALL_CFG (4 heads of 8)
@@ -351,10 +351,88 @@ def test_service_spot_checks_every_rung_within_its_gate(params):
         assert svc.submit(_req(3)).result(timeout=300).ok
     qr = _QueuedRequest(req=_req(7, n=6), ticket=None, arrival=0.0,
                         deadline=0.0)
-    errs = {t.name: svc._spot_check(t, [qr]) for t in svc._tiers[:-1]}
+    errs = {s.name: svc._spot_check(t, [qr])
+            for t, s in zip(svc._tiers[:-1], svc.tier_stats)}
     assert errs["rt"] == 0.0
     for name, err in errs.items():
         assert err <= svc.sla.tier_tolerances[name], (name, err)
+
+
+def test_rungs_share_one_tree_and_cache_per_precision(params, monkeypatch):
+    """One predict stack a rung: rungs of one (precision, rt_cache) share
+    their parameter tree and RT cache (``fused`` and ``rt``), the int8
+    tree is quantized once for ``fused_int8`` alone, and ``monolithic``
+    and the auditor read the device tree with no cache, the auditor
+    unsharded."""
+    from repro_torch.core import quant
+    quantized = []
+
+    def counting(tree):
+        quantized.append(tree)
+        return real(tree)
+    real = quant.quantize_dequant_params
+    monkeypatch.setattr(quant, "quantize_dequant_params", counting)
+    svc = _service(params, config=BASE.replace(mesh_shape=(2,)))
+    int8, fused, rt, mono = svc._tiers
+    ref = svc._reference
+    assert [s.name for s in svc.tier_stats] == [
+        "fused_int8", "fused", "rt", "monolithic"]
+    assert fused.cache is not None and fused.cache is rt.cache
+    assert fused.params is rt.params is mono.params is ref.params
+    assert fused.cache.params is fused.params
+    whole = [t for t in quantized if isinstance(t, dict) and "head" in t]
+    assert len(whole) == 1 and whole[0] is fused.params
+    assert int8.params is not fused.params
+    assert int8.cache is not None and int8.cache is not fused.cache
+    assert int8.cache.params is int8.params
+    assert not torch.equal(int8.params["head"]["w1"],
+                           fused.params["head"]["w1"])
+    assert mono.cache is None and ref.cache is None
+    assert all(t.mesh is svc.mesh for t in svc._tiers)
+    assert svc.mesh is not None and ref.mesh is None
+    assert ref.config.mesh_shape == () and ref.faults is None
+    assert ref.cfg == mono.cfg == SMALL_CFG
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["plain", "sampled"])
+@pytest.mark.parametrize("start_tier", range(4))
+def test_service_and_predictor_engine_flush_alike(params, start_tier,
+                                                  sampled):
+    """One flush body behind both front ends: a window of three requests
+    (8-clip batches spanning them) served on each rung gives the
+    per-request totals of a ``PredictorEngine`` with that rung's config,
+    bitwise for plain flushes; sampled ones to 1e-12 relative (the
+    service sums the fused per-clip times, the engine reads the
+    report's total)."""
+    config = BASE
+    if sampled:
+        config = BASE.replace(sampling=SamplingConfig(fraction=0.5,
+                                                      strata=2))
+    svc = _service(params, _sla(check_every=0, promote_after=10**6),
+                   config=config, start_tier=start_tier)
+    reqs = [_req(i, n) for i, n in ((0, 5), (1, 7), (2, 12))]
+    window = [_QueuedRequest(req=r, ticket=ServiceTicket(r.request_id,
+                                                         r.clip_tokens
+                                                         .shape[0]),
+                             arrival=0.0, deadline=float("inf"))
+              for r in reqs]
+    svc._serve_batch(window)
+    got = [qr.ticket.result(timeout=0) for qr in window]
+    name = svc.tier_stats[start_tier].name
+    assert all(r.status == ("ok" if start_tier == 0 else "degraded")
+               and r.tier == name for r in got)
+    eng = _engine(params, svc._tiers[start_tier].config)
+    for r in reqs:
+        eng.submit(r)
+    want = eng.flush()
+    assert [r.n_clips for r in got] == [r.n_clips for r in want]
+    for a, b in zip(got, want, strict=True):
+        if sampled:
+            assert b.clips_extrapolated > 0
+            assert abs(a.total_cycles - b.total_cycles) \
+                <= 1e-12 * abs(b.total_cycles)
+        else:
+            assert a.total_cycles == b.total_cycles
 
 
 def test_service_sampled_flushes_stay_typed(params):
@@ -508,6 +586,31 @@ def test_crash_persist_keeps_previous_generation(params, table, tmp_path):
                                rtol=0, atol=0)
 
 
+def test_predictor_engine_corrupt_rt_read_cold_encodes(params, tmp_path):
+    """``PredictorEngine``'s RT cache consults the engine's injector, as
+    ``SimulationEngine``'s and the service's do: a corrupt store read
+    warns and cold-encodes to the clean run's totals, where a clean
+    engine adopts the store."""
+    config = BASE.replace(rt_store_dir=str(tmp_path))
+    clean = _engine(params, config)
+    clean.submit(_req(0))
+    want = clean.flush()[0].total_cycles
+    warm = _engine(params, config)
+    assert warm.rt_stats.n_rows_loaded > 0
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        eng = _engine(params, config.replace(
+            faults={"corrupt_rt_read": 1.0}))
+    assert eng.rt_stats.n_rows_loaded == 0
+    assert any("store" in str(x.message) or "RT" in str(x.message)
+               for x in w)
+    eng.submit(_req(0))
+    assert eng.flush()[0].total_cycles == want
+    assert eng.rt_stats.n_rows_encoded > 0
+    assert eng._stack.cache._faults is eng._stack.faults
+    assert eng._stack.faults.stats() == {"corrupt_rt_read": 1}
+
+
 def test_engine_config_faults_reach_the_engine(params, tmp_path):
     """``EngineConfig.faults`` runs in the port: one injector per engine,
     shared by its RT cache (a corrupt store read cold-encodes) and its
@@ -524,14 +627,14 @@ def test_engine_config_faults_reach_the_engine(params, tmp_path):
         eng = SimulationEngine(params, SMALL_CFG, VOCAB, EngineConfig(
             **sim, faults={"corrupt_rt_read": 1.0, "nan_output": 1.0}),
             device="cpu")
-    assert eng._rt_cache._faults is eng._faults
+    assert eng._stack.cache._faults is eng._stack.faults
     assert eng.last_rt_stats is None
     eng.submit_names(names)
     r = eng.run()[0]
     assert eng.last_rt_stats.n_rows_loaded == 0      # cold, not adopted
     assert eng.last_rt_stats.n_rows_encoded > 0
     assert np.isnan(r.predicted_cycles) and np.isfinite(want)
-    assert eng._faults.stats() == {"corrupt_rt_read": 1,
+    assert eng._stack.faults.stats() == {"corrupt_rt_read": 1,
                                    "nan_output": eng.last_stats.n_batches}
 
 
