@@ -580,6 +580,14 @@ FA_BWD = (("inst_4096", 4096, 16, 16, 4, 32, False, 0, True),
           ("one_tile_causal", 5, 9, 14, 3, 64, True, 4, True),
           ("one_tile_d16", 7, 16, 11, 2, 16, False, 0, True),
           ("one_tile_d128", 3, 16, 16, 2, 128, True, 0, False))
+# the bf16 backward kernels: NemotronH's causal attention in the nemo3
+# train cell (2 x 4096 tokens, 32 heads of 128, the KV heads repeated),
+# then every other head dim, a window, a query offset and a mask
+FA_BWD_BF16 = (("nemo3_attn", 2, 4096, 4096, 32, 128, True, 0, False),
+               ("q17_kv40_d32", 3, 17, 40, 4, 32, True, 0, True),
+               ("d16", 3, 100, 257, 2, 16, False, 0, True),
+               ("d64_causal", 2, 200, 200, 2, 64, True, 0, False),
+               ("d112_window", 2, 33, 257, 2, 112, True, 50, True))
 # CAPSim training at full width: the data (Table II benchmarks, interval,
 # checkpoints: every benchmark, since the first 3 give 27 training clips,
 # less than one batch), the paper's batch, the trainer's steps and
@@ -741,7 +749,8 @@ def bound(B, Sq, Skv, H, D, dtype: str, aux: bool, causal: bool = False):
 
 
 KERNEL_NAMES = r"(ssd_chunk_state|ssd_chunk_out|ssd_state_pass|ssd_cb|" \
-    r"fa_fwd_bf16|fa_fwd_f32|fa_bwd_delta_f32|fa_bwd_dkdv_f32|fa_bwd_dq_f32)"
+    r"fa_fwd_bf16|fa_fwd_f32|fa_bwd_delta_f32|fa_bwd_dkdv_f32|fa_bwd_dq_f32|" \
+    r"fa_bwd_delta_bf16|fa_bwd_dkdv_bf16|fa_bwd_dq_bf16)"
 
 
 def kernel_label(mangled: str):
@@ -751,7 +760,8 @@ def kernel_label(mangled: str):
     if kind is None:
         return None
     name = kind.group(1)
-    dtype = ("bf16" if "13__nv_bfloat16" in mangled or name == "fa_fwd_bf16"
+    dtype = ("bf16" if "13__nv_bfloat16" in mangled
+             or name.startswith("fa_") and name.endswith("_bf16")
              else "f32" if name.startswith("fa_") or re.search(
                  r"\d" + name + r"If", mangled) else None)
     ints = [int(v) for v in re.findall(r"Li(\d+)E", mangled)]
@@ -806,16 +816,17 @@ def sass_pipes(torch, build, fa_ops, ssd_ops):
             print(f"sass {lib} {label}: HMMA {count}, registers {regs}, "
                   f"static shared {static} B, dynamic shared {dyn} B")
             if dtype == "bf16":
-                require(count > 0, f"{lib} {label} has no HMMA: not on the "
-                        "tensor cores")
+                # the backward's Δ = rowsum(dO ∘ O) has no product
+                require(count > 0 or base == "fa_bwd_delta_bf16",
+                        f"{lib} {label} has no HMMA: not on the tensor cores")
             else:
                 require(count == 0, f"{lib} {label} has {count} HMMA: f32 "
                         "must stay on the FMA pipes")
         if lib == "flash_attention_bwd":
-            want = {f"{k}<{d}>" for k in ("fa_bwd_delta_f32",
-                                          "fa_bwd_dkdv_f32", "fa_bwd_dq_f32")
-                    for d in fa_ops.HEAD_DIMS}
-            require(want <= seen, f"{lib}: f32 instantiations in the SASS "
+            want = {f"{k}_{dt}<{d}>" for k in ("fa_bwd_delta",
+                                               "fa_bwd_dkdv", "fa_bwd_dq")
+                    for dt in ("f32", "bf16") for d in fa_ops.HEAD_DIMS}
+            require(want <= seen, f"{lib}: instantiations in the SASS "
                     f"{sorted(seen)}")
         elif lib != "ssd":
             want = {(k, d) for k in ("bf16", "f32") for d in fa_ops.HEAD_DIMS}
@@ -3863,110 +3874,121 @@ def check_train_grads(torch, fa_ops, ssd_ops):
 
 
 def check_flash_backward(torch, fa_ops):
-    """The f32 flash backward kernels at FA_BWD's shapes: the forward's
-    log-sum-exp against the plain one (rows with a live key within 1e-5,
-    +inf where none) with the output bitwise the launch without it; the
-    kernels' dq/dk/dv against the plain equations from the same o and lse
-    (``flash_attention_backward_plain``) and against autograd through the
-    plain recompute (``flash_attention_backward``), f32 <= GRAD_TOL
+    """The flash backward kernels, f32 at FA_BWD's shapes and bf16 at
+    FA_BWD_BF16's: the forward's log-sum-exp against the plain one (rows
+    with a live key within 1e-5 in f32, 1e-4 in bf16, +inf where none)
+    with the output bitwise the launch without it; the kernels' dq/dk/dv
+    against the plain equations from the same o and lse
+    (``flash_attention_backward_plain``, with bf16's rounding points) and
+    against autograd through the plain recompute
+    (``flash_attention_backward``), f32 <= GRAD_TOL and bf16 <= BF16_TOL
     relative norm per input, all finite; two calls the same bits; a
     keyless row's dq and a masked key's dk, dv exactly 0; one launch
     counted a call.  Each shape timed: the kernels, the plain recompute,
-    SDPA's f32 backward (masks as an additive bias; no window, so none
-    there) and the bound (``attention_bwd_cost``: five products at 67
-    TFLOP/s or the bytes)."""
+    SDPA's backward in the same dtype (masks as an additive bias; no
+    window, so none there) and the bound (``attention_bwd_cost``: five
+    products at 67 / 989 TFLOP/s or the bytes)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(23)
     rows = []
-    for label, B, Sq, Skv, H, D, causal, window, masked in FA_BWD:
-        q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
-                   for S in (Sq, Skv, Skv))
-        g = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
-        m = None
-        if masked:
-            m = (torch.rand(B, Skv, generator=gen, device="cuda") > 0.3
-                 ).float()
-            m[0] = 0.0
-        kw = dict(causal=causal, window=window, kv_mask=m)
-        lse = torch.empty(B, H, Sq, device="cuda")
-        o = fa_ops._launch(q, k, v, m, causal, window, lse)
-        o_ref, lse_ref = fa_ops.flash_attention_plain(q, k, v, **kw,
-                                                      return_lse=True)
-        same_o = torch.equal(o, fa_ops._launch(q, k, v, m, causal, window))
-        keyless = torch.isinf(lse_ref)
-        lse_err = float((lse - lse_ref)[~keyless].abs().max()) \
-            if bool((~keyless).any()) else 0.0
-        lse_ok = bool(torch.isposinf(lse[keyless]).all()) and lse_err <= 1e-5
-        before = fa_ops.flash_attention_bwd.launches
-        got = fa_ops.flash_attention_bwd(q, k, v, o, lse, g, m, causal,
-                                         window)
-        again = fa_ops.flash_attention_bwd(q, k, v, o, lse, g, m, causal,
-                                           window)
-        n = fa_ops.flash_attention_bwd.launches - before
-        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-        plain = fa_ops.flash_attention_backward_plain(q, k, v, o, lse, g, m,
-                                                      causal, window)
-        e_plain = [rel_norm_err(a, b) for a, b in zip(got, plain)]
-        del plain
-        recompute = fa_ops.flash_attention_backward(q, k, v, m, g, causal,
-                                                    window)
-        e_rec = [rel_norm_err(a, b) for a, b in zip(got, recompute)]
-        del recompute
-        finite = all(bool(torch.isfinite(a).all()) for a in got)
-        zeros = True
-        if m is not None:
-            off = m == 0
-            zeros = bool((got[0][0] == 0).all()) and bool(
-                (got[1][off] == 0).all()) and bool((got[2][off] == 0).all())
-        print(f"flash_bwd {label:18s} B={B} Sq={Sq} Skv={Skv} H={H} D={D} "
-              f"causal={causal} window={window} masked={masked}: rel_norm "
-              "dq/dk/dv vs plain equations "
-              + "/".join(f"{e:.3e}" for e in e_plain) + " vs recompute "
-              + "/".join(f"{e:.3e}" for e in e_rec)
-              + f"; lse max err {lse_err:.3e} (keyless rows "
-              f"{int(keyless.sum())} +inf: {lse_ok}); o bitwise without "
-              f"lse {same_o}; two calls bitwise {bitwise}; finite {finite}; "
-              f"masked zeros {zeros}; launches {n}")
-        require(finite and bitwise and same_o and lse_ok and zeros and n == 2,
-                f"flash backward {label}: finite {finite}, bitwise "
-                f"{bitwise}, o {same_o}, lse {lse_ok} ({lse_err}), zeros "
-                f"{zeros}, launches {n}")
-        require(max(e_plain + e_rec) <= GRAD_TOL,
-                f"flash backward {label}: rel norm {e_plain} / {e_rec}")
-        row = {"shape": f"bwd_{label}", "dtype": "float32",
-               "ms": cuda_ms(torch, lambda: fa_ops.flash_attention_bwd(
-                   q, k, v, o, lse, g, m, causal, window), iters=10),
-               "recompute_ms": cuda_ms(
-                   torch, lambda: fa_ops.flash_attention_backward(
-                       q, k, v, m, g, causal, window), iters=3, warmup=1,
-                   rounds=2)}
-        row["library_ms"] = float("nan")
-        if window == 0:
-            sq, sk, sv = (x.transpose(1, 2).detach().requires_grad_(True)
-                          for x in (q, k, v))
-            bias = None
-            if masked or (causal and Sq != Skv):
-                bias = torch.where(fa_ops.live_pairs(q, k, causal, 0, m),
-                                   0.0, -1e30)
-            out = F.scaled_dot_product_attention(
-                sq, sk, sv, attn_mask=bias,
-                is_causal=causal and bias is None)
-            gt = g.transpose(1, 2)
-            row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
-                out, (sq, sk, sv), gt, retain_graph=True), iters=5)
-            del sq, sk, sv, bias, out, gt
-        row["bound_ms"], row["bound_by"] = _roof(*fa_ops.attention_bwd_cost(
-            B, Sq, Skv, H, D, 4, masked, causal), "float32")
-        print(f"time flash_attention_bwd {label:18s} float32 kernel_ms="
-              f"{row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-              f"({row['bound_by']}) bound_share="
-              f"{row['bound_ms'] / row['ms']:.3f} recompute_ms="
-              f"{row['recompute_ms']:.4f} library_ms="
-              f"{row['library_ms']:.4f} (sdpa backward)")
-        rows.append(row)
-        del q, k, v, g, m, o, lse, got, again, o_ref, lse_ref
-        torch.cuda.empty_cache()
+    for dtype, shapes in (("float32", FA_BWD), ("bfloat16", FA_BWD_BF16)):
+        tdt = getattr(torch, dtype)
+        f32 = dtype == "float32"
+        for label, B, Sq, Skv, H, D, causal, window, masked in shapes:
+            rows.append(_flash_backward_row(
+                torch, F, fa_ops, gen, tdt, label, B, Sq, Skv, H, D, causal,
+                window, masked, GRAD_TOL if f32 else BF16_TOL,
+                1e-5 if f32 else 1e-4))
+            torch.cuda.empty_cache()
     return rows
+
+
+def _flash_backward_row(torch, F, fa_ops, gen, tdt, label, B, Sq, Skv, H,
+                        D, causal, window, masked, tol, lse_tol):
+    """One shape of ``check_flash_backward``: its checks and its timing
+    row."""
+    dtype = str(tdt).removeprefix("torch.")
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(tdt)
+               for S in (Sq, Skv, Skv))
+    g = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(tdt)
+    m = None
+    if masked:
+        m = (torch.rand(B, Skv, generator=gen, device="cuda") > 0.3).float()
+        m[0] = 0.0
+    kw = dict(causal=causal, window=window, kv_mask=m)
+    lse = torch.empty(B, H, Sq, device="cuda")
+    o = fa_ops._launch(q, k, v, m, causal, window, lse)
+    _, lse_ref = fa_ops.flash_attention_plain(q, k, v, **kw, return_lse=True)
+    same_o = torch.equal(o, fa_ops._launch(q, k, v, m, causal, window))
+    keyless = torch.isinf(lse_ref)
+    lse_err = float((lse - lse_ref)[~keyless].abs().max()) \
+        if bool((~keyless).any()) else 0.0
+    lse_ok = bool(torch.isposinf(lse[keyless]).all()) and lse_err <= lse_tol
+    del lse_ref
+    before = fa_ops.flash_attention_bwd.launches
+    got = fa_ops.flash_attention_bwd(q, k, v, o, lse, g, m, causal, window)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, lse, g, m, causal, window)
+    n = fa_ops.flash_attention_bwd.launches - before
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    plain = fa_ops.flash_attention_backward_plain(q, k, v, o, lse, g, m,
+                                                  causal, window)
+    e_plain = [rel_norm_err(a, b) for a, b in zip(got, plain)]
+    del plain
+    recompute = fa_ops.flash_attention_backward(q, k, v, m, g, causal, window)
+    e_rec = [rel_norm_err(a, b) for a, b in zip(got, recompute)]
+    del recompute
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    zeros = True
+    if m is not None:
+        off = m == 0
+        zeros = bool((got[0][0] == 0).all()) and bool(
+            (got[1][off] == 0).all()) and bool((got[2][off] == 0).all())
+    print(f"flash_bwd {label:18s} {dtype} B={B} Sq={Sq} Skv={Skv} H={H} "
+          f"D={D} causal={causal} window={window} masked={masked}: rel_norm "
+          "dq/dk/dv vs plain equations "
+          + "/".join(f"{e:.3e}" for e in e_plain) + " vs recompute "
+          + "/".join(f"{e:.3e}" for e in e_rec)
+          + f"; lse max err {lse_err:.3e} (keyless rows "
+          f"{int(keyless.sum())} +inf: {lse_ok}); o bitwise without "
+          f"lse {same_o}; two calls bitwise {bitwise}; finite {finite}; "
+          f"masked zeros {zeros}; launches {n}")
+    require(finite and bitwise and same_o and lse_ok and zeros and n == 2,
+            f"flash backward {label} {dtype}: finite {finite}, bitwise "
+            f"{bitwise}, o {same_o}, lse {lse_ok} ({lse_err}), zeros "
+            f"{zeros}, launches {n}")
+    require(max(e_plain + e_rec) <= tol,
+            f"flash backward {label} {dtype}: rel norm {e_plain} / {e_rec}")
+    row = {"shape": f"bwd_{label}", "dtype": dtype,
+           "ms": cuda_ms(torch, lambda: fa_ops.flash_attention_bwd(
+               q, k, v, o, lse, g, m, causal, window), iters=10),
+           "recompute_ms": cuda_ms(
+               torch, lambda: fa_ops.flash_attention_backward(
+                   q, k, v, m, g, causal, window), iters=3, warmup=1,
+               rounds=2)}
+    row["library_ms"] = float("nan")
+    if window == 0:
+        sq, sk, sv = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        bias = None
+        if masked or (causal and Sq != Skv):
+            bias = torch.where(fa_ops.live_pairs(q, k, causal, 0, m),
+                               0.0, -1e30).to(tdt)
+        out = F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=bias, is_causal=causal and bias is None)
+        gt = g.transpose(1, 2)
+        row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, (sq, sk, sv), gt, retain_graph=True), iters=5)
+        del sq, sk, sv, bias, out, gt
+    row["bound_ms"], row["bound_by"] = _roof(*fa_ops.attention_bwd_cost(
+        B, Sq, Skv, H, D, tdt.itemsize, masked, causal), dtype)
+    print(f"time flash_attention_bwd {label:18s} {dtype} kernel_ms="
+          f"{row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+          f"({row['bound_by']}) bound_share="
+          f"{row['bound_ms'] / row['ms']:.3f} recompute_ms="
+          f"{row['recompute_ms']:.4f} library_ms="
+          f"{row['library_ms']:.4f} (sdpa backward)")
+    return row
 
 
 @contextlib.contextmanager
@@ -5533,8 +5555,12 @@ def remat_cell(torch, fa_ops, ssd_ops, what, cfg, loss_of, params, batch,
     step's state and batch), flash and SSD launches a step (twice with
     remat) and the embedding gradient's (the same with remat: the
     gathers are not recomputed); then every gradient of the two against
-    each other.  Returns ({remat: measurements}, the launches of the timed
-    steps by kernel)."""
+    each other, and the gradient pass's own peak (``value_and_grad``, no
+    update), which remat must lower: the step's peak can be the
+    optimizer update's, which remat leaves alone (qwen3-4b's AdamW
+    update sets it once the flash backward holds no scores).  Returns
+    ({remat: measurements}, the launches of the timed steps by
+    kernel)."""
     import gc
     from repro_torch.kernels.embedding import ops as emb_ops
     from repro_torch.launch.dryrun import storage_bytes
@@ -5581,10 +5607,15 @@ def remat_cell(torch, fa_ops, ssd_ops, what, cfg, loss_of, params, batch,
         torch.cuda.empty_cache()
     # the gradients after both timed steps, so neither step's peak holds
     # the other's
+    grad_peak = {}
     for remat in (False, True):
         c = cfg.replace(remat=remat)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         _, g = ttl.value_and_grad(lambda p, b: loss_of(p, b, c), params,
                                   batch)
+        grad_peak[remat] = torch.cuda.max_memory_allocated() - base
         grads[remat] = tree_leaves(g)
         del g
     worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
@@ -5599,7 +5630,9 @@ def remat_cell(torch, fa_ops, ssd_ops, what, cfg, loss_of, params, batch,
           f"{off['peak'] / 2**30:.2f} / {on['peak'] / 2**30:.2f}, the step's "
           f"own {off['step_peak'] / 2**30:.2f} / "
           f"{on['step_peak'] / 2**30:.2f} (state and batch "
-          f"{off['args'] / 2**30:.2f} GiB); launches (flash, SSD) a step "
+          f"{off['args'] / 2**30:.2f} GiB), the gradient pass's "
+          f"{grad_peak[False] / 2**30:.2f} / {grad_peak[True] / 2**30:.2f}; "
+          f"launches (flash, SSD) a step "
           f"{off['launches']} / {on['launches']}, embedding gradients a "
           f"step {off['emb']:g} / {on['emb']:g}; gradients, "
           f"{len(grads[True])} leaves: max |d| {max_abs:.3e}, worst rel "
@@ -5609,8 +5642,8 @@ def remat_cell(torch, fa_ops, ssd_ops, what, cfg, loss_of, params, batch,
             f"remat {what}: launches {off['launches']} -> {on['launches']}")
     require(on["emb"] == off["emb"], f"remat {what}: embedding gradients "
             f"a step {off['emb']} -> {on['emb']}")
-    require(on["step_peak"] < off["step_peak"],
-            f"remat {what}: the step's peak did not fall")
+    require(grad_peak[True] < grad_peak[False],
+            f"remat {what}: the gradient pass's peak did not fall")
     del grads
     torch.cuda.empty_cache()
     return out, total

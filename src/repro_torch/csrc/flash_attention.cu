@@ -5,8 +5,8 @@
 // are in flash_attention.cuh; this file instantiates them without weights
 // (W = false) and is their plain-C entry point, loaded from Python with
 // ctypes (repro_torch/kernels/flash_attention/ops.py).  `lse` (null, or
-// (B, H, Sq) f32) asks the f32 body for each row's log-sum-exp, which the
-// backward (flash_attention_bwd.cu) reads; the bf16 body ignores it.
+// (B, H, Sq) f32) asks either body for each row's log-sum-exp, which the
+// backward (flash_attention_bwd.cu) reads.
 #include "flash_attention.cuh"
 
 extern "C" int capsim_flash_attention_fwd(

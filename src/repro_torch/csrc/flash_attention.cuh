@@ -56,10 +56,12 @@
 //   accumulates in f32.  Shared rows are padded by 16 bytes, so every
 //   ldmatrix (and .trans for V) is free of bank conflicts.
 //
+//   Asked (Args::lse), either flash body also stores each row's
+//   log-sum-exp for the backward (flash_attention_bwd.cu), after O and
+//   without touching it.
+//
 //   f32: the same tiling on the FMA pipes, in full f32 (no mma of any
-//   precision, no TF32).  Asked (Args::lse), the flash body also stores
-//   each row's log-sum-exp for the backward (flash_attention_bwd.cu),
-//   after O and without touching it.  Each thread owns 4 queries x 8 keys of S (rows
+//   precision, no TF32).  Each thread owns 4 queries x 8 keys of S (rows
 //   16w + lane/8 + 4i, keys lane%8 + 8j), so per 4 features four 16-byte
 //   Q loads and eight K loads feed 128 FMAs; the row max and sum reduce
 //   over the 8 lanes of a row.  P goes through a per-warp slice of shared
@@ -101,7 +103,7 @@ struct Args {
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss;  // in elements
   int causal, window, q_offset;
   float scale;
-  // (B, H, Sq) f32 or null: where the f32 flash body (W = false) stores
+  // (B, H, Sq) f32 or null: where either flash body (W = false) stores
   // each row's log-sum-exp of its scaled live scores, ln(sum exp(s*scale)),
   // for the backward (flash_attention_bwd.cu); +inf for a row with no
   // valid key, so every p recomputed from it is exactly 0
@@ -469,6 +471,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) fa_fwd_bf16(Args a) {
     float sum = l[row];
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l[row] = sum;
     const float den = sum == 0.f ? 1.f : sum;   // keyless row -> zeros
     const int qi = w0 + g + 8 * row;
     if (qi >= a.Sq) continue;
@@ -478,6 +481,20 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) fa_fwd_bf16(Args a) {
       const unsigned packed = pack_bf16(o[i][2 * row] / den,
                                         o[i][2 * row + 1] / den);
       *reinterpret_cast<unsigned*>(op + i * 8 + 2 * t) = packed;
+    }
+  }
+  // the rows' log-sum-exp, after O, as the f32 body stores it: lane t < 2
+  // of a quad its row g + 8t, ln 2 (m + log2 l) (l >= 1 on a row with a
+  // live key), +inf on a keyless row
+  if constexpr (!W) {
+    if (a.lse != nullptr && t < 2) {
+      const float lv = t == 0 ? l[0] : l[1];
+      const float mv = t == 0 ? m[0] : m[1];
+      const int qi = w0 + g + 8 * t;
+      if (qi < a.Sq)
+        a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + qi] =
+            lv == 0.f ? __int_as_float(0x7f800000)
+                      : (mv + __log2f(lv)) * LN2;
     }
   }
 }

@@ -1,13 +1,17 @@
-// Flash-attention backward in f32 for Hopper (sm_90a): dQ, dK and dV of
-// the flash forward (flash_attention.cuh, W = false) from q, k, v, the
-// forward's output O, the output gradient dO and the log-sum-exp of each
-// row that the f32 forward body stores when asked (Args::lse).  It
+// Flash-attention backward for Hopper (sm_90a), in f32 and in bf16: dQ,
+// dK and dV of the flash forward (flash_attention.cuh, W = false) from q,
+// k, v, the forward's output O, the output gradient dO and the log-sum-exp
+// of each row that the forward body stores when asked (Args::lse).  It
 // replaces no TPU kernel: the JAX package's custom VJP recomputes the
 // attention through `attention_ref` (repro/kernels/flash_attention/ops.py)
 // and leaves its gradient to XLA, and the port did the same through
-// flash_attention_plain until this kernel (autograd over its key tiles
+// flash_attention_plain until these kernels (autograd over its key tiles
 // moved the whole f32 score tensor about three times a tile).  Loaded
 // from Python with ctypes (repro_torch/kernels/flash_attention/ops.py).
+// The dtype code of the one C entry point chooses between two paths that
+// share only the Grad/Args contract and the key- and query-range helpers:
+// f32 on the FMA pipes, (a)-(d), sized for the CAPSim predictor's D = 32,
+// and bf16 on the tensor cores, (e)-(g), sized for D = 128.
 //
 // Contract (flash_attention_backward_plain repeats it): with
 // s = scale q.k over the live keys (kv_mask, causal and window as the
@@ -60,6 +64,22 @@
 // A warp whose keys are all masked (the clip_mask's padded instructions)
 // skips its work in (b), and a tile that all of a warp's pairs see whole
 // skips the per-score tests, as in the forward.
+//
+// bf16 (NemotronH's causal GQA attention in training, (2, 4096, 32, 128)
+// with the KV heads repeated): the five products are 687 GFLOP a call,
+// 0.69 ms at the tensor cores' 989 TFLOP/s; the bytes (q, k, v, O, dO
+// read, dQ, dK, dV written: ~0.2 GB) are 0.06 ms.  mma.sync (not wgmma)
+// keeps the design the bf16 forward's; a warp issues one ldmatrix.x4 (512
+// bytes of shared memory) for every 1.6-1.7 HMMA, so shared memory
+// bandwidth, not the tensor cores, is the first limit.  Three launches, the
+// same order of sums every call (no atomics):
+//   (e) fa_bwd_delta_bf16<D>  Δ per row from the bf16 O and dO.
+//   (f) fa_bwd_dkdv_bf16<D>   one CTA per (batch, head, 16 NW keys), the
+//       query tiles its keys can see (a causal CTA starts at its first
+//       key's query); Sᵀ and dPᵀ in fragments, dV, dK in registers.
+//   (g) fa_bwd_dq_bf16<D>     one CTA per (batch, head, 16 NW queries), the
+//       key tiles its rows can see; dQ in registers.
+// S and dP again computed in both, as in f32.
 #include "flash_attention.cuh"
 
 namespace capsim_fa_bwd {
@@ -82,6 +102,19 @@ struct Grad {
   float* dq;           // (B, Sq, H, D) contiguous
   float* dk;           // (B, Skv, H, D) contiguous
   float* dv;           // (B, Skv, H, D) contiguous
+  long long g_sb, g_ss;
+};
+
+// Grad's fields for the bf16 kernels: dO and the three gradients in bf16,
+// lse and Δ in f32
+struct GradBf16 {
+  Args f;
+  const __nv_bfloat16* g;
+  const float* lse;
+  float* delta;        // written by (e)
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
   long long g_sb, g_ss;
 };
 
@@ -740,14 +773,484 @@ __global__ void __launch_bounds__(SMALL_WARPS * 32)
 }
 
 // ----------------------------------------------------------------------
+// bf16 on the tensor cores (mma.sync m16n8k16, f32 accumulators)
+// ----------------------------------------------------------------------
+//
+// The fragments are the bf16 forward's: a warp owns 16 rows of the
+// product it accumulates (keys in (f), queries in (g)); A fragments come
+// by ldmatrix from rows padded by 16 bytes, B fragments by ldmatrix where
+// the operand's rows are the product's n and by ldmatrix.trans where they
+// are its k; a C fragment of two n-tiles packs straight into the A
+// fragment of the next product's k-step.  S and dP stay in f32
+// accumulators, P = 2^(s*scale*log2e - lse*log2e) on the SFU, P is rounded
+// to bf16 for dV and dS for dK and dQ (flash-attention-2's rounding
+// points); every sum is f32, and dQ, dK and dV are rounded to bf16 once,
+// at the store.
+
+using T16 = __nv_bfloat16;
+
+// (e) Δ = rowsum(dO ∘ O): D/8 lanes a row, a 16-byte load of each.
+template <int D>
+__global__ void __launch_bounds__(DELTA_THREADS)
+    fa_bwd_delta_bf16(GradBf16 g) {
+  const Args& a = g.f;
+  constexpr int LPR = D / 8;                  // lanes a row
+  const long long rows = static_cast<long long>(a.B) * a.Sq * a.H;
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * DELTA_THREADS + threadIdx.x) / LPR;
+  const int col = (threadIdx.x % LPR) * 8;
+  float acc = 0.f;
+  long long out = 0;
+  if (row < rows) {
+    const int h = static_cast<int>(row % a.H);
+    const long long bs = row / a.H;
+    const int s = static_cast<int>(bs % a.Sq);
+    const int b = static_cast<int>(bs / a.Sq);
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        static_cast<const T16*>(a.o) + b * a.o_sb + s * a.o_ss + h * D + col);
+    const uint4 y = *reinterpret_cast<const uint4*>(
+        g.g + b * g.g_sb + s * g.g_ss + h * D + col);
+    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 xf = __bfloat1622float2(xp[i]);
+      const float2 yf = __bfloat1622float2(yp[i]);
+      acc = fmaf(xf.x, yf.x, acc);
+      acc = fmaf(xf.y, yf.y, acc);
+    }
+    out = (static_cast<long long>(b) * a.H + h) * a.Sq + s;
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off /= 2)
+    acc += __shfl_xor_sync(FULL, acc, off);
+  if (row < rows && threadIdx.x % LPR == 0) g.delta[out] = acc;
+}
+
+// Shared-space byte addresses of this lane's ldmatrix rows in a block of
+// 16-byte-padded rows (`stride` elements): `a_rows` for A fragments of 16
+// rows (the forward's Q) and for .trans B fragments whose rows are the
+// product's k (the forward's V); `b_rows` for B fragments whose rows are
+// the product's n (the forward's K).
+__device__ __forceinline__ unsigned a_rows(const T16* base, int stride,
+                                           int lane) {
+  return smem_u32(base + (lane % 8 + 8 * (lane / 8 % 2)) * stride +
+                  8 * (lane / 16));
+}
+
+__device__ __forceinline__ unsigned b_rows(const T16* base, int stride,
+                                           int lane) {
+  return smem_u32(base + (lane % 8 + 8 * (lane / 16)) * stride +
+                  8 * (lane / 8 % 2));
+}
+
+// two C fragments (n-tiles 2k, 2k + 1) as the A fragment of k-step k,
+// rounded to bf16
+__device__ __forceinline__ void pack_a(unsigned (&x)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  x[0] = pack_bf16(c0[0], c0[1]);
+  x[1] = pack_bf16(c0[2], c0[3]);
+  x[2] = pack_bf16(c1[0], c1[1]);
+  x[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// (f) dK, dV: one CTA per (batch, head, 16 NW keys), NW warps of 16 keys.
+// K and V rows stay in shared memory; the CTA walks the query tiles of BQ
+// that can see its keys, Q, dO, lse and Δ through a two-stage cp.async
+// ring.  A warp holds Sᵀ = K Qᵀ and dPᵀ = V dOᵀ for QC queries at a time
+// (32 at D = 128, so dK, dV, Sᵀ and dPᵀ fit the registers), forms Pᵀ and
+// dSᵀ in the fragments and accumulates dV += Pᵀ dO and dK += dSᵀ Q, dO
+// and Q read again by ldmatrix.trans from the same tiles.
+template <int D>
+struct DkvBf16Smem {
+  static constexpr int BQ = 64;                        // queries a tile
+  static constexpr int STRIDE = D + 8;                 // +16 bytes a row
+  static constexpr int KV = MAX_WARPS * 16 * STRIDE;   // K rows; V rows
+  static constexpr int TILE = BQ * STRIDE;             // a Q or dO tile
+  static constexpr size_t BYTES =
+      (2 * KV + 4 * TILE) * sizeof(T16) + 4 * BQ * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+    fa_bwd_dkdv_bf16(GradBf16 g) {
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  const Args& a = g.f;
+  using S = DkvBf16Smem<D>;
+  constexpr int BQ = S::BQ;
+  constexpr int QC = D >= 128 ? 32 : 64;      // queries a warp holds
+  constexpr int NQ = QC / 8;                  // query n-tiles of Sᵀ
+  constexpr int DT = D / 8;                   // feature n-tiles of dK, dV
+  constexpr int KS = D / 16;                  // k-steps of Sᵀ and dPᵀ
+  constexpr unsigned ROW = S::STRIDE * sizeof(T16);
+  constexpr unsigned TILE_BYTES = S::TILE * sizeof(T16);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T16* ks = reinterpret_cast<T16*>(smem);
+  T16* vs = ks + S::KV;
+  T16* qs = vs + S::KV;                       // [2][BQ][STRIDE]
+  T16* gs = qs + 2 * S::TILE;                 // [2][BQ][STRIDE]
+  float* ls = reinterpret_cast<float*>(gs + 2 * S::TILE);   // [2][BQ] lse
+  float* ds = ls + 2 * BQ;                    // [2][BQ] Δ
+
+  const int nw = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane / 4, t = lane % 4;
+  // the key tiles of one (batch, head) are neighbours in the grid, so they
+  // read its Q and dO from L2
+  const int n_kt = (a.Skv + nw * 16 - 1) / (nw * 16);
+  const int bh = blockIdx.x / n_kt;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int k0 = (blockIdx.x % n_kt) * nw * 16;
+
+  const T16* qp = static_cast<const T16*>(a.q) + b * a.q_sb + h * D;
+  const T16* kp = static_cast<const T16*>(a.k) + b * a.k_sb + h * D;
+  const T16* vp = static_cast<const T16*>(a.v) + b * a.v_sb + h * D;
+  const T16* gp = g.g + b * g.g_sb + h * D;
+  const long long row0 = (static_cast<long long>(b) * a.H + h) * a.Sq;
+  const float* lp = g.lse + row0;
+  const float* dp0 = g.delta + row0;
+
+  const KeyRange cta = query_range(a, k0, min(k0 + nw * 16, a.Skv));
+  const int first = cta.lo / BQ * BQ;
+  const int n_tiles = cta.hi > first ? (cta.hi - first + BQ - 1) / BQ : 0;
+
+  // this lane's keys w0 + gr and w0 + gr + 8, and whether each is valid
+  const int w0 = k0 + warp * 16;
+  bool kok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = w0 + gr + 8 * i;
+    kok[i] = key < a.Skv &&
+             (a.kv_mask == nullptr ||
+              a.kv_mask[static_cast<long long>(b) * a.Skv + key] > 0.f);
+  }
+  const bool warp_live = __any_sync(FULL, kok[0] || kok[1]);
+  const bool all_ok = __all_sync(FULL, kok[0] && kok[1]);
+  const KeyRange wr = query_range(a, w0, min(w0 + 16, a.Skv));
+  const float sl2 = a.scale * LOG2E;
+
+  const unsigned k_a = a_rows(ks + warp * 16 * S::STRIDE, S::STRIDE, lane);
+  const unsigned v_a = a_rows(vs + warp * 16 * S::STRIDE, S::STRIDE, lane);
+  const unsigned q_b = b_rows(qs, S::STRIDE, lane);
+  const unsigned g_b = b_rows(gs, S::STRIDE, lane);
+  const unsigned q_bt = a_rows(qs, S::STRIDE, lane);
+  const unsigned g_bt = a_rows(gs, S::STRIDE, lane);
+
+  auto load_tile = [&](int tile, int stage) {
+    const int t0 = first + tile * BQ;
+    capsim_fa::load_rows<T16, D>(qs + stage * S::TILE, S::STRIDE, qp,
+                                 a.q_ss, t0, BQ, a.Sq);
+    capsim_fa::load_rows<T16, D>(gs + stage * S::TILE, S::STRIDE, gp,
+                                 g.g_ss, t0, BQ, a.Sq);
+    for (int r = threadIdx.x; r < BQ; r += blockDim.x) {
+      const bool in = t0 + r < a.Sq;
+      cp_async4(ls + stage * BQ + r, in ? lp + t0 + r : lp, in);
+      cp_async4(ds + stage * BQ + r, in ? dp0 + t0 + r : dp0, in);
+    }
+  };
+
+  capsim_fa::load_rows<T16, D>(ks, S::STRIDE, kp, a.k_ss, k0, nw * 16,
+                               a.Skv);
+  capsim_fa::load_rows<T16, D>(vs, S::STRIDE, vp, a.v_ss, k0, nw * 16,
+                               a.Skv);
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
+
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile & 1;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (tile + 1 < n_tiles) load_tile(tile + 1, stage ^ 1);
+    cp_async_commit();
+    const int t0 = first + tile * BQ;
+    if (!(warp_live && t0 < wr.hi && t0 + BQ > wr.lo)) continue;
+    const unsigned st = stage * TILE_BYTES;
+    const float* lt = ls + stage * BQ;
+    const float* dlt = ds + stage * BQ;
+
+#pragma unroll
+    for (int c = 0; c < BQ; c += QC) {
+      const int c0 = t0 + c;
+      if (c0 >= wr.hi || c0 + QC <= wr.lo) continue;
+
+      // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: keys gr, gr + 8; queries 8n + 2t (+1)
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        unsigned kf[4], vf[4];
+        ldsm_x4(kf, k_a + kk * 32);
+        ldsm_x4(vf, v_a + kk * 32);
+#pragma unroll
+        for (int p = 0; p < NQ / 2; ++p) {
+          unsigned qb[4], gb[4];
+          ldsm_x4(qb, q_b + st + (c + p * 16) * ROW + kk * 32);
+          mma_bf16(s[2 * p], kf, qb[0], qb[1]);
+          mma_bf16(s[2 * p + 1], kf, qb[2], qb[3]);
+          ldsm_x4(gb, g_b + st + (c + p * 16) * ROW + kk * 32);
+          mma_bf16(dp[2 * p], vf, gb[0], gb[1]);
+          mma_bf16(dp[2 * p + 1], vf, gb[2], gb[3]);
+        }
+      }
+
+      // Pᵀ and dSᵀ = Pᵀ ∘ (dPᵀ - Δ) in the fragments; every pair of the
+      // chunk is live when the warp's keys are all valid, the chunk is
+      // full and the masks cut none of it
+      bool whole = all_ok && c0 + QC <= a.Sq;
+      if (a.causal)
+        whole = whole && w0 + 15 <= c0 + a.q_offset &&
+                (a.window <= 0 || w0 > c0 + QC - 1 + a.q_offset - a.window);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const float2 lq =
+            *reinterpret_cast<const float2*>(lt + c + 8 * n + 2 * t);
+        const float2 dl =
+            *reinterpret_cast<const float2*>(dlt + c + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = c0 + 8 * n + 2 * t + (e & 1);
+          const bool ok = whole || (kok[e / 2] && q < a.Sq &&
+                                    sees(a, q, w0 + gr + 8 * (e / 2)));
+          const float l2 = ((e & 1) ? lq.y : lq.x) * LOG2E;
+          const float p = ok ? exp2_sfu(fmaf(s[n][e], sl2, -l2)) : 0.f;
+          dp[n][e] = p * (dp[n][e] - ((e & 1) ? dl.y : dl.x));
+          s[n][e] = p;
+        }
+      }
+
+      // dV += Pᵀ dO, dK += dSᵀ Q: k-steps of 16 queries
+#pragma unroll
+      for (int kq = 0; kq < QC / 16; ++kq) {
+        unsigned pa[4], da[4];
+        pack_a(pa, s[2 * kq], s[2 * kq + 1]);
+        pack_a(da, dp[2 * kq], dp[2 * kq + 1]);
+        const unsigned off = st + (c + kq * 16) * ROW;
+#pragma unroll
+        for (int p = 0; p < DT / 2; ++p) {
+          unsigned gb[4], qb[4];
+          ldsm_x4_trans(gb, g_bt + off + p * 32);
+          mma_bf16(dv[2 * p], pa, gb[0], gb[1]);
+          mma_bf16(dv[2 * p + 1], pa, gb[2], gb[3]);
+          ldsm_x4_trans(qb, q_bt + off + p * 32);
+          mma_bf16(dk[2 * p], da, qb[0], qb[1]);
+          mma_bf16(dk[2 * p + 1], da, qb[2], qb[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // every key before Skv is written, a masked one with zeros
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int key = w0 + gr + 8 * row;
+    if (key >= a.Skv) continue;
+    const long long at =
+        ((static_cast<long long>(b) * a.Skv + key) * a.H + h) * D + 2 * t;
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      *reinterpret_cast<unsigned*>(g.dk + at + 8 * i) = pack_bf16(
+          dk[i][2 * row] * a.scale, dk[i][2 * row + 1] * a.scale);
+      *reinterpret_cast<unsigned*>(g.dv + at + 8 * i) =
+          pack_bf16(dv[i][2 * row], dv[i][2 * row + 1]);
+    }
+  }
+}
+
+// (g) dQ: one CTA per (batch, head, 16 NW queries), the bf16 forward's
+// tiling: Q and dO rows in shared memory, K/V tiles of 64 keys and their
+// validity words streamed by the forward's KVStream.  A warp holds S and
+// dP for its 16 rows x 64 keys, forms dS in the fragments and accumulates
+// dQ += dS K, K read again by ldmatrix.trans.
+template <int D>
+struct DqBf16Smem {
+  static constexpr int STRIDE = D + 8;                 // +16 bytes a row
+  static constexpr int Q = MAX_WARPS * 16 * STRIDE;    // Q rows; dO rows
+  static constexpr int TILE = BK * STRIDE;
+  static constexpr size_t BYTES =
+      (2 * Q + 4 * TILE) * sizeof(T16) + 2 * BK * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(MAX_WARPS * 32) fa_bwd_dq_bf16(GradBf16 g) {
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  const Args& a = g.f;
+  using S = DqBf16Smem<D>;
+  constexpr int NT = BK / 8;                  // key n-tiles of S and dP
+  constexpr int DT = D / 8;                   // feature n-tiles of dQ
+  constexpr int KS = D / 16;                  // k-steps of S and dP
+  constexpr unsigned ROW = S::STRIDE * sizeof(T16);
+  constexpr unsigned TILE_BYTES = S::TILE * sizeof(T16);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T16* qs = reinterpret_cast<T16*>(smem);
+  T16* gs = qs + S::Q;
+  T16* ks = gs + S::Q;                        // [2][BK][STRIDE]
+  T16* vs = ks + 2 * S::TILE;                 // [2][BK][STRIDE]
+  float* ms = reinterpret_cast<float*>(vs + 2 * S::TILE);   // [2][BK]
+
+  const int nw = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane / 4, t = lane % 4;
+  const int n_qt = (a.Sq + nw * 16 - 1) / (nw * 16);
+  const int bh = blockIdx.x / n_qt;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int q0 = (blockIdx.x % n_qt) * nw * 16;
+  const int q_end = min(q0 + nw * 16, a.Sq);
+
+  const T16* qp = static_cast<const T16*>(a.q) + b * a.q_sb + h * D;
+  const T16* kp = static_cast<const T16*>(a.k) + b * a.k_sb + h * D;
+  const T16* vp = static_cast<const T16*>(a.v) + b * a.v_sb + h * D;
+  const T16* gp = g.g + b * g.g_sb + h * D;
+
+  const KeyRange cta = capsim_fa::key_range(a, q0, q_end);
+  const int first = cta.lo / BK * BK;
+  const int n_tiles = cta.hi > first ? (cta.hi - first + BK - 1) / BK : 0;
+
+  // this lane's rows w0 + gr and w0 + gr + 8
+  const int w0 = q0 + warp * 16;
+  const bool warp_live = w0 < a.Sq;
+  const KeyRange wr = capsim_fa::key_range(a, w0, min(w0 + 16, a.Sq));
+  int kmin[2], kmax[2];
+  float l2[2], dl[2];
+  const long long row0 = (static_cast<long long>(b) * a.H + h) * a.Sq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = w0 + gr + 8 * i;
+    capsim_fa::row_limits(a, qi, kmin[i], kmax[i]);
+    const bool in = qi < a.Sq;
+    l2[i] = in ? g.lse[row0 + qi] * LOG2E : __int_as_float(0x7f800000);
+    dl[i] = in ? g.delta[row0 + qi] : 0.f;
+  }
+  const float sl2 = a.scale * LOG2E;
+
+  const unsigned q_a = a_rows(qs + warp * 16 * S::STRIDE, S::STRIDE, lane);
+  const unsigned g_a = a_rows(gs + warp * 16 * S::STRIDE, S::STRIDE, lane);
+  const unsigned k_b = b_rows(ks, S::STRIDE, lane);
+  const unsigned v_b = b_rows(vs, S::STRIDE, lane);
+  const unsigned k_bt = a_rows(ks, S::STRIDE, lane);
+
+  KVStream<T16, D, S::STRIDE> kv(a, kp, vp, b, first);
+  auto load_tile = [&](int tile, int stage) {
+    kv.load(a, first + tile * BK, ks + stage * S::TILE, vs + stage * S::TILE,
+            ms + stage * BK);
+  };
+
+  capsim_fa::load_rows<T16, D>(qs, S::STRIDE, qp + (long long)q0 * a.q_ss,
+                               a.q_ss, 0, nw * 16, a.Sq - q0);
+  capsim_fa::load_rows<T16, D>(gs, S::STRIDE, gp + (long long)q0 * g.g_ss,
+                               g.g_ss, 0, nw * 16, a.Sq - q0);
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
+
+  float dq[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile & 1;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (tile + 1 < n_tiles) load_tile(tile + 1, stage ^ 1);
+    cp_async_commit();
+    const int k0 = first + tile * BK;
+    if (!(warp_live && k0 < wr.hi && k0 + BK > wr.lo)) continue;
+    const unsigned st = stage * TILE_BYTES;
+    const float* mt = ms + stage * BK;
+
+    // S = Q Kᵀ and dP = dO Vᵀ: rows gr, gr + 8; keys 8n + 2t (+1)
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      unsigned qf[4], gf[4];
+      ldsm_x4(qf, q_a + kk * 32);
+      ldsm_x4(gf, g_a + kk * 32);
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        unsigned kb[4], vb[4];
+        ldsm_x4(kb, k_b + st + p * 16 * ROW + kk * 32);
+        mma_bf16(s[2 * p], qf, kb[0], kb[1]);
+        mma_bf16(s[2 * p + 1], qf, kb[2], kb[3]);
+        ldsm_x4(vb, v_b + st + p * 16 * ROW + kk * 32);
+        mma_bf16(dp[2 * p], gf, vb[0], vb[1]);
+        mma_bf16(dp[2 * p + 1], gf, vb[2], vb[3]);
+      }
+    }
+
+    // dS = P ∘ (dP - Δ), P from the forward's lse
+    unsigned lo, hi;
+    capsim_fa::tile_bits<false>(a, mt, k0, lane, lo, hi);
+    const bool whole = capsim_fa::tile_whole(a, lo, hi, k0, kmin, kmax);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e / 2;
+        const int key = n * 8 + 2 * t + (e & 1);
+        const bool ok = whole ||
+                        ((((n < 4 ? lo : hi) >> (key % 32)) & 1u) &&
+                         k0 + key >= kmin[row] && k0 + key <= kmax[row]);
+        const float p = ok ? exp2_sfu(fmaf(s[n][e], sl2, -l2[row])) : 0.f;
+        s[n][e] = p * (dp[n][e] - dl[row]);
+      }
+
+    // dQ += dS K: k-steps of 16 keys
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      unsigned da[4];
+      pack_a(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int p = 0; p < DT / 2; ++p) {
+        unsigned kb[4];
+        ldsm_x4_trans(kb, k_bt + st + kk * 16 * ROW + p * 32);
+        mma_bf16(dq[2 * p], da, kb[0], kb[1]);
+        mma_bf16(dq[2 * p + 1], da, kb[2], kb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int qi = w0 + gr + 8 * row;
+    if (qi >= a.Sq) continue;
+    T16* out =
+        g.dq + ((static_cast<long long>(b) * a.Sq + qi) * a.H + h) * D + 2 * t;
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+      *reinterpret_cast<unsigned*>(out + 8 * i) =
+          pack_bf16(dq[i][2 * row] * a.scale, dq[i][2 * row + 1] * a.scale);
+  }
+}
+
+// ----------------------------------------------------------------------
 // Launch
 // ----------------------------------------------------------------------
 
 // `kernel` on `ctas` CTAs of `threads`; a kernel that asks for more than
 // 48 KB of dynamic shared memory gets the attribute once per device.
-template <typename Kernel>
+template <typename Kernel, typename G>
 int launch_kernel(Kernel kernel, long long ctas, int threads, size_t smem,
-                  unsigned long long& ready, const Grad& g,
+                  unsigned long long& ready, const G& g,
                   cudaStream_t stream) {
   if (ctas == 0) return 0;
   if (ctas > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
@@ -795,39 +1298,82 @@ int launch_d(const Grad& g, cudaStream_t stream) {
                        DqSmem<D>::BYTES, ready_dq, g, stream);
 }
 
+template <int D>
+int launch_d_bf16(const GradBf16& g, cudaStream_t stream) {
+  static unsigned long long ready_dkdv = 0, ready_dq = 0, ready_delta = 0;
+  const Args& a = g.f;
+  const long long bh = static_cast<long long>(a.B) * a.H;
+  const long long delta_threads = bh * a.Sq * (D / 8);
+  int rc = launch_kernel(fa_bwd_delta_bf16<D>,
+                         (delta_threads + DELTA_THREADS - 1) / DELTA_THREADS,
+                         DELTA_THREADS, 0, ready_delta, g, stream);
+  if (rc != 0) return rc;
+  const int nk = capsim_fa::warps_for(a.Skv);
+  rc = launch_kernel(fa_bwd_dkdv_bf16<D>,
+                     bh * ((a.Skv + nk * 16 - 1) / (nk * 16)), nk * 32,
+                     DkvBf16Smem<D>::BYTES, ready_dkdv, g, stream);
+  if (rc != 0) return rc;
+  const int nq = capsim_fa::warps_for(a.Sq);
+  return launch_kernel(fa_bwd_dq_bf16<D>,
+                       bh * ((a.Sq + nq * 16 - 1) / (nq * 16)), nq * 32,
+                       DqBf16Smem<D>::BYTES, ready_dq, g, stream);
+}
+
 }  // namespace capsim_fa_bwd
 
-// Returns 0, a cudaError_t, -1 for a head_dim the kernels are not built
-// for, or -2 for q/k/v/O/dO that are not 16-byte aligned.  dq, dk and dv
-// are contiguous (B, S, H, D); lse and delta (B, H, Sq).
+// dtype: 0 = float32, 1 = bfloat16, the type of q, k, v, O, dO, dq, dk
+// and dv (kv_mask, lse and delta are f32).  Returns 0, a cudaError_t, -1 for a
+// (dtype, head_dim) pair the kernels are not built for, or -2 for
+// q/k/v/O/dO that are not 16-byte aligned.  dq, dk and dv are contiguous
+// (B, S, H, D); lse and delta (B, H, Sq).
 extern "C" int capsim_flash_attention_bwd(
-    int head_dim, const float* q, const float* k, const float* v,
-    const float* o, const float* g, const float* kv_mask, const float* lse,
-    float* delta, float* dq, float* dk, float* dv, int B, int Sq, int Skv,
+    int dtype, int head_dim, const void* q, const void* k, const void* v,
+    const void* o, const void* g, const float* kv_mask, const float* lse,
+    float* delta, void* dq, void* dk, void* dv, int B, int Sq, int Skv,
     int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
     long long v_sb, long long v_ss, long long o_sb, long long o_ss,
     long long g_sb, long long g_ss, int causal, int window, float scale,
     void* stream) {
   using capsim_fa::aligned16;
+  if (dtype != 0 && dtype != 1) return -1;
   if (B == 0 || H == 0) return 0;
-  if (!aligned16(q, q_sb, q_ss, B, Sq, 4) ||
-      !aligned16(k, k_sb, k_ss, B, Skv, 4) ||
-      !aligned16(v, v_sb, v_ss, B, Skv, 4) ||
-      !aligned16(o, o_sb, o_ss, B, Sq, 4) ||
-      !aligned16(g, g_sb, g_ss, B, Sq, 4))
+  const int elem = dtype == 0 ? 4 : 2;
+  if (!aligned16(q, q_sb, q_ss, B, Sq, elem) ||
+      !aligned16(k, k_sb, k_ss, B, Skv, elem) ||
+      !aligned16(v, v_sb, v_ss, B, Skv, elem) ||
+      !aligned16(o, o_sb, o_ss, B, Sq, elem) ||
+      !aligned16(g, g_sb, g_ss, B, Sq, elem))
     return -2;
-  capsim_fa_bwd::Grad gr{
-      capsim_fa::Args{q,    k,    v,    kv_mask, const_cast<float*>(o),
-                      B,    Sq,   Skv,  H,       q_sb, q_ss, k_sb, k_ss,
-                      v_sb, v_ss, o_sb, o_ss,    causal, window, Skv - Sq,
-                      scale},
-      g, lse, delta, dq, dk, dv, g_sb, g_ss};
+  const capsim_fa::Args args{q,      k,      v,        kv_mask,
+                             const_cast<void*>(o),
+                             B,      Sq,     Skv,      H,
+                             q_sb,   q_ss,   k_sb,     k_ss,
+                             v_sb,   v_ss,   o_sb,     o_ss,
+                             causal, window, Skv - Sq, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    const capsim_fa_bwd::Grad gr{
+        args, static_cast<const float*>(g), lse, delta,
+        static_cast<float*>(dq), static_cast<float*>(dk),
+        static_cast<float*>(dv), g_sb, g_ss};
+    switch (head_dim) {
+      case 16: return capsim_fa_bwd::launch_d<16>(gr, s);
+      case 32: return capsim_fa_bwd::launch_d<32>(gr, s);
+      case 64: return capsim_fa_bwd::launch_d<64>(gr, s);
+      case 128: return capsim_fa_bwd::launch_d<128>(gr, s);
+      default: return -1;
+    }
+  }
+  using T16 = __nv_bfloat16;
+  const capsim_fa_bwd::GradBf16 gr{
+      args, static_cast<const T16*>(g), lse, delta,
+      static_cast<T16*>(dq), static_cast<T16*>(dk), static_cast<T16*>(dv),
+      g_sb, g_ss};
   switch (head_dim) {
-    case 16: return capsim_fa_bwd::launch_d<16>(gr, s);
-    case 32: return capsim_fa_bwd::launch_d<32>(gr, s);
-    case 64: return capsim_fa_bwd::launch_d<64>(gr, s);
-    case 128: return capsim_fa_bwd::launch_d<128>(gr, s);
+    case 16: return capsim_fa_bwd::launch_d_bf16<16>(gr, s);
+    case 32: return capsim_fa_bwd::launch_d_bf16<32>(gr, s);
+    case 64: return capsim_fa_bwd::launch_d_bf16<64>(gr, s);
+    case 128: return capsim_fa_bwd::launch_d_bf16<128>(gr, s);
     default: return -1;
   }
 }

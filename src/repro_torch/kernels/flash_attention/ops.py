@@ -11,25 +11,22 @@ and runs ``flash_attention_plain`` for CPU tensors (meta: below).
 It carries a gradient to q, k and v (the mask gets none).  On the CPU
 autograd differentiates the plain version.  On the card, when grad mode
 is on and q, k or v requires grad, the launch is the forward of a
-``torch.autograd.Function``, whose backward the dtype chooses (there is
-no knob):
+``torch.autograd.Function``: the forward launch also writes each row's
+log-sum-exp (B, H, Sq), the Function saves it with the output, and the
+backward is ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``:
+dq, dk, dv from them, deterministic, no atomics), in the span
+``flash_attention_backward``.  q's dtype chooses the kernels (there is
+no knob): float32 on the FMA pipes, bfloat16 on the tensor cores, P
+rounded to bfloat16 for dv and dS for dq and dk.  They replace no TPU
+kernel: the reference's custom VJP recomputes through ``attention_ref``
+(here ``flash_attention_backward``, the kernels' yardstick).
+Their plain version is ``flash_attention_backward_plain``; the plain
+log-sum-exp is ``flash_attention_plain(..., return_lse=True)``.
 
-- float32: the forward launch also writes each row's log-sum-exp (B, H,
-  Sq) and the Function saves it with the output; the backward is
-  ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``: dq, dk, dv
-  from them, deterministic, no atomics), in the span
-  ``flash_attention_backward``.  It replaces no TPU kernel: the
-  reference's custom VJP recomputes through ``attention_ref``.  Its
-  plain version is ``flash_attention_backward_plain``; the plain
-  log-sum-exp is ``flash_attention_plain(..., return_lse=True)``.
-- bfloat16: ``flash_attention_backward`` recomputes the attention
-  through the plain version and differentiates that, as the reference's
-  custom VJP recomputes through ``attention_ref``.
-
-Each backward counts its route in the registry,
-``capsim_flash_backward_total{route="kernel"|"recompute", dtype}``.  The
-forward launch is the same either way: same arguments, same output
-bits, one launch counted (``flash_attention.launches``;
+Each backward is counted in the registry,
+``capsim_flash_backward_total{route="kernel", dtype}``.  The forward
+launch is the same with or without a gradient: same arguments, same
+output bits, one launch counted (``flash_attention.launches``;
 ``flash_attention.heads`` counts the launches by q's head count), its
 ``attention_cost`` added to the registry's ``capsim_kernel_*`` counters
 (``kernels.cost.launched``); the backward kernels count apart
@@ -39,9 +36,9 @@ the wrapper returns an empty output of the shape the kernel writes and
 reports ``attention_cost``, the launch's FLOPs and HBM bytes, to
 ``kernels.cost`` (the plain version's S×S scores, which the card never
 holds, are never built); under grad it goes through the same
-``_FlashAttention``, whose backward on meta takes the card's route:
-float32 reports ``attention_bwd_cost`` (``flash_attention_bwd``) and
-allocates the card's outputs, bfloat16 runs the plain recompute.  A meta tensor computes nothing, so this route hides
+``_FlashAttention``, whose backward on meta takes the card's route: it
+reports ``attention_bwd_cost`` (``flash_attention_bwd``) and allocates
+the card's outputs.  A meta tensor computes nothing, so this route hides
 no device and no kernel.  Any other device raises.
 The kernel copies q/k/v rows 16 bytes at a time, so each must start on a
 16-byte boundary and step by a multiple of 16 bytes per batch and row;
@@ -83,7 +80,7 @@ def softmax_pv_plain(s: torch.Tensor, valid: torch.Tensor, weight,
     of p against the running max (not the row's final max) is the
     kernels' own: in bf16 it moves a model's logits by about as much as
     bf16 itself does.  s/valid: (B, H, Sq, Skv); weight (B, Skv) or
-    None.  With ``return_lse``, also each row's log-sum-exp as the f32
+    None.  With ``return_lse``, also each row's log-sum-exp as the
     kernel stores it for the backward, m + log(l) (B, H, Sq), +inf where
     the row has no live key."""
     B, H, Sq, Skv = s.shape
@@ -141,7 +138,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_mask: Optional[torch.Tensor] = None,
                           return_lse: bool = False):
     """The kernel's function in plain PyTorch, one materialized tile.  With
-    ``return_lse``, (output, log-sum-exp (B, H, Sq)) as the f32 kernel
+    ``return_lse``, (output, log-sum-exp (B, H, Sq)) as the kernel
     writes them for the backward (``softmax_pv_plain``)."""
     return softmax_pv_plain(scores_plain(q, k),
                             live_pairs(q, k, causal, window, kv_mask), None,
@@ -156,7 +153,9 @@ def flash_attention_backward_plain(q, k, v, o, lse, g, kv_mask=None,
     the scaled scores, P = exp(s - lse) on the live pairs (0 elsewhere,
     and on every key of a row whose lse is +inf), Δ = rowsum(g ∘ o),
     dV = Pᵀ g, dS = P ∘ (g Vᵀ - Δ), dQ = scale dS K, dK = scale dSᵀ Q;
-    in f32, cast to q's dtype."""
+    in f32, cast to q's dtype.  The bf16 kernels' rounding points: P is
+    rounded to q's dtype before dV and dS before dQ and dK (a no-op in
+    f32)."""
     scale = 1.0 / math.sqrt(q.shape[3])
     qf, kf, vf, of, gf = (x.float() for x in (q, k, v, o, g))
     live = live_pairs(q, k, causal, window, kv_mask)
@@ -164,10 +163,10 @@ def flash_attention_backward_plain(q, k, v, o, lse, g, kv_mask=None,
                                                                    0.0)
     delta = (gf * of).sum(-1).transpose(1, 2)               # (B, H, Sq)
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
-    ds = p * (dp - delta[..., None])
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), gf)
     return tuple(x.to(q.dtype) for x in (dq, dk, dv))
 
 
@@ -328,7 +327,8 @@ def _kernel():
 def _bwd_kernel():
     lib = build.load("flash_attention_bwd")
     fn = lib.capsim_flash_attention_bwd
-    fn.argtypes = [_I] + [_P] * 11 + [_I] * 4 + [_L] * 10 + [_I, _I, _F, _P]
+    fn.argtypes = [_I, _I] + [_P] * 11 + [_I] * 4 + [_L] * 10 + [_I, _I, _F,
+                                                                   _P]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -336,10 +336,11 @@ def _bwd_kernel():
 def flash_attention_bwd(q, k, v, o, lse, g, kv_mask=None,
                         causal: bool = False, window: int = 0):
     """(dq, dk, dv) by ``csrc/flash_attention_bwd.cu`` on the current
-    stream: float32 CUDA q/k/v as ``flash_attention`` checked them, the
-    forward's output ``o`` and its log-sum-exp ``lse`` (B, H, Sq), the
-    output gradient ``g``.  Its kernels (three, or one where Sq and Skv
-    are at most 16) count as one launch
+    stream: CUDA q/k/v as ``flash_attention`` checked them, the forward's
+    output ``o`` and its log-sum-exp ``lse`` (B, H, Sq), the output
+    gradient ``g``; q's dtype chooses the f32 or the bf16 kernels.  Its
+    kernels (three, or in f32 one where Sq and Skv are at most 16) count
+    as one launch
     (``flash_attention_bwd.launches``, apart from the forward's), its
     ``attention_bwd_cost`` added to the registry's ``capsim_kernel_*``
     counters under ``kernel="flash_attention_bwd"``.  Head dim 112 runs
@@ -349,8 +350,8 @@ def flash_attention_bwd(q, k, v, o, lse, g, kv_mask=None,
     ``kernels.cost`` (the dry-run's route)."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
-    work = attention_bwd_cost(B, Sq, Skv, H, D, 4, kv_mask is not None,
-                              causal)
+    work = attention_bwd_cost(B, Sq, Skv, H, D, q.element_size(),
+                              kv_mask is not None, causal)
     q, k, v = pad_head_dim(q, k, v)
     o, g = (x.contiguous() for x in pad_head_dim(o, g, g)[:2])
     Dp = q.shape[3]
@@ -362,7 +363,8 @@ def flash_attention_bwd(q, k, v, o, lse, g, kv_mask=None,
         cost.report("flash_attention_bwd", *work)
     else:
         lib, fn = _bwd_kernel()
-        rc = fn(Dp, *(None if x is None else x.data_ptr() for x in (
+        rc = fn(_DTYPE_CODES[q.dtype], Dp, *(
+            None if x is None else x.data_ptr() for x in (
             q, k, v, o, g, kv_mask, lse, delta, dq, dk, dv)), B, Sq, Skv, H,
             *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
             *o.stride()[:2], *g.stride()[:2], int(causal), int(window),
@@ -379,21 +381,21 @@ def flash_attention_bwd(q, k, v, o, lse, g, kv_mask=None,
 flash_attention_bwd.launches = 0
 
 BACKWARD_TOTAL = "capsim_flash_backward_total"
-_ROUTES = {}
+_BACKWARDS = {}
 
 
-def count_backward(route: str, dtype: torch.dtype) -> None:
-    """One backward of ``_FlashAttention`` by its route, ``kernel`` or
-    ``recompute``, and q's dtype: the registry's
-    ``capsim_flash_backward_total{route, dtype}``."""
-    handle = _ROUTES.get((route, dtype))
+def count_backward(dtype: torch.dtype) -> None:
+    """One backward of ``_FlashAttention`` by q's dtype: the registry's
+    ``capsim_flash_backward_total{route="kernel", dtype}``, the route
+    label its readers select on."""
+    handle = _BACKWARDS.get(dtype)
     if handle is None:
         handle = REGISTRY.counter(
             BACKWARD_TOTAL, "Backwards of the flash attention Function, by "
-            "route (the f32 kernel or the plain recompute) and dtype.",
+            "route (the backward kernels) and dtype.",
             ("route", "dtype")).labels(
-            route=route, dtype=str(dtype).removeprefix("torch."))
-        handle = _ROUTES.setdefault((route, dtype), handle)
+            route="kernel", dtype=str(dtype).removeprefix("torch."))
+        handle = _BACKWARDS.setdefault(dtype, handle)
     handle.inc()
 
 
@@ -403,8 +405,9 @@ def flash_attention_backward(q, k, v, kv_mask, g, causal: bool = False,
     gradient ``g``: the attention recomputed through
     ``flash_attention_plain`` and differentiated by autograd, in a span
     of the same name (``obs.span``: a profiler range while one
-    records).  ``_FlashAttention``'s backward for bfloat16 and meta;
-    float32 on the card takes ``flash_attention_bwd``."""
+    records), as the reference's custom VJP recomputes through
+    ``attention_ref``.  No route of ``_FlashAttention`` takes it: it is
+    the yardstick the backward kernels are checked and timed against."""
     with torch.enable_grad(), obs.span("flash_attention_backward"):
         qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
         o = flash_attention_plain(*qkv, causal=causal, window=window,
@@ -413,37 +416,28 @@ def flash_attention_backward(q, k, v, kv_mask, g, causal: bool = False,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernel's launch as the forward; the backward by dtype: float32
-    (on the card, and on meta as the card runs it), the backward kernels
-    (``flash_attention_bwd``) from the output and the log-sum-exp the
-    forward wrote; bfloat16 the plain version's recompute,
-    ``flash_attention_backward``.  Each backward is counted by its route
+    """The kernel's launch as the forward, which also writes each row's
+    log-sum-exp; the backward kernels (``flash_attention_bwd``, on the
+    card and on meta as the card runs them) from the output and that
+    log-sum-exp, in either dtype.  Each backward is counted
     (``count_backward``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, window):
-        lse = None
-        if q.dtype == torch.float32:
-            B, Sq, H, _ = q.shape
-            lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+        B, Sq, H, _ = q.shape
+        lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
         o = _launch(q, k, v, kv_mask, causal, window, lse)
-        ctx.save_for_backward(q, k, v, kv_mask, None if lse is None else o,
-                              lse)
+        ctx.save_for_backward(q, k, v, kv_mask, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, kv_mask, o, lse = ctx.saved_tensors
-        if lse is None:
-            count_backward("recompute", q.dtype)
-            dq, dk, dv = flash_attention_backward(q, k, v, kv_mask, g,
-                                                  ctx.causal, ctx.window)
-        else:
-            count_backward("kernel", q.dtype)
-            with obs.span("flash_attention_backward"):
-                dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, kv_mask,
-                                                 ctx.causal, ctx.window)
+        count_backward(q.dtype)
+        with obs.span("flash_attention_backward"):
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, kv_mask,
+                                             ctx.causal, ctx.window)
         return dq, dk, dv, None, None, None
 
 
@@ -471,7 +465,7 @@ def _launch(q, k, v, kv_mask, causal: bool, window: int,
             lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the kernel on checked arguments; head dim 112 runs
     zero-padded to 128 and is cut back.  ``lse``: None, or a float32 (B,
-    H, Sq) tensor the f32 kernel fills with each row's log-sum-exp.  On
+    H, Sq) tensor the kernel fills with each row's log-sum-exp.  On
     meta: the meta route."""
     if q.device.type == "meta":
         return meta_attention("flash_attention", q, k, kv_mask, causal)

@@ -31,13 +31,10 @@ While the step runs, four counters watch it:
   once, rounded up to the caching allocator's 512-byte blocks, and
   freed when its last tensor dies.
 
-Flash attention's backward takes the card's route on meta: in float32
-the backward kernels, whose cost ``kernels.cost`` counts; in bfloat16
-the plain recompute, which runs once per signature, a later call with
-the same shapes replaying its counts (``_ReplayedBackward``), since its
-key tiles cost thousands of Python-dispatched meta ops a layer.  The predictor's
-instruction encoder takes the card's path on meta (passes of
-``ENCODE_CHUNK`` rows), so the counts are the card's.
+Flash attention's backward takes the card's route on meta, in either
+dtype: the backward kernels, whose cost ``kernels.cost`` counts.  The
+predictor's instruction encoder takes the card's path on meta (passes
+of ``ENCODE_CHUNK`` rows), so the counts are the card's.
 
 The record (``results/dryrun_torch/<arch>__<shape>__<mesh>.json``)
 keeps the reference's keys, so ``roofline_report`` reads it:
@@ -162,7 +159,7 @@ class StepCounter(TorchDispatchMode):
     def __init__(self, known=()):
         super().__init__()
         self.bytes_accessed = 0.0
-        self.live = self.peak = self.window_peak = 0
+        self.live = self.peak = 0
         self._storages = {}
         # held, so that their ids stay theirs while the step runs
         self._known = [t.untyped_storage() for t in known]
@@ -182,7 +179,6 @@ class StepCounter(TorchDispatchMode):
         self._storages[key] = weakref.ref(st, freed)
         self.live += size
         self.peak = max(self.peak, self.live)
-        self.window_peak = max(self.window_peak, self.live)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -194,52 +190,6 @@ class StepCounter(TorchDispatchMode):
                 _nbytes(t) for t in _tensors((args, kwargs)) + outs)
         for t in outs:
             self._track(t)
-        return out
-
-
-class _ReplayedBackward:
-    """Flash attention's bfloat16 backward (the plain recompute, ``fa_ops.
-    flash_attention_backward``) runs on meta once per signature (shapes,
-    dtypes, causal, window, mask); a later call with the same one
-    creates its three gradients and adds what the first added to the
-    counters (FLOPs, bytes accessed) and its transient live bytes to the
-    peak: the same aten ops on the same shapes count the same.  On meta
-    each op costs Python time, and the plain recompute's key tiles run
-    thousands of ops a layer."""
-
-    def __init__(self, flops: FlopCounterMode, steps: StepCounter):
-        from repro_torch.kernels.flash_attention import ops as fa_ops
-        self.fa_ops, self.flops, self.steps = fa_ops, flops, steps
-        self.real = fa_ops.flash_attention_backward
-        self.seen = {}
-        self.replayed_flops = 0.0
-
-    def __enter__(self):
-        self.fa_ops.flash_attention_backward = self
-        return self
-
-    def __exit__(self, *exc):
-        self.fa_ops.flash_attention_backward = self.real
-
-    def __call__(self, q, k, v, kv_mask, g, causal=False, window=0):
-        key = tuple((tuple(t.shape), t.dtype) if t is not None else None
-                    for t in (q, k, v, kv_mask, g)) + (causal, window)
-        st = self.steps
-        if key in self.seen:
-            d_flops, d_bytes, transient = self.seen[key]
-            before, base = st.bytes_accessed, st.live
-            out = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
-                        for t in (q, k, v))
-            st.bytes_accessed = before + d_bytes
-            st.peak = max(st.peak, base + transient)
-            self.replayed_flops += d_flops
-            return out
-        f0, b0, base = self.flops.get_total_flops(), st.bytes_accessed, \
-            st.live
-        st.window_peak = base
-        out = self.real(q, k, v, kv_mask, g, causal, window)
-        self.seen[key] = (self.flops.get_total_flops() - f0,
-                          st.bytes_accessed - b0, st.window_peak - base)
         return out
 
 
@@ -266,8 +216,7 @@ def analyze(run, args) -> dict:
     t0 = time.perf_counter()
     with FlopCounterMode(display=False) as flops, count_kernels() as kernels, \
             coll.record_collectives() as records, \
-            StepCounter(held) as steps, _ReplayedBackward(flops, steps) \
-            as replay:
+            StepCounter(held) as steps:
         out = run()
     seconds = time.perf_counter() - t0
     outs = _tensors(out)
@@ -286,8 +235,7 @@ def analyze(run, args) -> dict:
             "alias_bytes": storage_bytes(aliased),
         },
         "cost": {
-            "flops": float(flops.get_total_flops()) + replay.replayed_flops
-            + kernels.total_flops,
+            "flops": float(flops.get_total_flops()) + kernels.total_flops,
             "bytes_accessed": steps.bytes_accessed + kernels.total_bytes,
         },
         "collectives": rf.collectives_from_records(records),

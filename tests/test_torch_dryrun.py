@@ -11,8 +11,8 @@ tensors, and what the counters say is held to identities.
   direction, in order).
 - A causal prefill's flash FLOPs from the meta route are the bound
   formula's (``attention_cost``) once a layer.
-- A flash backward replayed from an earlier call's counts counts what
-  running it counts.
+- A bfloat16 train step's flash backward counts the backward kernels'
+  bound formula (``attention_bwd_cost``) once a layer.
 - The record keeps the reference's keys and ``roofline_report`` reads
   it; a frontend under a sequence-sharded layout is recorded skipped;
   the CLI writes a record for rank 0 of the production mesh."""
@@ -28,7 +28,7 @@ from _torch_ranks import spawn, wait  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_smoke_config  # noqa: E402
 from repro_torch.distributed import sharding as sh  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    attention_cost)
+    attention_bwd_cost, attention_cost)
 from repro_torch.launch import dryrun as dry  # noqa: E402
 from repro_torch.launch import roofline_report as rr  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
@@ -100,19 +100,22 @@ def test_causal_prefill_flops_match_the_bound_formula():
 
 
 @pytest.mark.parametrize("remat", [False, True])
-def test_replayed_backward_counts_as_the_real_one(monkeypatch, remat):
-    """The second layer's flash backward, replayed from the first's
-    counts, adds what running it adds: FLOPs, bytes and the peak.  In
-    bfloat16, the dtype whose backward is the plain recompute (float32
-    takes the backward kernels' cost on meta, as on the card)."""
+def test_bf16_flash_backward_counts_the_kernels_cost(remat):
+    """A bfloat16 train step's flash backward takes the card's route on
+    meta, the backward kernels: one ``attention_bwd_cost`` at bf16's
+    element size a layer, remat or not (remat recomputes only the
+    forward, whose launches it doubles)."""
     cfg = _cfg().replace(remat=remat, dtype="bfloat16")
-    replayed = dry.measure_cell(cfg, TRAIN, None, None, TrainConfig())
-    monkeypatch.setattr(dry._ReplayedBackward, "__call__",
-                        lambda self, *a: self.real(*a))
-    real = dry.measure_cell(cfg, TRAIN, None, None, TrainConfig())
-    assert cfg.num_layers == 2
-    assert replayed["cost"] == real["cost"]
-    assert replayed["memory"] == real["memory"]
+    rec = dry.measure_cell(cfg, TRAIN, None, None, TrainConfig())
+    B, S = TRAIN.global_batch, TRAIN.seq_len
+    want = attention_bwd_cost(B, S, S, cfg.num_heads, cfg.head_dim, 2,
+                              False, True)
+    L = cfg.num_layers
+    assert L == 2
+    assert rec["kernels"]["flash_attention_bwd"] == {
+        "calls": L, "flops": L * want[0], "bytes": L * want[1]}
+    assert rec["kernels"]["flash_attention"]["calls"] == L * (2 if remat
+                                                              else 1)
 
 
 PROGRAM = r"""

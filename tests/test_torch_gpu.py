@@ -700,9 +700,8 @@ def _grads_close(got, ref, tol, what):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_gradient_matches_plain_on_card(dtype):
-    """The Function's gradients (the kernel's forward, the plain
-    version's recompute) against autograd through the plain version on
-    the card, at the predictor's three shapes, a causal window with a key
+    """The Function's gradients (the kernel's forward, the backward
+    kernels) against autograd through the plain version on the card, at the predictor's three shapes, a causal window with a key
     mask and head dim 112: f32 <= 1e-4 relative norm per input, bf16 <=
     2e-2; one kernel launch per forward, and the forward bitwise the
     no-grad launch's."""
@@ -775,6 +774,67 @@ def test_flash_backward_kernel_matches_plain_equations_on_card():
     was = routed()
     torch.autograd.grad(fa_ops.flash_attention(qg, k, v, kv_mask=m), qg, g)
     assert routed() == was + 1
+
+
+def test_flash_backward_bf16_kernel_matches_plain_equations_on_card():
+    """The bf16 backward kernels against ``flash_attention_backward_plain``
+    (P and dS rounded to bf16 where the kernels round them) from the same
+    forward output and log-sum-exp, at the kernel cases and their edges
+    (head dims 16-128, causal, window, a query offset, ``kv_mask``), head
+    dim 112 and a causal GQA block at D = 128: <= ``TOL["bfloat16"]``
+    relative norm per input, the same bits twice, a masked key's dk and
+    dv 0, one launch counted a call; the bf16 forward's O bitwise the
+    same with and without the log-sum-exp, which is the plain one's
+    within 1e-4 (+inf on a keyless row); the Function's backward routed
+    to the kernels (``capsim_flash_backward_total{route="kernel",
+    dtype="bfloat16"}``)."""
+    _need_card()
+    from repro_torch.obs import REGISTRY
+    gqa = (2, 512, 512, 4, 128, True, 0, False)   # 2 query heads a KV head
+    cases = FA_CASES + FA_EDGE_CASES + [(3, 9, 14, 2, 64, True, 4, True),
+                                        (2, 33, 257, 2, 112, True, 50, True),
+                                        gqa]
+    for case in cases:
+        q, k, v, m = (None if x is None else _cuda(x, torch.float32)
+                      for x in fa_inputs(case))
+        q, k, v = (x.bfloat16() for x in (q, k, v))
+        if case == gqa:
+            k, v = (x[:, :, ::2].repeat_interleave(2, dim=2) for x in (k, v))
+        B, Sq, Skv, H, D, causal, window, _ = case
+        g = torch.randn_like(q)
+        lse = torch.empty(B, H, Sq, device="cuda")
+        o = fa_ops._launch(q, k, v, m, causal, window, lse)
+        assert torch.equal(o, fa_ops._launch(q, k, v, m, causal, window))
+        _, lse_ref = fa_ops.flash_attention_plain(
+            q, k, v, causal=causal, window=window, kv_mask=m,
+            return_lse=True)
+        keyless = torch.isinf(lse_ref)
+        assert bool(torch.isposinf(lse[keyless]).all()), case
+        assert float((lse - lse_ref)[~keyless].abs().max()) <= 1e-4, case
+        before = fa_ops.flash_attention_bwd.launches
+        got = fa_ops.flash_attention_bwd(q, k, v, o, lse, g, m, causal,
+                                         window)
+        again = fa_ops.flash_attention_bwd(q, k, v, o, lse, g, m, causal,
+                                           window)
+        assert fa_ops.flash_attention_bwd.launches == before + 2
+        assert all(x.dtype == torch.bfloat16 for x in got)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), case
+        ref = fa_ops.flash_attention_backward_plain(q, k, v, o, lse, g, m,
+                                                    causal, window)
+        _grads_close(got, ref, TOL["bfloat16"], case)
+        if m is not None:
+            off = m == 0
+            assert bool((got[1][off] == 0).all() and (got[2][off] == 0).all())
+    qg = q.clone().requires_grad_(True)
+
+    def routed():
+        found = REGISTRY.collect(fa_ops.BACKWARD_TOTAL, route="kernel",
+                                 dtype="bfloat16")
+        return found[0][1] if found else 0.0
+    was, before = routed(), fa_ops.flash_attention_bwd.launches
+    torch.autograd.grad(fa_ops.flash_attention(qg, k, v, causal=True), qg, g)
+    assert routed() == was + 1
+    assert fa_ops.flash_attention_bwd.launches == before + 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

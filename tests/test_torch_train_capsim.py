@@ -2,8 +2,10 @@
 ``mape_loss`` and its gradients, the train step over three SGD-momentum
 steps (with context and without), ``flash_attention_backward`` against
 the custom VJP of the reference's flash attention at the predictor's
-three attention shapes and a causal window, the multicore training set
-bitwise, and the launcher.  Parameters come from JAX ``init_params``
+three attention shapes and a causal window, the backward kernels' plain
+version against autograd in f32 and in bf16 (with its rounding points,
+GQA and a query offset), the multicore training set bitwise, and the
+launcher.  Parameters come from JAX ``init_params``
 through the bridge with the norm scales and biases redrawn nonzero;
 batches from a numpy seed.  The reference runs its training default,
 ``attn_impl="chunked"`` (XLA attention), for the model; the kernel
@@ -285,6 +287,60 @@ def test_flash_backward_plain_masked_rows_and_keys(name, shape, causal,
     assert bool(off.any()) and bool((dk[off] == 0).all()) \
         and bool((dv[off] == 0).all())
     assert bool(dq[1:].abs().max() > 0) and bool(dk[~off].abs().max() > 0)
+
+
+# the bf16 backward kernels' cases: every case above, a causal GQA case
+# at D = 128 with each KV head repeated for 2 query heads (as
+# ``models/attention.py`` repeats them), and a query offset (Sq < Skv)
+FA_BF16_CASES = [c + (1,) for c in FA_LSE_CASES] + [
+    ("gqa_causal_d128", (2, 96, 96, 4, 128, False), True, 0, 2),
+    ("q_offset", (2, 40, 100, 2, 64, True), True, 0, 1),
+]
+# bf16 keeps 8 significant bits (one rounding moves a value by up to
+# 2^-9 relative); the plain backward rounds P and dS where the kernels
+# do, autograd through the plain forward rounds dP and the outputs'
+# sums elsewhere, so the two differ by a few roundings: <= 7.6e-3 on
+# these cases (the bf16 autograd's own gap to f32 is <= 5.2e-3)
+FLASH_BF16_GRAD_REL = 2e-2
+
+
+@pytest.mark.parametrize("name,shape,causal,window,groups", FA_BF16_CASES,
+                         ids=[c[0] for c in FA_BF16_CASES])
+def test_flash_backward_plain_bf16_matches_autograd(name, shape, causal,
+                                                    window, groups):
+    """In bfloat16, ``flash_attention_backward_plain`` (P rounded before
+    dv, dS before dq and dk) against autograd through
+    ``flash_attention_plain`` in bfloat16, the KV heads' gradients summed
+    over the query heads that share them; finite, the keyless row's dq
+    and the masked keys' dk, dv exactly 0."""
+    q, k, v, g, m = _fa_torch_case(name, shape)
+    H = q.shape[2]
+    q, g = q.bfloat16(), g.bfloat16()
+    k, v = (x[:, :, :H // groups].bfloat16() for x in (k, v))
+    kw = dict(causal=causal, window=window, kv_mask=m)
+
+    def rep(x):
+        return x.repeat_interleave(groups, dim=2)
+    qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = torch.autograd.grad(tfa.flash_attention_plain(
+        qkv[0], rep(qkv[1]), rep(qkv[2]), **kw), qkv, g)
+    o, lse = tfa.flash_attention_plain(q, rep(k), rep(v), return_lse=True,
+                                       **kw)
+    dq, dk, dv = tfa.flash_attention_backward_plain(q, rep(k), rep(v), o, lse,
+                                                    g, m, causal, window)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    if m is not None:
+        off = m == 0
+        assert bool((dq[0] == 0).all()) and bool((dk[off] == 0).all()) \
+            and bool((dv[off] == 0).all())
+    got = (dq,) + tuple(x.float().unflatten(2, (H // groups, groups)).sum(3)
+                        for x in (dk, dv))
+    for a, b, what in zip(got, ref, "qkv"):
+        assert a.shape == b.shape, what
+        assert bool(torch.isfinite(a).all()), (name, what)
+        err = float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max())
+        assert err <= FLASH_BF16_GRAD_REL, (name, what, err)
 
 
 def _datasets_equal(a, b):

@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
-"""The f32 flash backward kernels alone (``csrc/flash_attention_bwd.cu``):
-``chip_smoke.py``'s checks and timings of them in about a minute, after
-building the kernels.
+"""The flash backward kernels alone, f32 and bf16
+(``csrc/flash_attention_bwd.cu``): ``chip_smoke.py``'s checks and
+timings of them in about a minute, after building the kernels.
 
     python3 tools/flash_bwd_phase.py [--grads]   # from a checkout, one GPU
 
 It builds every kernel from ``src/repro_torch/csrc``, prints the card's
 name and power limit, each backward kernel's registers and spills from
-the build log and its SASS (no HMMA), and runs
+the build log and its SASS (HMMA in bf16, none in f32), and runs
 ``chip_smoke.check_flash_backward`` with TF32 off: the kernels against
 the plain equations and the plain recompute at the train cells' shapes
-and every f32 head dim, the same bits twice, then kernel, recompute,
-SDPA backward and bound ms.  ``--grads`` adds ``check_train_grads`` (the
+(the nemo3 cell's causal attention in bf16) and every head dim, the
+same bits twice, then kernel, recompute, SDPA backward and bound ms.  ``--grads`` adds ``check_train_grads`` (the
 Functions' gradients at the train step's shapes, forward bitwise the
 no-grad launch).  It exits non-zero when a check fails.
 """
